@@ -1,0 +1,33 @@
+"""Layers of the dense family: TT/dense linear, norms, RoPE, embedding,
+MLP and GQA attention (ports of ``src/repro/nn/``)."""
+
+from .linear import (
+    LinearSpec,
+    TTConfig,
+    install_plan,
+    linear_apply,
+    linear_init,
+    plan_context,
+    planned_layer,
+)
+from .norms import rmsnorm, rmsnorm_init
+from .rope import apply_rope, rope_for
+from .embedding import EmbeddingSpec, embedding_apply, embedding_init, head_apply
+from .mlp import MLPSpec, mlp_apply, mlp_init
+from .attention import (
+    AttentionSpec,
+    KVCache,
+    attention_apply,
+    attention_init,
+    init_kv_cache,
+)
+
+__all__ = [
+    "LinearSpec", "TTConfig", "install_plan",
+    "linear_apply", "linear_init", "plan_context", "planned_layer",
+    "rmsnorm", "rmsnorm_init", "apply_rope", "rope_for",
+    "EmbeddingSpec", "embedding_apply", "embedding_init", "head_apply",
+    "MLPSpec", "mlp_apply", "mlp_init",
+    "AttentionSpec", "KVCache", "attention_apply", "attention_init",
+    "init_kv_cache",
+]
