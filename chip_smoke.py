@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of tt-lm-100m serving on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of tt-lm-100m serving and training on one
+NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -8,13 +9,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. card: ``nvidia-smi`` name and power limit.
 2. build: ``nvcc`` builds ``src/repro_torch/csrc/*.cu``, one process per
    source, all started together.
-3. kernels: every CUDA kernel of the serving path (K1 ``streaming_tt``,
-   K2-K4 ``tt_gemm`` OS/WS/IS) against its plain PyTorch version at the
-   shapes the main path gives it, plus ragged token counts.  Per kernel:
-   max abs error, kernel ms, plain ms, ``library_ms`` (one PyTorch call
-   that computes the same function; used nowhere in the port) and the
-   bound (bytes over 3.35 TB/s or fp32 FLOPs over 67 TFLOP/s, the
-   larger).
+3. kernels: every CUDA kernel of the serving and training paths (K1
+   ``streaming_tt``, K2-K4 ``tt_gemm`` OS/WS/IS, K5 ``fused_path``) against
+   its plain PyTorch version at the shapes the main paths give it, plus
+   ragged token counts; K5 also bit for bit against the per-step CUDA
+   ``tt_gemm`` route.  Per kernel: max abs error, kernel ms, plain ms,
+   ``library_ms`` (PyTorch calls that compute the same function; used
+   nowhere in the port) and the bound (bytes over 3.35 TB/s or fp32 FLOPs
+   over 67 TFLOP/s, the larger).
 4. serve: full-width tt-lm-100m with random weights from a seed, through
    ``python -m repro_torch.launch.serve``'s code path: the full plan with
    ``--strict-plan`` (continuous, then oneshot: the tokens must match), the
@@ -25,20 +27,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``torch.profiler``).
 6. check: prefill logits through the kernels agree with the plain
    executor on the card; tt-lm-smoke on the card agrees with the CPU.
+7. train: full-width tt-lm-100m through ``python -m
+   repro_torch.launch.train``'s code path, batch 8 x seq 256, 3 AdamW steps
+   under each committed train plan (``tt-lm-100m.train.json``: K1 forward
+   and dx, tt_gemm weight gradients; ``tt-lm-100m.train.tt_gemm.json``: K5
+   fused segments forward, tt_gemm backward).  Launch counts are zeroed
+   just before and read just after; per plan the losses, step ms, tokens/s,
+   launches per step and the execution log's backends, and one profiled
+   step (``torch.profiler``).
+8. train check: the first step's loss and gradient norm through the
+   kernels against the same step on the plain executor (``--plan-backend
+   jnp``) on the card, rel 1e-4; a one-step tt-lm-smoke train on the card
+   against the CPU.
 
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): the model is fp32.
 The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
-JSON.  Nothing of JAX or of the JAX package is imported.
+JSON.  The kernels JSON gives each kernel's launches per main path,
+``{"serve": n, "train": m}``, each path's counts zeroed just before it
+and read just after; the run fails unless every kernel of
+:data:`SERVE_KERNELS` launched on the serve path and every kernel of
+:data:`TRAIN_KERNELS` on the train path.  Nothing of JAX or of the JAX
+package is imported.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -51,6 +72,12 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
 SERVE = ["--batch", "4", "--n-requests", "8", "--prompt-len", "32",
          "--gen", "16", "--strict-plan"]
+
+#: kernels each main path must launch: serving runs K1 under the auto plan
+#: and K2-K4 under ``--plan-backend tt_gemm``; training runs K1 forward and
+#: dx, K3 WS weight gradients and K5 fused segments
+SERVE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")
+TRAIN_KERNELS = ("streaming_tt", "tt_gemm_ws", "fused_path")
 
 
 def log(msg: str) -> None:
@@ -261,6 +288,118 @@ def check_tt_gemm(device, layers) -> list[dict]:
     return out
 
 
+def _replay(work, i, j, contract):
+    (ea, ta), (eb, tb) = work[i], work[j]
+    shared = [x for x in ea if x in eb]
+    val = contract(ta, tb, ([ea.index(x) for x in shared],
+                            [eb.index(x) for x in shared]))
+    ec = tuple(x for x in ea if x not in shared) + tuple(
+        x for x in eb if x not in shared)
+    return [w for k, w in enumerate(work) if k not in (i, j)] + [(ec, val)]
+
+
+def check_fused(device) -> dict:
+    """K5 at the full-width segments of attn.wq, mlp.wg and mlp.wd under
+    ``tt-lm-100m.train.tt_gemm.json`` (path steps [4, 6): X (tokens x
+    d_in) @ (d_in x 16), then (d_out x 16) @ (16 x tokens)), at the train
+    step's 2048 tokens and at 37: against the plain version, and bit for
+    bit against the per-step CUDA tt_gemm route with the plan's dataflow
+    and blocks."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dse_cli import model_dse_layers
+    from repro_torch.kernels import fused_path, ops
+    from repro_torch.plan import load_plan
+
+    plan = load_plan(os.path.join(PLANS, "tt-lm-100m.train.tt_gemm.json"))
+    gen = torch.Generator().manual_seed(3)
+    err, timing = 0.0, {}
+    for name in ("attn.wq", "mlp.wg", "mlp.wd"):
+        lp = plan.layer(name)
+        (s0, e0) = next(g for g in lp.segments if g[1] - g[0] >= 2)
+        blocks = dict(block_m=lp.tiling.block_m, block_k=lp.tiling.block_k,
+                      block_n=lp.tiling.block_n)
+        for tokens in (2048, 37):
+            tn = dict((n.split("[")[0], t) for n, t in model_dse_layers(
+                get_config("tt-lm-100m"), tokens=tokens))[name]
+            work = [(n.edges, (torch.randn(n.dims, generator=gen) * 0.3).to(device))
+                    for n in tn.nodes]
+            contract = ops.gemm_contract(dataflow=lp.dataflow, **blocks)
+            for (i, j) in lp.path_steps[:s0]:
+                work = _replay(work, i, j, contract)
+            chain = lp.path_steps[s0:e0]
+
+            def kernel():
+                return fused_path.fused_segment_contract(
+                    work, chain, block_tokens=lp.tiling.block_tokens, **blocks)
+
+            def plain():
+                return fused_path.fused_segment_contract_plain(work, chain, **blocks)
+
+            (ec, got), (_, want) = kernel(), plain()
+            w = list(work)
+            for (i, j) in chain:
+                w = _replay(w, i, j, contract)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = 1e-5 * max(1.0, want.abs().max().item())
+            if not torch.isfinite(got).all() or e > tol:
+                raise AssertionError(f"fused_path {name} tokens {tokens}: max abs "
+                                     f"err {e} > {tol}")
+            if w[-1][0] != ec or not torch.equal(w[-1][1], got):
+                raise AssertionError(f"fused_path {name} tokens {tokens}: not bit-"
+                                     "identical to the per-step tt_gemm route")
+            err = max(err, e)
+            if tokens != 2048:
+                continue
+            # library: the same two steps as two torch.matmul calls; the
+            # batch-free operands' permutes are weight layout, made outside
+            # (inputs in first-use order: X, the input-side merge (r, j..),
+            # the output-side merge (i.., r, i..))
+            pos, _, _ = fused_path._compile_segment(
+                [(e_, tuple(t_.shape)) for e_, t_ in work], chain, "b")
+            (_, x_t), (_, w_in), (w_out_e, w_out_t) = (work[p] for p in pos)
+            r_ax = [k for k, e_ in enumerate(w_out_e) if e_.startswith("r")]
+            w_out2 = w_out_t.permute([k for k in range(w_out_t.dim()) if k not in r_ax]
+                                     + r_ax).reshape(-1, w_in.shape[0]).contiguous()
+            x2 = x_t.reshape(tokens, -1)
+            w_in2 = w_in.reshape(w_in.shape[0], -1)
+
+            def library():
+                return torch.matmul(w_out2, torch.matmul(x2, w_in2.t()).t())
+
+            le = (library().reshape(got.shape) - want).abs().max().item()
+            if le > 1e-4 * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"fused_path library check off by {le}")
+            d_in, d_out, r = x2.shape[1], w_out2.shape[0], w_in.shape[0]
+            nbytes = 4 * (x2.numel() + w_in.numel() + w_out_t.numel() + got.numel())
+            b_ms, b_by = bound(nbytes, 2 * tokens * r * (d_in + d_out))
+            prog = fused_path.program_for(work, chain, block_k=blocks["block_k"],
+                                          block_tokens=lp.tiling.block_tokens,
+                                          n_sm=torch.cuda.get_device_properties(
+                                              device).multi_processor_count)
+            ms, host_ms = timed(kernel)
+            timing[name] = dict(
+                at=f"{name} segment {[s0, e0]}, tokens {tokens}: ({tokens} x {d_in})"
+                   f" @ ({d_in} x {r}) then ({d_out} x {r}) @ ({r} x {tokens}); "
+                   f"kernel token block {prog.block_tokens}, "
+                   f"{math.ceil(tokens / prog.block_tokens)} blocks, "
+                   f"{prog.smem_bytes} B shared memory",
+                ms=ms, host_ms=host_ms, plain_ms=timed(plain)[0],
+                library_ms=timed(library)[0], bound_ms=b_ms, bound_by=b_by)
+    for name, t in timing.items():
+        log(f"  fused_path at {t['at']}: kernel {_fmt(t['ms'])} ms (host "
+            f"{_fmt(t['host_ms'])} ms), plain {_fmt(t['plain_ms'])} ms, library "
+            f"{_fmt(t['library_ms'])} ms, bound {_fmt(t['bound_ms'])} ms "
+            f"({t['bound_by']})")
+    log(f"  fused_path: 3 layers x (2048, 37) tokens, max abs err {err:.3e}, "
+        "bit-identical to the per-step CUDA tt_gemm route: yes")
+    return dict(name="fused_path", max_abs_err=err, **timing["mlp.wg"])
+
+
 # ---------------------------------------------------------------------------
 # phase 4 and 5: serving and the output check
 # ---------------------------------------------------------------------------
@@ -339,6 +478,25 @@ def launches_per_call(device) -> list[str]:
     return notes
 
 
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+
+
+def device_time(avgs) -> tuple[float, float, list]:
+    """(ms the card was busy, ms of every event's device time summed, the
+    device events by time).  Only events that ran on the card (kernels,
+    copies) count as busy time: a host-side op (an aten op, an autograd
+    Function) also carries the device time of the kernels it launched,
+    so summing every event counts those kernels twice."""
+    from torch.autograd import DeviceType
+
+    on_card = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    return (sum(_dev_us(e) for e in on_card) / 1e3,
+            sum(_dev_us(e) for e in avgs) / 1e3,
+            sorted(on_card, key=_dev_us, reverse=True))
+
+
 def decode_profile(device) -> list[str]:
     """Where a full-width decode step (full plan, 4 busy lanes) spends its
     time: host wall per step, the card's busy time per step from
@@ -384,21 +542,19 @@ def decode_profile(device) -> list[str]:
     except Exception as e:  # the profiler is optional instrumentation here
         return [f"decode step profile: not measured ({type(e).__name__}: {e})"]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    busy = sum(dev_us(e) for e in avgs) / 1e3 / n
+    busy, every, top = device_time(avgs)
+    busy, every = busy / n, every / n
     if busy <= 0:
         return [f"decode step (full plan, 4 lanes): {wall:.2f} ms wall; card "
                 "busy time not measured (the profiler saw no device time)"]
-    top = sorted(avgs, key=dev_us, reverse=True)[:6]
     return [f"decode step (full plan, 4 lanes, torch.profiler over {n} steps): "
             f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
-            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%",
+            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
+            f"(device events only; every event's device time summed: "
+            f"{every:.2f} ms)",
             "  top device time per step: " + "; ".join(
-                f"{e.key[:48]} {dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
-                for e in top)]
+                f"{e.key[:48]} {_dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
+                for e in top[:6])]
 
 
 def output_check(device) -> list[str]:
@@ -445,6 +601,190 @@ def output_check(device) -> list[str]:
     return notes
 
 
+# ---------------------------------------------------------------------------
+# phase 7 and 8: training and the train check
+# ---------------------------------------------------------------------------
+
+TRAIN = ["--batch", "8", "--seq", "256", "--log-every", "1"]
+TRAIN_PLANS = ("tt-lm-100m.train.json", "tt-lm-100m.train.tt_gemm.json")
+
+
+def train_runs(ckpt_root: str) -> tuple[dict, dict, list[str]]:
+    """Three full-width train steps under each committed train plan.
+    Returns (launch counts of the whole phase, step-0 metrics per plan,
+    report lines)."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch.train import run
+
+    notes, first = [], {}
+    launches.reset()
+    for name in TRAIN_PLANS:
+        log(f"--- train: {name}")
+        out = run(["--plan", os.path.join(PLANS, name), "--steps", "3",
+                   "--ckpt-dir", os.path.join(ckpt_root, name)] + TRAIN)
+        if out.code != 0 or len(out.losses) != 3:
+            raise AssertionError(f"train ({name}) exited {out.code}")
+        if not all(math.isfinite(x) for x in out.losses + out.grad_norms):
+            raise AssertionError(f"train ({name}): non-finite loss {out.losses}")
+        steady = out.step_s[1:]
+        ms = 1e3 * sum(steady) / len(steady)
+        per_step = {k: v for k, v in out.launches[-1].items() if v}
+        notes.append(
+            f"{name}: losses {[round(x, 6) for x in out.losses]}, grad norms "
+            f"{[round(x, 6) for x in out.grad_norms]}; step ms first "
+            f"{1e3 * out.step_s[0]:.1f}, then {[round(1e3 * t, 1) for t in steady]}"
+            f" (mean {ms:.1f}); {8 * 256 / ms * 1e3:.1f} train tokens/s; "
+            f"launches per step {per_step}; fwd backends {out.fwd_backends}, "
+            f"bwd backends {out.bwd_backends}, fused chain runs {out.fused_runs}")
+        first[name] = (out.losses[0], out.grad_norms[0])
+    return launches.snapshot(), first, notes
+
+
+def train_check(device, first: dict, ckpt_root: str) -> list[str]:
+    """Step 0 through the kernels against the plain executor on the card;
+    a one-step tt-lm-smoke train on the card against the CPU."""
+    from repro_torch.launch.train import run
+
+    notes = []
+    plain = run(["--plan", os.path.join(PLANS, TRAIN_PLANS[0]), "--plan-backend",
+                 "jnp", "--steps", "1", "--ckpt-dir",
+                 os.path.join(ckpt_root, "jnp")] + TRAIN)
+    if plain.code != 0:
+        raise AssertionError(f"plain-executor train exited {plain.code}")
+    want = (plain.losses[0], plain.grad_norms[0])
+    for name, got in first.items():
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        if max(rel) > 1e-4:
+            raise AssertionError(f"{name}: step-0 loss/grad norm {got} vs plain "
+                                 f"executor {want} (rel {rel})")
+        notes.append(f"{name}: step-0 loss {got[0]:.7f}, grad norm {got[1]:.7f}; "
+                     f"plain executor on the card {want[0]:.7f}, {want[1]:.7f} "
+                     f"(rel {rel[0]:.1e}, {rel[1]:.1e})")
+    smoke = ["--smoke", "--plan", os.path.join(PLANS, "tt-lm-smoke.train.tt_gemm.json"),
+             "--steps", "1", "--batch", "2", "--seq", "16"]
+    res = {dev: run(smoke + ["--device", dev, "--ckpt-dir",
+                             os.path.join(ckpt_root, f"smoke-{dev}")])
+           for dev in ("cpu", str(device))}
+    got, want = res[str(device)], res["cpu"]
+    rel = max(abs(got.losses[0] - want.losses[0]) / abs(want.losses[0]),
+              abs(got.grad_norms[0] - want.grad_norms[0]) / abs(want.grad_norms[0]))
+    if got.code or want.code or rel > 1e-4:
+        raise AssertionError(f"tt-lm-smoke train step, card vs CPU: rel {rel}")
+    notes.append(f"tt-lm-smoke one train step, card vs CPU: loss "
+                 f"{got.losses[0]:.7f} vs {want.losses[0]:.7f}, grad norm "
+                 f"{got.grad_norms[0]:.7f} vs {want.grad_norms[0]:.7f} (rel {rel:.1e})")
+    return notes
+
+
+def weight_grad_gemms(device) -> list[str]:
+    """The tt_gemm GEMMs of one full-width backward pass under
+    ``tt-lm-100m.train.json`` (weight gradients at 2048 tokens, the plan's
+    dataflow and blocks), grouped by shape; each distinct shape is timed
+    once on the kernel and weighted by its count per step, which says
+    which GEMMs the step's tt_gemm time goes to."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backward import backward_networks
+    from repro_torch.dse_cli import _block_specs
+    from repro_torch.kernels import ops, tt_gemm
+    from repro_torch.plan import load_plan
+
+    cfg = get_config("tt-lm-100m")
+    plan = load_plan(os.path.join(PLANS, TRAIN_PLANS[0]))
+    specs = {sp.name: (sp, n) for sp, n, _ in _block_specs(cfg)}
+    shapes: dict = {}
+    for lp in plan.layers:
+        if lp.name == "head":
+            continue   # tied to the embedding: never executes
+        spec, count = specs[lp.name]
+        nets = dict(backward_networks(spec.network(2048)))
+        for op in lp.backward:
+            if op.backend != "tt_gemm":
+                continue
+            for g in nets[op.wrt].gemm_sequence(op.path_steps):
+                key = (lp.dataflow, g.M, g.K, g.N,
+                       ops.clamp_block(op.tiling.block_m, g.M),
+                       ops.clamp_block(op.tiling.block_k, g.K),
+                       ops.clamp_block(op.tiling.block_n, g.N))
+                shapes[key] = shapes.get(key, 0) + count
+    gen = torch.Generator().manual_seed(4)
+    rows = []
+    for (df, m, k, n, bm, bk, bn), count in shapes.items():
+        a = torch.randn(m, k, generator=gen).to(device)
+        b = torch.randn(k, n, generator=gen).to(device)
+        ms, _ = timed(lambda: tt_gemm.tt_gemm(a, b, dataflow=df, block_m=bm,
+                                              block_k=bk, block_n=bn),
+                      reps=3, warmup=1)
+        rows.append((ms * count, ms, count, df, (m, k, n), (bm, bk, bn)))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return [f"weight-gradient tt_gemm GEMMs per train step ({TRAIN_PLANS[0]}): "
+            f"{sum(r[2] for r in rows)} launches of {len(rows)} shapes, "
+            f"{total:.1f} ms timed one shape at a time",
+            "  largest: " + "; ".join(
+                f"{df} M,K,N={mkn} blocks {blk}: {ms:.3f} ms x{count} = "
+                f"{tot:.1f} ms ({(mkn[2] + blk[2] - 1) // blk[2]} n-bands)"
+                for tot, ms, count, df, mkn, blk in rows[:5])]
+
+
+def train_profile(device) -> list[str]:
+    """Where one full-width train step goes, per train plan: host wall,
+    the card's busy time (``torch.profiler``) and the kernels that take
+    the most of it.  A measurement only: without device time the lines
+    say "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan
+    from repro_torch.optim import adamw_init
+    from repro_torch.plan import load_plan
+    from repro_torch.tree import leaves
+
+    cfg = get_config("tt-lm-100m")
+    notes = []
+    for name in TRAIN_PLANS:
+        install_plan(load_plan(os.path.join(PLANS, name)))
+        params = api(cfg, device=device).init_params(0)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        opt = adamw_init(params)
+        step = make_train_step(cfg)
+        batch = {k: torch.from_numpy(v).long().to(device)
+                 for k, v in make_pipeline(cfg.vocab, 256, 8).batch(0).items()}
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, _ = step(params, opt, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            avgs = prof.key_averages()
+        except Exception as e:  # the profiler is optional instrumentation here
+            notes.append(f"{name} train step profile: not measured "
+                         f"({type(e).__name__}: {e})")
+            continue
+
+        busy, _, top = device_time(avgs)
+        if busy <= 0:
+            notes.append(f"{name} train step: {wall:.1f} ms wall (profiled); card "
+                         "busy time not measured (no device time recorded)")
+            continue
+        notes.append(f"{name} train step (torch.profiler, 1 step): {wall:.1f} ms "
+                     f"wall, card busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+                     f"idle {100 * (1 - busy / wall):.1f}%")
+        notes.append("  top device time: " + "; ".join(
+            f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
+    install_plan(None)
+    return notes
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("error: run chip_smoke.py from a checkout of the repository "
@@ -478,24 +818,39 @@ def main() -> int:
 
         log("--- kernels against their plain versions")
         layers = main_path_layers()
-        kernels = [check_streaming(device, layers)] + check_tt_gemm(device, layers)
+        kernels = ([check_streaming(device, layers)] + check_tt_gemm(device, layers)
+                   + [check_fused(device)])
         for k in kernels:
             log(f"  {k['name']} at {k['at']}: kernel {_fmt(k['ms'])} ms (host "
                 f"{_fmt(k['host_ms'])} ms), plain {_fmt(k['plain_ms'])} ms, "
                 f"library {_fmt(k['library_ms'])} ms, bound "
                 f"{_fmt(k['bound_ms'])} ms ({k['bound_by']})")
 
-        counts, notes = serve_runs()
+        serve_counts, notes = serve_runs()
         for n in notes:
             log(f"  {n}")
-        log(f"main-path launches: {counts}")
-        for name in ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is"):
-            if counts[name] <= 0:
-                raise AssertionError(f"kernel {name} never launched on the main path")
+        log(f"serve-path launches: {serve_counts}")
+        for name in SERVE_KERNELS:
+            if serve_counts[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     "serve path")
 
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device)):
             log(f"  {n}")
+
+        with tempfile.TemporaryDirectory() as ckpt_root:
+            train_counts, first, notes = train_runs(ckpt_root)
+            for n in notes:
+                log(f"  {n}")
+            log(f"train-path launches: {train_counts}")
+            for name in TRAIN_KERNELS:
+                if train_counts[name] <= 0:
+                    raise AssertionError(f"kernel {name} never launched on the "
+                                         "train path")
+            for n in (train_check(device, first, ckpt_root) + train_profile(device)
+                      + weight_grad_gemms(device)):
+                log(f"  {n}")
 
         bad = sorted(k for k in sys.modules
                      if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
@@ -513,10 +868,14 @@ def main() -> int:
                "tt_gemm_ws": ("src/repro_torch/csrc/tt_gemm.cu",
                               "src/repro/kernels/tt_gemm.py:178"),
                "tt_gemm_is": ("src/repro_torch/csrc/tt_gemm.cu",
-                              "src/repro/kernels/tt_gemm.py:178")}
+                              "src/repro/kernels/tt_gemm.py:178"),
+               "fused_path": ("src/repro_torch/csrc/fused_path.cu",
+                              "src/repro/kernels/fused_path.py:286")}
     report = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["name"]][0],
-         "replaces": sources[k["name"]][1], "launches": counts[k["name"]],
+         "replaces": sources[k["name"]][1],
+         "launches": {"serve": serve_counts[k["name"]],
+                      "train": train_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "at": k["at"]}

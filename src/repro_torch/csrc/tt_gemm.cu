@@ -17,7 +17,7 @@
 //       stays resident while B streams across the n-tiles.
 //
 // Numerics.  Every dataflow computes, for each output element, the same
-// sequence: p_kb = sum over the k-block in ascending k (fp32 FMA from 0),
+// sequence (the tile loop of gemm_tile.cuh, shared with fused_path.cu): p_kb = sum over the k-block in ascending k (fp32 FMA from 0),
 // then C = p_0, C = C + p_1, ... in ascending k-block order.  That is the
 // reference's contract (acc += dot(block) in OS; o = o + part in WS/IS),
 // so the three dataflows agree bit for bit at one block_k, and an output
@@ -36,30 +36,18 @@
 
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 // block_m * block_n <= kThreads * kMaxPerThread (checked by the wrapper)
 constexpr int kMaxPerThread = 64;
 
-// Stage the (rows x cols) tile at (r0, c0) of a row-major (R x C) matrix
-// into shared memory, zero outside the matrix.
-__device__ void load_tile(float* dst, const float* __restrict__ src, int R,
-                          int C, int r0, int c0, int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    int r = idx / cols, c = idx - r * cols;
-    int gr = r0 + r, gc = c0 + c;
-    dst[idx] = (gr < R && gc < C) ? src[(long long)gr * C + gc] : 0.f;
-  }
-}
-
-// One output's partial sum over a staged k-block, ascending k.
-__device__ __forceinline__ float kblock_dot(const float* As, const float* Bs,
-                                            int m, int n, int bk, int bn) {
-  float s = 0.f;
-  for (int k = 0; k < bk; ++k) s = fmaf(As[m * bk + k], Bs[k * bn + n], s);
-  return s;
-}
+using gemm_tile::kblock_dot;
+using gemm_tile::kfold;
+using gemm_tile::load_tile;
+using gemm_tile::RowMajor;
 
 __global__ void __launch_bounds__(kThreads)
 os_kernel(const float* __restrict__ A, const float* __restrict__ B,
@@ -74,15 +62,15 @@ os_kernel(const float* __restrict__ A, const float* __restrict__ B,
   float acc[kMaxPerThread];
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    load_tile(As, A, M, K, m0, kb * bk, bm, bk);
-    load_tile(Bs, B, K, N, kb * bk, n0, bk, bn);
+    load_tile(As, RowMajor{A, K}, M, K, m0, kb * bk, bm, bk);
+    load_tile(Bs, RowMajor{B, N}, K, N, kb * bk, n0, bk, bn);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kMaxPerThread; ++i) {
       int o = threadIdx.x + i * kThreads;
       if (o < bm * bn) {
         float s = kblock_dot(As, Bs, o / bn, o % bn, bk, bn);
-        acc[i] = kb == 0 ? s : acc[i] + s;
+        kfold(&acc[i], s, kb);
       }
     }
   }
@@ -107,17 +95,16 @@ ws_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int n_mb = (M + bm - 1) / bm;
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    load_tile(Bs, B, K, N, kb * bk, n0, bk, bn);
+    load_tile(Bs, RowMajor{B, N}, K, N, kb * bk, n0, bk, bn);
     for (int mb = 0; mb < n_mb; ++mb) {
       __syncthreads();
-      load_tile(As, A, M, K, mb * bm, kb * bk, bm, bk);
+      load_tile(As, RowMajor{A, K}, M, K, mb * bm, kb * bk, bm, bk);
       __syncthreads();
       for (int o = threadIdx.x; o < bm * bn; o += blockDim.x) {
         int m = mb * bm + o / bn, n = n0 + o % bn;
         if (m < M && n < N) {
           float s = kblock_dot(As, Bs, o / bn, o % bn, bk, bn);
-          float* c = C + (long long)m * N + n;
-          *c = kb == 0 ? s : *c + s;
+          kfold(C + (long long)m * N + n, s, kb);
         }
       }
     }
@@ -135,17 +122,16 @@ is_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int n_nb = (N + bn - 1) / bn;
   for (int kb = 0; kb < n_kb; ++kb) {
     __syncthreads();
-    load_tile(As, A, M, K, m0, kb * bk, bm, bk);
+    load_tile(As, RowMajor{A, K}, M, K, m0, kb * bk, bm, bk);
     for (int nb = 0; nb < n_nb; ++nb) {
       __syncthreads();
-      load_tile(Bs, B, K, N, kb * bk, nb * bn, bk, bn);
+      load_tile(Bs, RowMajor{B, N}, K, N, kb * bk, nb * bn, bk, bn);
       __syncthreads();
       for (int o = threadIdx.x; o < bm * bn; o += blockDim.x) {
         int m = m0 + o / bn, n = nb * bn + o % bn;
         if (m < M && n < N) {
           float s = kblock_dot(As, Bs, o / bn, o % bn, bk, bn);
-          float* c = C + (long long)m * N + n;
-          *c = kb == 0 ? s : *c + s;
+          kfold(C + (long long)m * N + n, s, kb);
         }
       }
     }

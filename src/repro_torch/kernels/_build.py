@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``build/kernels/lib<name>-<hash>.so`` at the repository root
 (``.gitignore`` lists ``build/``), loaded with ``ctypes``.  The hash covers
-the source and the flags, so an edited source never loads a stale build.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale build.
 Nothing is compiled at import time: :func:`load` builds at first use, and
 :func:`build_all` starts one ``nvcc`` per source at once.
 """
@@ -21,11 +22,14 @@ from typing import Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("streaming_tt", "tt_gemm")
+SOURCES = ("streaming_tt", "tt_gemm", "fused_path")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: seconds one nvcc may take before the build is abandoned
+NVCC_TIMEOUT_S = 600
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -45,6 +49,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -72,7 +77,12 @@ def build_all(names: Sequence[str] = SOURCES) -> dict[str, float]:
                        log, tmp, out, time.perf_counter())
     seconds, failed = {}, []
     for name, (proc, log, tmp, out, t0) in procs.items():
-        rc = proc.wait()
+        try:
+            rc = proc.wait(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+            log.write(f"\nnvcc killed after {NVCC_TIMEOUT_S} s\n")
         log.close()
         seconds[name] = time.perf_counter() - t0
         if rc != 0:

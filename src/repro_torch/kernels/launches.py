@@ -13,6 +13,7 @@ COUNTS: dict[str, int] = {
     "tt_gemm_os": 0,
     "tt_gemm_ws": 0,
     "tt_gemm_is": 0,
+    "fused_path": 0,
 }
 
 

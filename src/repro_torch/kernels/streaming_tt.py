@@ -23,13 +23,14 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.backward import backward_networks
 from repro_torch.core.contraction import execute_path
-from repro_torch.core.paths import CandidatePath
+from repro_torch.core.paths import CandidatePath, find_topk_paths
 from repro_torch.core.tensor_network import Node, TensorNetwork
 
 from . import _build, launches
@@ -173,6 +174,10 @@ class Program:
     tables: np.ndarray         # int32
     ws_elems: int
     buf_elems: tuple[int, int]  # per block
+    #: the int32 tables copied to each device the program ran on, kept
+    #: with the program so the compile cache's bound covers them
+    device_tables: dict = dataclasses.field(default_factory=dict,
+                                            compare=False, repr=False)
 
     @property
     def smem_bytes(self) -> int:
@@ -372,9 +377,6 @@ def _compiled(signature, steps, plan_block: int) -> Program:
     return compile_program(tn, steps, bt)
 
 
-_DEVICE_TABLES: dict[tuple, tuple[Program, torch.Tensor]] = {}
-
-
 def program_for(tn: TensorNetwork, path: CandidatePath,
                 plan_block: int) -> Program:
     """The cached :class:`Program` for a network, path and plan block."""
@@ -422,11 +424,10 @@ def streaming_tt_linear(
     if max(tokens * prog.n_in, tokens * prog.out_dim) >= 2**31:
         raise ValueError("streaming_tt: activation too large for 32-bit offsets")
 
-    key = (id(prog), x.device.index)
-    if key not in _DEVICE_TABLES:
-        # the entry keeps ``prog`` alive, so its id names it uniquely
-        _DEVICE_TABLES[key] = (prog, torch.from_numpy(prog.tables).to(x.device))
-    tab = _DEVICE_TABLES[key][1]
+    tab = prog.device_tables.get(x.device.index)
+    if tab is None:
+        tab = torch.from_numpy(prog.tables).to(x.device)
+        prog.device_tables[x.device.index] = tab
     ws = torch.empty(max(prog.ws_elems, 1), dtype=torch.float32, device=x.device)
 
     def tptr(off: int) -> int:
@@ -490,3 +491,73 @@ def _lib() -> ctypes.CDLL:
                                "from the wrapper's")
         lib._typed = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# differentiable wrapper: backward along the searched gradient networks
+# ---------------------------------------------------------------------------
+
+def _path_for(net: TensorNetwork, steps) -> CandidatePath:
+    """The pinned backward steps over ``net``, else its MAC-optimal path."""
+    if steps is None:
+        return find_topk_paths(net, k=1)[0]
+    steps = tuple(tuple(s) for s in steps)
+    gemms = tuple(net.gemm_sequence(steps))
+    return CandidatePath(steps, sum(g.macs for g in gemms), gemms)
+
+
+class StreamingTTLinearVJP(torch.autograd.Function):
+    """:func:`streaming_tt_linear` under autograd (port of the reference's
+    ``streaming_tt_linear_vjp``).
+
+    The backward pass contracts the layer's gradient networks
+    (:mod:`repro_torch.core.backward`) instead of transposing the kernel:
+
+      * ``dL/dx`` streams ``dY`` through the same kernel over the dx
+        network (the cores unchanged, ``dY`` the streamed node);
+      * each ``dL/dG_k`` reduces over the tokens, so it streams two
+        operands and cannot use the single-stream kernel: its network is
+        contracted over the whole batch with every step on ``tt_gemm``.
+
+    ``bwd_steps`` maps ``"dx"`` / core names to pinned backward steps;
+    missing entries take the MAC-optimal path of that gradient's network.
+    """
+
+    @staticmethod
+    def forward(ctx, x, tn, path, bwd_steps, block_tokens, *cores):
+        ctx.save_for_backward(x, *cores)
+        ctx.meta = (tn, bwd_steps, block_tokens)
+        return streaming_tt_linear(x, list(cores), tn, path,
+                                   block_tokens=block_tokens)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .ops import GradRoute, gemm_contract, tt_linear_backward
+
+        x, *cores = ctx.saved_tensors
+        tn, bwd_steps, block_tokens = ctx.meta
+        routes = {
+            wrt: GradRoute(bwd_steps.get("dx"), "streaming_tt",
+                           block_tokens=block_tokens)
+            if wrt == "dx" else
+            GradRoute(bwd_steps.get(wrt), "tt_gemm", gemm_contract())
+            for wrt, _ in backward_networks(tn)
+        }
+        dx, dcores = tt_linear_backward(tn, x, g, cores, routes)
+        return (dx, None, None, None, None, *dcores)
+
+
+def streaming_tt_linear_vjp(
+    x: torch.Tensor,
+    cores: Sequence[torch.Tensor],
+    tn: TensorNetwork,
+    path: CandidatePath,
+    *,
+    bwd_steps: Optional[Mapping[str, Sequence[tuple[int, int]]]] = None,
+    block_tokens: int = 256,
+) -> torch.Tensor:
+    """:func:`streaming_tt_linear` with the gradient-network backward pass
+    of :class:`StreamingTTLinearVJP`.  ``tn``/``path`` describe one block
+    of ``block_tokens`` tokens, as for the forward."""
+    return StreamingTTLinearVJP.apply(x, tn, path, dict(bwd_steps or {}),
+                                      block_tokens, *cores)

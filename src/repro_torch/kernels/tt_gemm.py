@@ -144,3 +144,50 @@ def _lib() -> ctypes.CDLL:
         lib.tt_gemm_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+# ---------------------------------------------------------------------------
+# differentiable wrapper: the backward GEMMs run the same dataflow kernel
+# ---------------------------------------------------------------------------
+
+class TTGemmVJP(torch.autograd.Function):
+    """``tt_gemm`` under autograd (port of the reference's ``tt_gemm_vjp``).
+
+    The VJP of ``C = A @ B`` is two GEMMs, ``dA = dC @ B^T`` and
+    ``dB = A^T @ dC``, issued through the same dataflow kernel with the
+    block shapes permuted to follow the transposed operands, as the
+    reference permutes them (``src/repro/kernels/tt_gemm.py:233-241``).
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, dataflow, block_m, block_k, block_n):
+        ctx.save_for_backward(a, b)
+        ctx.blocks = (dataflow, block_m, block_k, block_n)
+        return tt_gemm(a, b, dataflow=dataflow, block_m=block_m,
+                       block_k=block_k, block_n=block_n)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        dataflow, block_m, block_k, block_n = ctx.blocks
+        g = g.contiguous()
+        # dA (m, k) = g (m, n) @ B^T (n, k): the K axis is n -> block_n
+        da = tt_gemm(g, b.t().contiguous(), dataflow=dataflow,
+                     block_m=block_m, block_k=block_n, block_n=block_k)
+        # dB (k, n) = A^T (k, m) @ g (m, n): the M axis is k -> block_k
+        db = tt_gemm(a.t().contiguous(), g, dataflow=dataflow,
+                     block_m=block_k, block_k=block_m, block_n=block_n)
+        return da.to(a.dtype), db.to(b.dtype), None, None, None, None
+
+
+def tt_gemm_vjp(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    dataflow: DataflowName = "OS",
+    block_m: int = 128,
+    block_k: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """:func:`tt_gemm` with a backward pass through the same kernel."""
+    return TTGemmVJP.apply(a, b, dataflow, block_m, block_k, block_n)

@@ -1,1 +1,2 @@
-"""Drivers: ``python -m repro_torch.launch.serve``."""
+"""Drivers: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``."""

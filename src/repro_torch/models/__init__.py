@@ -19,6 +19,8 @@ from .config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable
+    #: (params, {"tokens", "labels"}) -> scalar loss, differentiable
+    train_loss: Callable
     decode_step: Callable
     init_caches: Callable
     #: full-logits prefill: (params, batch, max_seq) -> ((B, S, V), caches)
@@ -51,6 +53,7 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *, device="cuda") -> ModelAPI:
 
     return ModelAPI(
         init_params=init_params,
+        train_loss=lambda p, b: _lm.train_loss(cfg, p, b),
         decode_step=lambda p, t, c, pos: _lm.decode_step(cfg, p, t, c, pos),
         init_caches=lambda batch, max_seq: _lm.init_caches(
             cfg, batch, max_seq, device=device),

@@ -95,6 +95,31 @@ def apply_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return linear_apply(head_spec(cfg), params["head"], x)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, in fp32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return torch.mean(lse - ll)
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Next-token loss of ``batch = {"tokens", "labels"}`` (both (B, S)).
+
+    The dense family has no auxiliary loss, so this is the cross-entropy
+    alone.  The reference's sequence-chunked head + loss
+    (``cfg.loss_chunk``) and rematerialisation (``cfg.remat``) are not
+    ported (ROADMAP.md, Queue A item 12): a config that chunks its loss
+    raises, and the port keeps every activation for the backward pass.
+    """
+    if cfg.loss_chunk:
+        raise NotImplementedError(
+            f"{cfg.name}: loss_chunk={cfg.loss_chunk} (chunked cross-entropy) "
+            "is not ported yet (ROADMAP.md, Queue A item 12)")
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return cross_entropy(logits, batch["labels"])
+
+
 def prefill_full(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
     """Run the prompt, returning the full (B, S, V) logits and primed caches."""
     tokens = batch["tokens"]

@@ -6,8 +6,11 @@ the installed plan's path (through the plan's kernel backend), or along
 the MAC-optimal path when no plan is installed.  Path search is memoised
 per network signature.
 
-Single-device only: the reference's sharded branch (``shard_map`` over a
-mesh) is not ported yet.
+Differentiable: a projection planned for a kernel (forward or backward)
+runs under the executor's ``torch.autograd.Function``, whose backward
+contracts the plan's gradient networks on the planned kernels; the plain
+executor uses native autograd.  Single-device only: the reference's
+sharded branch (``shard_map`` over a mesh) is not ported yet.
 """
 
 from __future__ import annotations
@@ -161,7 +164,10 @@ _FACTORIZATION: dict[str, FactorizationTriple] = {}
 def install_plan(plan, *, force_backend: Optional[str] = None) -> None:
     """Install a :class:`repro_torch.plan.ExecutionPlan` (``None`` clears).
 
-    ``force_backend`` overrides every entry's backend.
+    Any schema version the loader migrates is accepted, train-mode plans
+    with ``backward`` entries and fused ``segments`` included.
+    ``force_backend`` overrides every entry's backend, forward and
+    backward (``LayerPlan.with_backend``).
     """
     from repro_torch.plan.schema import BACKENDS, ExecutionPlan
 
@@ -258,11 +264,13 @@ def linear_apply(spec: LinearSpec, params: dict, x: torch.Tensor) -> torch.Tenso
     else:
         lp = planned_layer(spec.name)
         n_cores = len(spec.out_modes) + len(spec.in_modes)
-        if lp is not None and lp.backend != "jnp":
-            # planned kernel execution: flatten to (tokens, d_in) and route
-            # through the plan's CUDA kernel backend (repro_torch.plan.executor)
-            from repro_torch.plan.executor import planned_tt_linear
+        from repro_torch.plan.executor import (has_kernel_backward,
+                                               planned_tt_linear)
 
+        if lp is not None and (lp.backend != "jnp" or has_kernel_backward(lp)):
+            # planned kernel execution, forward or backward (a jnp forward
+            # with kernel backward ops too): flatten to (tokens, d_in) and
+            # route through the plan's CUDA kernels, differentiable
             tokens = math.prod(lead) if lead else 1
             cores = [params[f"core{k}"] for k in range(n_cores)]
             y2d = planned_tt_linear(

@@ -1,6 +1,6 @@
 """Driver-side plan guards (port of part of ``src/repro/plan/compiler.py``).
 
-Only the checks a serving driver runs before installing a plan are
+Only the checks a serving or training driver runs before installing a plan are
 ported: :func:`validate_plan` and :func:`check_plan_for_config`.  Plan
 compilation itself (the DSE) stays in the JAX package; its emitted plans
 cross to the port as committed JSON under ``src/repro_torch/plans/``.
@@ -12,6 +12,7 @@ import math
 import re
 from typing import Optional, Sequence
 
+from repro_torch.core import fusion
 from repro_torch.core.tensor_network import Node, TensorNetwork
 
 from .schema import PHASES
@@ -57,9 +58,8 @@ def validate_plan(
     """Structural compatibility of a plan with a model's layer networks.
 
     Returns human-readable problem strings (empty = compatible), as the
-    reference does.  The reference's extra check of fused ``segments``
-    (``repro.core.fusion.chain_problems``) is not ported: the executor
-    refuses fused segments outright.
+    reference does, fused ``segments`` that are not batch-carrying chains
+    included.
     """
     families: dict[str, TensorNetwork] = {}
     for inst_name, tn in named_layers:
@@ -102,6 +102,13 @@ def validate_plan(
                 f"{lp.name}: plan step indices {list(map(list, lp.path_steps))} "
                 "do not describe a valid pairwise contraction of "
                 f"{want_nodes} nodes (corrupted or hand-edited plan?)")
+        if (lp.segments is not None and fusion.has_fused(lp.segments)
+                and len(lp.path_steps) == len(tn.nodes) - 1
+                and _steps_in_range(len(tn.nodes), lp.path_steps)):
+            problems.extend(
+                f"{lp.name}: {p}"
+                for p in fusion.chain_problems(tn, lp.path_steps,
+                                               lp.segments))
         if lp.backward and lp.factorization is None:
             want = {"dx"} | {n.name for n in tn.nodes if n.kind != "input"}
             got = {op.wrt for op in lp.backward}

@@ -1,5 +1,9 @@
 """The CUDA kernels of ``repro_torch`` against their plain versions, on the card.
 
+K1 (``streaming_tt``), K2-K4 (``tt_gemm``) and K5 (``fused_path``), their
+gradients, and one planned projection's backward pass on the card against
+the CPU.  K5 must equal the per-step CUDA ``tt_gemm`` route bit for bit.
+
 Every test here needs a CUDA device and skips without one.  The module
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed:
@@ -22,15 +26,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import dse_cli
 from repro_torch.configs import get_config
 from repro_torch.dse_cli import model_dse_layers
-from repro_torch.kernels import launches, ops, streaming_tt, tt_gemm
-from repro_torch.plan.executor import as_candidate_path
+from repro_torch.kernels import fused_path, launches, ops, streaming_tt, tt_gemm
+from repro_torch.plan import load_plan
+from repro_torch.plan.executor import as_candidate_path, planned_tt_linear
 
 DATAFLOWS = ("OS", "WS", "IS")
 GEMM_SHAPES = [(32, 32, 32), (64, 96, 32), (128, 64, 96), (33, 47, 65), (1, 128, 128),
                (32000, 16, 37), (37, 768, 16)]
 PLANS = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "plans"
+SEGMENTED = ("tt-lm-smoke.tt_gemm.json", "tt-lm-smoke.train.tt_gemm.json",
+             "tt-lm-100m.train.tt_gemm.json")
 
 
 @pytest.fixture
@@ -69,6 +77,52 @@ def plan_layer(plan_file: str, name: str):
     families = dict(model_dse_layers(get_config("tt-lm-100m", smoke=smoke), tokens=8))
     tn = families.get(name) or families[f"{name}[0]"]
     return lp, tn
+
+
+def _replay(work, i, j, contract=None):
+    """One execute_path step over a work list of (edges, value) entries;
+    ``contract=None`` tracks shapes only (values are shape tuples)."""
+    (ea, ta), (eb, tb) = work[i], work[j]
+    shared = [x for x in ea if x in eb]
+    ec = tuple(x for x in ea if x not in shared) + tuple(x for x in eb if x not in shared)
+    if contract is None:
+        val = tuple(d for x, d in zip(ea, ta) if x not in shared) + tuple(
+            d for x, d in zip(eb, tb) if x not in shared)
+    else:
+        val = contract(ta, tb, ([ea.index(x) for x in shared],
+                                [eb.index(x) for x in shared]))
+    return [w for k, w in enumerate(work) if k not in (i, j)] + [(ec, val)]
+
+
+def segment_cases(max_tokens=None):
+    """(plan file, layer, tokens) for every fused segment of the committed
+    plans, at a ragged token count and at the plan's own; with
+    ``max_tokens``, a plan whose token count exceeds it keeps the ragged
+    count only (full width at 2048 tokens runs on the card)."""
+    cases = []
+    for name in SEGMENTED:
+        d = json.loads((PLANS / name).read_text())
+        counts = (37,) if d["tokens"] > (max_tokens or d["tokens"]) else (37, d["tokens"])
+        for lp in d["layers"]:
+            if lp["name"] != "head" and lp.get("segments"):
+                cases.extend((name, lp["name"], tokens) for tokens in counts)
+    return cases
+
+
+def _segment(plan_file: str, name: str, tokens: int):
+    """(work-list entries as (edges, dims), chain steps, layer plan JSON)
+    at the opening of the layer's fused segment."""
+    lp = next(l for l in json.loads((PLANS / plan_file).read_text())["layers"]
+              if l["name"] == name)
+    smoke = "smoke" in plan_file
+    tn = dict((n.split("[")[0], t) for n, t in model_dse_layers(
+        get_config("tt-lm-100m", smoke=smoke), tokens=tokens))[name]
+    steps = [tuple(s) for s in lp["path_steps"]]
+    (s, e) = next(tuple(g) for g in lp["segments"] if g[1] - g[0] >= 2)
+    work = [(n.edges, n.dims) for n in tn.nodes]
+    for (i, j) in steps[:s]:
+        work = _replay(work, i, j)
+    return work, steps[s:e], lp
 
 
 @pytest.mark.cuda
@@ -133,3 +187,116 @@ def test_streaming_tt_cuda_matches_plain(cuda_device, plan_file, name):
                                                path, block_tokens=bt)
         assert torch.equal(row[0], got[0])
     assert launches.COUNTS["streaming_tt"] == 6
+
+
+def _segment_tensors(entries, device, seed):
+    return [(e, torch.from_numpy(_np(d, seed + k, 0.3)).to(device))
+            for k, (e, d) in enumerate(entries)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name,tokens", segment_cases())
+def test_fused_path_cuda_matches_plain_and_per_step_route(cuda_device, plan_file,
+                                                          name, tokens):
+    """K5 against its plain version (1e-5), and bit for bit against the
+    per-step CUDA tt_gemm route under each dataflow."""
+    entries, chain, lp = _segment(plan_file, name, tokens)
+    work = _segment_tensors(entries, cuda_device, 60)
+    t = lp["tiling"]
+    blocks = dict(block_m=t["block_m"], block_k=t["block_k"], block_n=t["block_n"])
+    launches.reset()
+    ec, got = fused_path.fused_segment_contract(
+        work, chain, block_tokens=t["block_tokens"], **blocks)
+    assert launches.COUNTS["fused_path"] == 1
+    ec2, want = fused_path.fused_segment_contract_plain(work, chain, **blocks)
+    torch.cuda.synchronize()
+    assert ec == ec2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for dataflow in DATAFLOWS:
+        w = list(work)
+        contract = ops.gemm_contract(dataflow=dataflow, **blocks)
+        for (i, j) in chain:
+            w = _replay(w, i, j, contract)
+        assert w[-1][0] == ec
+        assert torch.equal(w[-1][1], got), dataflow
+
+
+@pytest.mark.cuda
+def test_fused_path_cuda_rows_are_independent(cuda_device):
+    entries, chain, lp = _segment("tt-lm-100m.train.tt_gemm.json", "mlp.wd", 2049)
+    work = _segment_tensors(entries, cuda_device, 70)
+    _, full = fused_path.fused_segment_contract(work, chain, block_k=128)
+    one = [(e, v[:1].contiguous() if e[0] == "b" else v) for e, v in work]
+    _, row = fused_path.fused_segment_contract(one, chain, block_k=128)
+    assert torch.equal(row[..., 0], full[..., 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_tt_gemm_vjp_cuda_matches_plain(cuda_device, dataflow):
+    a, b, w = _np((64, 96), 80), _np((96, 40), 81), _np((64, 40), 82)
+    blocks = dict(block_m=32, block_k=16, block_n=32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        ta = torch.from_numpy(a).to(dev).requires_grad_(True)
+        tb = torch.from_numpy(b).to(dev).requires_grad_(True)
+        y = ops.gemm(ta, tb, dataflow=dataflow, differentiable=True, **blocks)
+        (y * torch.from_numpy(w).to(dev)).sum().backward()
+        grads.append((ta.grad.cpu(), tb.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name", streaming_cases())
+def test_streaming_tt_vjp_cuda_matches_plain(cuda_device, plan_file, name):
+    lp, tn = plan_layer(plan_file, name)
+    tokens, bt = 37, ops.clamp_block(lp["tiling"]["block_tokens"], 37)
+    tn_block = streaming_tt._rebatch(tn, bt)
+    path = as_candidate_path(tn_block, lp["path_steps"])
+    cores = [_np(n.dims, 90 + i, 0.2) for i, n in enumerate(tn.nodes) if n.kind != "input"]
+    x = _np((tokens, int(np.prod(tn.nodes[-1].dims[1:]))), 91)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        tx = torch.from_numpy(x).to(dev).requires_grad_(True)
+        tc = [torch.from_numpy(c).to(dev).requires_grad_(True) for c in cores]
+        y = ops.tt_linear(tx, tc, tn_block, path, block_tokens=bt, differentiable=True)
+        w = torch.from_numpy(_np(tuple(y.shape), 92)).to(dev)
+        (y * w).sum().backward()
+        grads.append([tx.grad.cpu()] + [c.grad.cpu() for c in tc])
+    for got, want in zip(grads[1], grads[0]):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file", ["tt-lm-100m.train.json",
+                                       "tt-lm-100m.train.tt_gemm.json"])
+def test_planned_layer_backward_cuda_matches_cpu(cuda_device, plan_file):
+    """One full-width planned projection, forward and backward, on the card
+    (through K1/K5 and tt_gemm) against the same call on the CPU."""
+    lp = load_plan(str(PLANS / plan_file)).layer("mlp.wd")
+    spec = {s.name: s for s, _, _ in dse_cli._block_specs(get_config("tt-lm-100m"))}["mlp.wd"]
+    geometry = (spec.in_modes, spec.out_modes, spec.tt_ranks)
+    tokens = 67
+    x = _np((tokens, spec.d_in), 100)
+    cores = [_np(n.dims, 101 + k, 0.3)
+             for k, n in enumerate(spec.network(tokens).nodes) if n.kind != "input"]
+    w = _np((tokens, spec.d_out), 110)
+    out = []
+    launches.reset()
+    for dev in ("cpu", cuda_device):
+        tx = torch.from_numpy(x).to(dev).requires_grad_(True)
+        tc = [torch.from_numpy(c).to(dev).requires_grad_(True) for c in cores]
+        y = planned_tt_linear(lp, tx, tc, *geometry)
+        (y * torch.from_numpy(w).to(dev)).sum().backward()
+        out.append([y.detach().cpu(), tx.grad.cpu()] + [c.grad.cpu() for c in tc])
+    kernels = {k for k, v in launches.COUNTS.items() if v}
+    assert kernels >= ({"fused_path", "tt_gemm_ws"} if "tt_gemm" in plan_file
+                       else {"streaming_tt", "tt_gemm_ws"})
+    for got, want in zip(out[1], out[0]):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale)

@@ -51,6 +51,17 @@ EMIT = {
     "tt-lm-smoke.json": ["--arch", "tt-lm-100m", "--smoke"],
     "tt-lm-smoke.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
                                  "--plan-backend", "tt_gemm"],
+    "tt-lm-100m.train.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                              "--tokens", "2048"],
+    "tt-lm-100m.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                                      "--tokens", "2048", "--plan-backend",
+                                      "tt_gemm"],
+    "tt-lm-smoke.train.json": ["--arch", "tt-lm-100m", "--smoke", "--mode",
+                               "train", "--top-k", "2", "--tokens", "32"],
+    "tt-lm-smoke.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
+                                       "--mode", "train", "--top-k", "2",
+                                       "--tokens", "32", "--plan-backend",
+                                       "tt_gemm"],
 }
 PLAN_FILES = sorted(EMIT)
 
@@ -152,19 +163,28 @@ def test_plan_guard_matches_reference(name, smoke):
         ref_check_plan(rplan, "glm4-9b", rcfg)
 
 
-def test_fused_segments_refuse_to_run():
-    """The smoke tt_gemm plan fuses steps [2, 4) of every layer; the fused
-    kernel is not ported, so the executor raises instead of running the
-    steps one by one."""
+def test_fused_segments_run_bit_identical_to_per_step():
+    """The smoke tt_gemm plan fuses steps [2, 4) of every layer: the
+    segmented layer runs its chain through the fused-segment kernel's
+    wrapper (the plain version here) and matches the per-step route bit
+    for bit, with one record per segment."""
     plan = load_plan(str(PLANS / "tt-lm-smoke.tt_gemm.json"))
     lp = plan.layer("attn.wq")
     assert lp.segments is not None and any(e - s >= 2 for s, e in lp.segments)
     cfg = get_config("tt-lm-100m", smoke=True)
     spec = dict((s.name, s) for s, _, _ in dse_cli._block_specs(cfg))["attn.wq"]
-    cores = [torch.ones(n.dims) for n in spec.network(2).nodes if n.kind != "input"]
-    with pytest.raises(NotImplementedError, match="fused_path"):
-        executor.planned_tt_linear(lp, torch.ones(2, spec.d_in), cores,
-                                   spec.in_modes, spec.out_modes, spec.tt_ranks)
+    rng = np.random.default_rng(0)
+    cores = [torch.from_numpy(rng.normal(size=n.dims).astype(np.float32))
+             for n in spec.network(2).nodes if n.kind != "input"]
+    x = torch.from_numpy(rng.normal(size=(5, spec.d_in)).astype(np.float32))
+    geometry = (spec.in_modes, spec.out_modes, spec.tt_ranks)
+    executor.reset_execution_log()
+    fused = executor.planned_tt_linear(lp, x, cores, *geometry)
+    recs = [r for r in executor.execution_log() if "segment" in r]
+    assert [tuple(r["segment"]) for r in recs] == list(lp.segments)
+    per_step = executor.planned_tt_linear(
+        dataclasses.replace(lp, segments=None), x, cores, *geometry)
+    assert torch.equal(fused, per_step)
 
 
 def test_execution_log_is_a_bounded_ring():

@@ -11,15 +11,12 @@ reference's own tolerance for TT contractions, ``tests/test_kernels.py:89``).
 Token ids and continuous == oneshot are compared exactly.
 
 The smoke ``tt_gemm`` plan fuses path steps [2, 4) of every layer into one
-segment.  The fused-segment kernel is not ported and the port refuses such
-a plan (``tests/test_torch_plan.py``), so the port runs it with the
-segments removed: the per-step ``tt_gemm`` route, which the reference holds
-bit-identical to its fused route (``src/repro/kernels/fused_path.py``).
+segment; both packages serve it as emitted, the port through its
+fused-segment kernel's wrapper (``kernels/fused_path.py``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import pathlib
 
 import jax
@@ -46,7 +43,7 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.models import api
 from repro_torch.models import lm as port_lm
 from repro_torch.nn import attention, embedding, install_plan, norms, rope
-from repro_torch.plan import ExecutionPlan, execution_log, load_plan, reset_execution_log
+from repro_torch.plan import execution_log, load_plan, reset_execution_log
 from repro_torch.serve import Request, Scheduler, ServeEngine, ServePolicy, synthetic_trace
 
 torch.set_num_threads(2)
@@ -66,12 +63,6 @@ def _clear_installed_plans():
     install_plan(None)
 
 
-def _port_plan(name: str) -> ExecutionPlan:
-    plan = load_plan(str(PLANS / name))
-    return dataclasses.replace(plan, layers=tuple(
-        dataclasses.replace(lp, segments=None) for lp in plan.layers))
-
-
 class _Pair:
     """Reference and port of tt-lm-smoke under one plan, same weights."""
 
@@ -79,7 +70,7 @@ class _Pair:
         self.cfg = get_config("tt-lm-100m", smoke=True)
         self.rcfg = ref_get_config("tt-lm-100m", smoke=True)
         self.rplan = ref_load_plan(str(PLANS / plan_name))
-        self.plan = _port_plan(plan_name)
+        self.plan = load_plan(str(PLANS / plan_name))
         self.rm = ref_api(self.rcfg, plan=self.rplan)
         self.rparams = self.rm.init_params(jax.random.PRNGKey(0))
         self.m = api(self.cfg, plan=self.plan, device="cpu")
@@ -127,6 +118,8 @@ def test_prefill_full_and_three_decode_steps_match_reference(pair):
     np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits), **TOL)
     backends = {r["backend"] for r in execution_log()}
     assert backends == {lp.backend for lp in pair.plan.layers}
+    fused = {tuple(r["segment"]) for r in execution_log() if "segment" in r}
+    assert fused == {tuple(s) for lp in pair.plan.layers for s in lp.segments or ()}
 
     rdecode = jax.jit(pair.rm.decode_step)
     tok = np.argmax(np.asarray(rlogits)[:, -1], axis=-1).astype(np.int32)[:, None]
