@@ -57,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -78,6 +79,11 @@ SERVE = ["--batch", "4", "--n-requests", "8", "--prompt-len", "32",
 #: dx, K3 WS weight gradients and K5 fused segments
 SERVE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")
 TRAIN_KERNELS = ("streaming_tt", "tt_gemm_ws", "fused_path")
+#: the CUDA functions of each kernel of the train path: a profile sums
+#: them, since one wrapper call may launch two
+KERNEL_FUNCTIONS = {"K1 streaming_tt": ("free_step_kernel", "stream_kernel"),
+                    "K3 tt_gemm_ws": ("ws_kernel", "ws_fold_kernel"),
+                    "K5 fused_path": ("pack_kernel", "fused_kernel")}
 
 
 def log(msg: str) -> None:
@@ -113,6 +119,43 @@ def timed(fn, reps: int = 50, warmup: int = 5) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, host
+
+
+def graph_ms(fn, reps: int = 20) -> float | None:
+    """ms per call on the card with the host's enqueue taken out: ``reps``
+    calls captured in one CUDA graph, the graph replayed 5 times between
+    CUDA events.  Where ``timed`` reports the host's pace (small kernels
+    behind Python wrappers), this is the device's.  None when the calls
+    cannot be captured (a measurement only; the run goes on); a failure
+    of the calls themselves, in the warm-up before the capture, raises."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (5 * reps)
+    except Exception as e:  # capture is optional instrumentation here
+        log(f"  (graph timing not measured: {type(e).__name__}: {e})")
+        torch.cuda.synchronize()
+        return None
 
 
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
@@ -207,14 +250,15 @@ def check_streaming(device, layers) -> dict:
                 at=f"{lp.name} ({plan_name}), tokens {tokens}, kernel token "
                    f"block {prog.block_tokens}, {len(prog.free_steps)} token-free "
                    f"+ {len(prog.tok_steps)} token steps",
-                ms=ms, host_ms=host_ms, plain_ms=timed(plain)[0],
-                library_ms=timed(library)[0], bound_ms=b_ms, bound_by=b_by)
+                ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+                plain_ms=timed(plain)[0], library_ms=timed(library)[0],
+                bound_ms=b_ms, bound_by=b_by)
     log(f"  streaming_tt: {len(seen)} (layer, path, tokens) cases, "
         f"max abs err {err:.3e}")
     t4 = timing[4]
-    log(f"  streaming_tt at {t4['at']}: kernel {_fmt(t4['ms'])} ms (host "
-        f"{_fmt(t4['host_ms'])} ms), plain {_fmt(t4['plain_ms'])} ms, library "
-        f"{_fmt(t4['library_ms'])} ms, bound {_fmt(t4['bound_ms'])} ms "
+    log(f"  streaming_tt at {t4['at']}: kernel {_fmt(t4['ms'])} (host "
+        f"{_fmt(t4['host_ms'])}), plain {_fmt(t4['plain_ms'])}, library "
+        f"{_fmt(t4['library_ms'])}, bound {_fmt(t4['bound_ms'])} "
         f"({t4['bound_by']})")
     return dict(name="streaming_tt", max_abs_err=err, **timing[32])
 
@@ -279,9 +323,11 @@ def check_tt_gemm(device, layers) -> list[dict]:
             at=f"M,K,N={m},{k},{n} blocks {blocks['block_m']},{blocks['block_k']},"
                f"{blocks['block_n']}",
             ms=ms, host_ms=host_ms,
+            graph_ms=graph_ms(lambda: tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)),
             plain_ms=timed(lambda: tt_gemm.tt_gemm_plain(a, b, dataflow=df,
                                                          **blocks))[0],
             library_ms=timed(lambda: torch.matmul(a, b))[0],
+            library_graph_ms=graph_ms(lambda: torch.matmul(a, b)),
             bound_ms=b_ms, bound_by=b_by)
         log(f"  tt_gemm {df}: {len(cases)} main-path shapes, max abs err {err:.3e}")
         out.append(rec)
@@ -305,8 +351,6 @@ def check_fused(device) -> dict:
     step's 2048 tokens and at 37: against the plain version, and bit for
     bit against the per-step CUDA tt_gemm route with the plan's dataflow
     and blocks."""
-    import math
-
     import torch
 
     from repro_torch.configs import get_config
@@ -377,24 +421,26 @@ def check_fused(device) -> dict:
             d_in, d_out, r = x2.shape[1], w_out2.shape[0], w_in.shape[0]
             nbytes = 4 * (x2.numel() + w_in.numel() + w_out_t.numel() + got.numel())
             b_ms, b_by = bound(nbytes, 2 * tokens * r * (d_in + d_out))
+            n_sm = torch.cuda.get_device_properties(device).multi_processor_count
             prog = fused_path.program_for(work, chain, block_k=blocks["block_k"],
                                           block_tokens=lp.tiling.block_tokens,
-                                          n_sm=torch.cuda.get_device_properties(
-                                              device).multi_processor_count)
+                                          n_sm=n_sm)
             ms, host_ms = timed(kernel)
             timing[name] = dict(
                 at=f"{name} segment {[s0, e0]}, tokens {tokens}: ({tokens} x {d_in})"
                    f" @ ({d_in} x {r}) then ({d_out} x {r}) @ ({r} x {tokens}); "
                    f"kernel token block {prog.block_tokens}, "
-                   f"{math.ceil(tokens / prog.block_tokens)} blocks, "
-                   f"{prog.smem_bytes} B shared memory",
-                ms=ms, host_ms=host_ms, plain_ms=timed(plain)[0],
-                library_ms=timed(library)[0], bound_ms=b_ms, bound_by=b_by)
+                   f"{prog.n_token_blocks} blocks, {prog.smem_bytes} B shared "
+                   f"memory, {prog.packed_bytes} B of packed batch-free operands",
+                ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+                plain_ms=timed(plain)[0], library_ms=timed(library)[0],
+                library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
     for name, t in timing.items():
-        log(f"  fused_path at {t['at']}: kernel {_fmt(t['ms'])} ms (host "
-            f"{_fmt(t['host_ms'])} ms), plain {_fmt(t['plain_ms'])} ms, library "
-            f"{_fmt(t['library_ms'])} ms, bound {_fmt(t['bound_ms'])} ms "
-            f"({t['bound_by']})")
+        log(f"  fused_path at {t['at']}: kernel {_fmt(t['ms'])} (host "
+            f"{_fmt(t['host_ms'])}, graph {_fmt(t['graph_ms'])}), plain "
+            f"{_fmt(t['plain_ms'])}, library {_fmt(t['library_ms'])} "
+            f"(graph {_fmt(t['library_graph_ms'])}), bound "
+            f"{_fmt(t['bound_ms'])} ({t['bound_by']})")
     log(f"  fused_path: 3 layers x (2048, 37) tokens, max abs err {err:.3e}, "
         "bit-identical to the per-step CUDA tt_gemm route: yes")
     return dict(name="fused_path", max_abs_err=err, **timing["mlp.wg"])
@@ -679,9 +725,13 @@ def train_check(device, first: dict, ckpt_root: str) -> list[str]:
 def weight_grad_gemms(device) -> list[str]:
     """The tt_gemm GEMMs of one full-width backward pass under
     ``tt-lm-100m.train.json`` (weight gradients at 2048 tokens, the plan's
-    dataflow and blocks), grouped by shape; each distinct shape is timed
-    once on the kernel and weighted by its count per step, which says
-    which GEMMs the step's tt_gemm time goes to."""
+    dataflow and blocks), grouped by shape.  Each distinct shape must equal
+    the OS kernel bit for bit, and the plain version within rtol 1e-5 and
+    atol 1e-5 x max(1, the output's largest magnitude) as the CUDA tests
+    hold it (K runs to 2048).  Each is timed once on the kernel and
+    weighted by its count per step, which says which GEMMs the step's
+    tt_gemm time goes to, beside its plain version, one ``torch.matmul``
+    (library) and the bound."""
     import torch
 
     from repro_torch.configs import get_config
@@ -713,19 +763,45 @@ def weight_grad_gemms(device) -> list[str]:
     for (df, m, k, n, bm, bk, bn), count in shapes.items():
         a = torch.randn(m, k, generator=gen).to(device)
         b = torch.randn(k, n, generator=gen).to(device)
-        ms, _ = timed(lambda: tt_gemm.tt_gemm(a, b, dataflow=df, block_m=bm,
-                                              block_k=bk, block_n=bn),
-                      reps=3, warmup=1)
-        rows.append((ms * count, ms, count, df, (m, k, n), (bm, bk, bn)))
+        blocks = dict(block_m=bm, block_k=bk, block_n=bn)
+        got = tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)
+        if not torch.equal(got, tt_gemm.tt_gemm(a, b, dataflow="OS", **blocks)):
+            raise AssertionError(f"tt_gemm {df} M,K,N={(m, k, n)} blocks "
+                                 f"{(bm, bk, bn)}: not bit-identical to OS")
+        want = tt_gemm.tt_gemm_plain(a, b, dataflow=df, **blocks)
+        err = (got - want).abs()
+        tol = 1e-5 * want.abs() + 1e-5 * max(1.0, want.abs().max().item())
+        if not torch.isfinite(got).all() or bool((err > tol).any()):
+            raise AssertionError(f"tt_gemm {df} M,K,N={(m, k, n)}: max abs err "
+                                 f"{err.max().item()} against the plain version")
+
+        def kernel():
+            return tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)
+
+        ms, _ = timed(kernel, reps=20, warmup=3)
+        dev_ms = graph_ms(kernel)
+        plain = timed(lambda: tt_gemm.tt_gemm_plain(a, b, dataflow=df, **blocks),
+                      reps=5, warmup=1)[0]
+        lib = timed(lambda: torch.matmul(a, b), reps=20, warmup=3)[0]
+        lib_dev = graph_ms(lambda: torch.matmul(a, b))
+        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
+        grid = (tt_gemm.ws_grid(m, k, n, n_sm=torch.cuda.get_device_properties(
+            device).multi_processor_count, **blocks).blocks if df == "WS" else None)
+        rows.append((ms * count, ms, count, df, (m, k, n), (bm, bk, bn), plain,
+                     lib, b_ms, b_by, grid, dev_ms, lib_dev, err.max().item()))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     return [f"weight-gradient tt_gemm GEMMs per train step ({TRAIN_PLANS[0]}): "
             f"{sum(r[2] for r in rows)} launches of {len(rows)} shapes, "
-            f"{total:.1f} ms timed one shape at a time",
-            "  largest: " + "; ".join(
-                f"{df} M,K,N={mkn} blocks {blk}: {ms:.3f} ms x{count} = "
-                f"{tot:.1f} ms ({(mkn[2] + blk[2] - 1) // blk[2]} n-bands)"
-                for tot, ms, count, df, mkn, blk in rows[:5])]
+            f"{total:.2f} ms timed one shape at a time; every shape "
+            "bit-identical to OS and within tolerance of the plain version: "
+            "yes"] + [
+        f"  {df} M,K,N={mkn} blocks {blk}: kernel {_fmt(ms)} x{count} = "
+        f"{tot:.2f} ms ({grid} blocks; graph {_fmt(dev_ms)}), plain "
+        f"{_fmt(plain)}, library {_fmt(lib)} (graph {_fmt(lib_dev)}), "
+        f"bound {b_ms:.5f} ms ({b_by}); max abs err vs plain {e:.3e}"
+        for tot, ms, count, df, mkn, blk, plain, lib, b_ms, b_by, grid, dev_ms,
+        lib_dev, e in rows]
 
 
 def train_profile(device) -> list[str]:
@@ -781,6 +857,16 @@ def train_profile(device) -> list[str]:
                      f"idle {100 * (1 - busy / wall):.1f}%")
         notes.append("  top device time: " + "; ".join(
             f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
+        for kernel, names in KERNEL_FUNCTIONS.items():
+            parts = {fn: [e for e in top if re.search(rf"\b{fn}\b", e.key)]
+                     for fn in names}
+            ms = {fn: sum(_dev_us(e) for e in es) / 1e3 for fn, es in parts.items()}
+            total = sum(ms.values())
+            notes.append(
+                f"  {kernel}: {total:.2f} ms ({100 * total / busy:.1f}% of busy) = "
+                + " + ".join(f"{fn} {ms[fn]:.2f} ms x{sum(e.count for e in parts[fn])}"
+                             f" ({100 * ms[fn] / total if total else 0:.1f}%)"
+                             for fn in names))
     install_plan(None)
     return notes
 
@@ -821,10 +907,12 @@ def main() -> int:
         kernels = ([check_streaming(device, layers)] + check_tt_gemm(device, layers)
                    + [check_fused(device)])
         for k in kernels:
-            log(f"  {k['name']} at {k['at']}: kernel {_fmt(k['ms'])} ms (host "
-                f"{_fmt(k['host_ms'])} ms), plain {_fmt(k['plain_ms'])} ms, "
-                f"library {_fmt(k['library_ms'])} ms, bound "
-                f"{_fmt(k['bound_ms'])} ms ({k['bound_by']})")
+            log(f"  {k['name']} at {k['at']}: kernel {_fmt(k['ms'])} (host "
+                f"{_fmt(k['host_ms'])}, graph {_fmt(k['graph_ms'])}), "
+                f"plain {_fmt(k['plain_ms'])}, "
+                f"library {_fmt(k['library_ms'])} (graph "
+                f"{_fmt(k.get('library_graph_ms'))}), bound "
+                f"{_fmt(k['bound_ms'])} ({k['bound_by']})")
 
         serve_counts, notes = serve_runs()
         for n in notes:
@@ -876,7 +964,8 @@ def main() -> int:
          "replaces": sources[k["name"]][1],
          "launches": {"serve": serve_counts[k["name"]],
                       "train": train_counts[k["name"]]},
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "graph_ms": k["graph_ms"],
+         "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "at": k["at"]}
         for k in kernels]}
@@ -889,8 +978,8 @@ def main() -> int:
     return 0
 
 
-def _fmt(ms: float) -> str:
-    return f"{ms:.4f}"
+def _fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 if __name__ == "__main__":

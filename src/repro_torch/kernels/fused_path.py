@@ -3,9 +3,10 @@
 Port of ``src/repro/kernels/fused_path.py``.  A fused segment is a chain
 of >= 2 contraction-path steps (each step after the first consumes the
 previous result, and exactly one operand of each step carries the batch
-edge) executed in one launch: the batch-carrying operand streams in token
-blocks, the batch-free operands are read from device memory, and each
-interior intermediate stays on chip in fp32 (``csrc/fused_path.cu``).
+edge) executed in one call: the batch-free operands (the token-free core
+merges) are packed once into dense buffers in their GEMM role, the
+batch-carrying operand streams in token blocks, one CUDA block each, and
+each interior intermediate stays on chip in fp32 (``csrc/fused_path.cu``).
 
 The contract (``fused_path.py:14-28`` of the reference): each chained
 step replays the per-step ``tt_gemm`` GEMM exactly, with ``block_k``
@@ -17,8 +18,10 @@ the per-step CUDA route bit for bit; the plain version is a chain of
 blocks, bit-identical to the per-step plain route.
 
 Host side: :func:`_compile_segment` is the reference's symbolic replay,
-copied; :func:`compile_program` turns it into the offset tables the
-kernel reads (as ``streaming_tt.compile_program`` does for K1).
+copied; :func:`compile_program` turns it into the offset tables, packs,
+tiles and grid the kernel runs (as ``streaming_tt.compile_program`` does
+for K1), and :func:`run_program_plain` executes the same program with
+torch gathers on the CPU.
 """
 
 from __future__ import annotations
@@ -45,8 +48,12 @@ MAX_KERNEL_BLOCK_TOKENS = 64
 #: a token block is not cut below this to fill the SMs
 MIN_KERNEL_BLOCK_TOKENS = 8
 _MAX_STEPS = 8
-_MAX_TILE = 64          # tile_m, tile_n of one pass
-_MAX_TILE_OUTPUTS = 4096
+_THREADS = 256
+_TILE_ROWS = 4          # rows of a thread's register tile (gemm_tile.cuh)
+_MAX_TILE = 64          # tile_n of one pass
+_MAX_TILE_OUTPUTS = _THREADS * 4 * _TILE_ROWS
+#: floats of staging tiles a round may use (~96 KB: two blocks an SM)
+_STAGE_FLOATS = 24_576
 
 Src = tuple[str, int]  # ("in", kernel-input position) | ("mid", op index)
 
@@ -199,29 +206,54 @@ def _offsets(pairs: Sequence[tuple[int, int]]) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class Operand:
-    """One operand of a chained GEMM, ``element(r, c) = base[row[r] +
-    col[c]]``.  ``src`` is ``("in", slot)`` (device memory) or ``("mid",
-    t)`` (interior buffer t); ``tables`` maps ``row``/``col`` (and
-    ``row_tok``/``col_tok`` for the streamed input) to offsets into the
-    program's int32 table array."""
+    """The token-side operand of a chained GEMM, ``element(r, c) =
+    base[row[r] + col[c]]``.  ``src`` is ``("in", slot)`` (the streamed
+    input, in device memory) or ``("mid", t)`` (interior buffer t);
+    ``tables`` maps ``row``/``col`` (and ``row_tok``/``col_tok`` for the
+    streamed input) to offsets into the program's int32 table array.
+    ``vec``: the streamed input's rows start 16-byte aligned, its columns
+    are contiguous and its tokens lie on the rows, so the kernel stages it
+    with 16-byte copies."""
 
     src: tuple
     tables: dict
     tok_stride: int
+    vec: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Pack:
+    """One batch-free operand, packed once per call into the dense
+    row-major ``(rows x cols)`` view of its GEMM role at ``offset`` floats
+    of the packed buffer: ``packed[offset + r * cols + c] = in[slot][row[r]
+    + col[c]]`` (``row``/``col`` offsets into the table array)."""
+
+    slot: int
+    rows: int
+    cols: int
+    row: int
+    col: int
+    offset: int
 
 
 @dataclasses.dataclass(frozen=True)
 class ChainStep:
-    a: Operand
-    b: Operand
+    t: Operand                 # the token-side operand
+    w_is_a: bool               # the packed batch-free operand is A, else B
+    w_offset: int              # floats into the packed buffer
     M: int
     K: int
     N: int
     bk: int
+    kc: int                    # k staged per round, a multiple of bk
     tile_m: int
     tile_n: int
+    tr: int                    # rows of a thread's register tile
     out_mid: int               # -1: the result goes to Y
     out_tables: dict           # last step: c_row, c_col, c_row_tok | c_col_tok
+    #: last step: Y's columns are the block's tokens, contiguous, its rows
+    #: 16-byte aligned: float4 stores
+    y_vec: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,12 +268,15 @@ class Program:
     input_positions: tuple[int, ...]   # work-list entries the chain reads
     steps: tuple[ChainStep, ...]
     tables: np.ndarray         # int32
-    mid_elems: tuple[int, ...]
+    mid_elems: tuple[int, ...]         # each rounded up to 4 floats
     tile_elems: int
-    #: the int32 tables copied to each device the program ran on, kept
-    #: with the program so the compile cache's bound covers them
-    device_tables: dict = dataclasses.field(default_factory=dict,
-                                            compare=False, repr=False)
+    packs: tuple[Pack, ...]
+    packed_elems: int
+    #: per device the program ran on: its int32 tables there and the
+    #: launch parameters built on them (:func:`_launch_params`), kept with
+    #: the program so the compile cache's bound covers them
+    device_state: dict = dataclasses.field(default_factory=dict,
+                                           compare=False, repr=False)
 
     @property
     def mid_offsets(self) -> tuple[int, ...]:
@@ -251,12 +286,34 @@ class Program:
     def smem_bytes(self) -> int:
         return 4 * (sum(self.mid_elems) + self.tile_elems)
 
+    @property
+    def n_token_blocks(self) -> int:
+        return -(-self.tokens // self.block_tokens)
+
+    @property
+    def packed_bytes(self) -> int:
+        return 4 * self.packed_elems
+
 
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
         p *= 2
     return p
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _step_tile(m: int, n: int) -> tuple[int, int, int]:
+    """(tile_m, tile_n, rows a thread) of a step whose block computes an
+    (m x n) output: 4-column groups of threads, each thread up to
+    ``gemm_tile.cuh``'s 4 rows, 256 threads."""
+    tile_n = max(4, min(_next_pow2(n), _MAX_TILE))
+    ty_max = _THREADS // (tile_n // 4)
+    rows = min(_next_pow2(m), _TILE_ROWS * ty_max)
+    return rows, tile_n, -(-rows // ty_max)
 
 
 def compile_program(entries, steps, *, block_k: int, block_tokens: int,
@@ -267,9 +324,12 @@ def compile_program(entries, steps, *, block_k: int, block_tokens: int,
 
     Per step the GEMM view follows ``ops.gemm_contract``: rows walk A's
     free edges, the shared index walks the shared edges in A's order,
-    columns walk B's free edges.  Offsets of the streamed input and of Y
-    use their full-token strides with the token index local to the block
-    (the kernel adds ``t0 * tok_stride``); interior results live in shared
+    columns walk B's free edges.  Each step reads one token-side operand
+    (the streamed input at the first step, the previous interior result
+    after it) and one batch-free input, which is packed once per call into
+    the dense view of its role.  Offsets of the streamed input and of Y use
+    their full-token strides with the token index local to the block (the
+    kernel adds ``t0 * tok_stride``); interior results live in shared
     memory in the token-blocked tensordot layout of their step.
     """
     steps = tuple(tuple(s) for s in steps)
@@ -315,6 +375,8 @@ def compile_program(entries, steps, *, block_k: int, block_tokens: int,
         return e, blocked(e, d), st, st.get(batch_edge, 0)
 
     chain: list[ChainStep] = []
+    packs: list[Pack] = []
+    packed = 0
     tile_elems = 0
     for t, (a_src, b_src, ax_a, ax_b, (m_full, k_full, n_full)) in enumerate(ops):
         ea, da, sa, tsa = layout(a_src)
@@ -328,19 +390,37 @@ def compile_program(entries, steps, *, block_k: int, block_tokens: int,
         k_b, _ = walk(shared, dim, sb)
         col_b, tok_cb = walk(b_free, dim, sb)
         m, k, n = len(row_a), len(k_a), len(col_b)
-        streamed_a = a_src == ("in", slot)
-        streamed_b = b_src == ("in", slot)
-        ta = {"row": add(row_a), "col": add(k_a)}
-        tb = {"row": add(k_b), "col": add(col_b)}
-        if streamed_a:
-            ta["row_tok"] = add(tok_ra)
-        if streamed_b:
-            tb["col_tok"] = add(tok_cb)
+        w_is_a = batch_edge not in ea
+        if w_is_a == (batch_edge not in eb):
+            raise ValueError(f"segment step {t}: need one batch-free operand")
+        # the batch-free input, packed in the dense view of its role
+        w_src = a_src if w_is_a else b_src
+        rows, cols = (m, k) if w_is_a else (k, n)
+        w_row, w_col = (row_a, k_a) if w_is_a else (k_b, col_b)
+        packs.append(Pack(w_src[1], rows, cols, add(w_row), add(w_col), packed))
+        w_offset = packed
+        packed += _round4(rows * cols)
+        # the token-side operand keeps its tables
+        t_src = b_src if w_is_a else a_src
+        t_row, t_col = (k_b, col_b) if w_is_a else (row_a, k_a)
+        tt = {"row": add(t_row), "col": add(t_col)}
+        streamed = t_src == ("in", slot)
+        if streamed and not w_is_a:
+            tt["row_tok"] = add(tok_ra)
+        elif streamed:
+            tt["col_tok"] = add(tok_cb)
+        tok_stride = (tsb if w_is_a else tsa) if streamed else 0
+        t_cols = n if w_is_a else k
+        vec = (streamed and not w_is_a and t_cols % 4 == 0
+               and tok_stride % 4 == 0 and bool((t_row % 4 == 0).all())
+               and np.array_equal(t_col, np.arange(t_cols)))
         bk = _clamp_block(block_k, k_full)
-        tile_m = min(_next_pow2(m), _MAX_TILE)
-        tile_n = min(_next_pow2(n), _MAX_TILE)
-        tile_elems = max(tile_elems, tile_m * bk + bk * tile_n)
+        tile_m, tile_n, tr = _step_tile(m, n)
+        kc_max = (_STAGE_FLOATS - 4 * tile_m) // (tile_m + tile_n)
+        kc = bk * max(1, min(kc_max // bk, -(-k // bk)))
+        tile_elems = max(tile_elems, tile_m * (kc + 4) + kc * tile_n)
         out_tables: dict = {}
+        y_vec = False
         out_mid = t
         if t == len(ops) - 1:
             out_mid = -1
@@ -353,37 +433,43 @@ def compile_program(entries, steps, *, block_k: int, block_tokens: int,
                 out_tables["c_row_tok"] = add(tok_r)
             else:
                 out_tables["c_col_tok"] = add(tok_c)
+            y_tok = sy[batch_edge]
+            y_vec = (tok_r is None and np.array_equal(c_col, np.arange(n))
+                     and bool((c_row % 4 == 0).all())
+                     and y_tok * bt % 4 == 0)
         chain.append(ChainStep(
-            Operand(a_src, ta, tsa if streamed_a else 0),
-            Operand(b_src, tb, tsb if streamed_b else 0),
-            m, k, n, bk, tile_m, tile_n, out_mid, out_tables))
+            Operand(t_src, tt, tok_stride, vec), w_is_a, w_offset,
+            m, k, n, bk, kc, tile_m, tile_n, tr, out_mid, out_tables, y_vec))
     out_edges, out_dims = mids[-1]
     all_tables = np.concatenate(tables)
-    if all_tables.max(initial=0) >= 2**31 or math.prod(out_dims) >= 2**31:
+    if (all_tables.max(initial=0) >= 2**31 or math.prod(out_dims) >= 2**31
+            or packed >= 2**31):
         raise ValueError("fused_path: offsets overflow int32")
-    mid_elems = tuple(math.prod(blocked(*mids[t])) for t in range(len(ops) - 1))
+    mid_elems = tuple(_round4(math.prod(blocked(*mids[t])))
+                      for t in range(len(ops) - 1))
     return Program(
         bt, tokens, out_edges, out_dims,
         dict(zip(out_edges, _strides(out_dims)))[batch_edge],
         tuple(input_positions), tuple(chain), all_tables.astype(np.int32),
-        mid_elems, tile_elems)
+        mid_elems, tile_elems, tuple(packs), packed)
 
 
 def choose_block_tokens(entries, steps, *, block_k: int, plan_block: int,
                         n_sm: int = 132,
                         batch_edge: str = BATCH_EDGE) -> int:
     """The kernel's token block: a power of two no larger than the plan's
-    block and :data:`MAX_KERNEL_BLOCK_TOKENS`, halved (down to
-    :data:`MIN_KERNEL_BLOCK_TOKENS`) while the call would give fewer blocks
-    than ``n_sm``, and halved further while its shared memory exceeds what
-    a block has.
+    block, :data:`MAX_KERNEL_BLOCK_TOKENS` or the call's tokens, halved
+    (down to :data:`MIN_KERNEL_BLOCK_TOKENS`) while the call would give
+    fewer token blocks than ``n_sm``, and halved further while its shared
+    memory exceeds what a block has.
 
     Raises ``ValueError`` when a single token does not fit.
     """
     entries = [(tuple(e), tuple(d)) for e, d in entries]
     stream = next(d[e.index(batch_edge)] for e, d in entries if batch_edge in e)
     bt = 1
-    while bt * 2 <= min(max(plan_block, 1), MAX_KERNEL_BLOCK_TOKENS):
+    while bt * 2 <= min(max(plan_block, 1), MAX_KERNEL_BLOCK_TOKENS) \
+            and bt < stream:
         bt *= 2
     while bt > MIN_KERNEL_BLOCK_TOKENS and -(-stream // bt) < n_sm:
         bt //= 2
@@ -410,8 +496,8 @@ def segment_smem_bytes(
     batch_edge: str = BATCH_EDGE,
 ) -> int:
     """Shared memory one block of the kernel uses at ``block_tokens``:
-    the fp32 interior intermediates plus the two staging tiles (the
-    counterpart of the reference's ``segment_vmem_bytes``)."""
+    the fp32 interior intermediates plus the staging tiles of the largest
+    round (the counterpart of the reference's ``segment_vmem_bytes``)."""
     entries = [(edges, tuple(t.shape)) for edges, t in work]
     return compile_program(entries, steps, block_k=block_k,
                            block_tokens=block_tokens,
@@ -423,10 +509,11 @@ def run_program_plain(prog: Program,
     """Execute a compiled program with torch gathers, block by block.
 
     The CPU mirror of what ``csrc/fused_path.cu`` does with the same
-    tables (masked loads of the streamed input, interior buffers per
-    block, scatter into Y); the tests hold it against
-    :func:`fused_segment_contract_plain`, so the table compiler is checked
-    where no card is present.
+    tables and grid: the pack of each batch-free operand into its dense
+    view, then per token block the masked loads of the streamed input, the
+    interior buffers, and the scatter of the last step into Y.  The tests
+    hold it against :func:`fused_segment_contract_plain`, so the table
+    compiler is checked where no card is present.
     """
     tab = torch.from_numpy(prog.tables.astype(np.int64))
     flat = [t.reshape(-1).to(torch.float32) for t in inputs]
@@ -436,7 +523,13 @@ def run_program_plain(prog: Program,
     def vec(off: int, n: int) -> torch.Tensor:
         return tab[off:off + n]
 
-    def operand(op: Operand, rows: int, cols: int, mids, t0, valid):
+    packed = torch.full((prog.packed_elems,), float("nan"))
+    for pk in prog.packs:
+        idx = vec(pk.row, pk.rows)[:, None] + vec(pk.col, pk.cols)[None, :]
+        packed[pk.offset:pk.offset + pk.rows * pk.cols] = \
+            flat[pk.slot][idx].reshape(-1)
+
+    def token_side(op: Operand, rows: int, cols: int, mids, t0, valid):
         t = op.tables
         if op.src[0] == "mid":
             base, shift = mids[op.src[1]], 0
@@ -454,18 +547,24 @@ def run_program_plain(prog: Program,
         valid = min(bt, prog.tokens - t0)
         mids: list[torch.Tensor] = []
         for st in prog.steps:
-            a = operand(st.a, st.M, st.K, mids, t0, valid)
-            b = operand(st.b, st.K, st.N, mids, t0, valid)
+            w = packed[st.w_offset:st.w_offset + (
+                st.M * st.K if st.w_is_a else st.K * st.N)]
+            if st.w_is_a:
+                a = w.reshape(st.M, st.K)
+                b = token_side(st.t, st.K, st.N, mids, t0, valid)
+            else:
+                a = token_side(st.t, st.M, st.K, mids, t0, valid)
+                b = w.reshape(st.K, st.N)
             c = a @ b
             if st.out_mid >= 0:
                 mids.append(c.reshape(-1))
                 continue
             ot = st.out_tables
-            off = (vec(ot["c_row"], st.M)[:, None]
-                   + vec(ot["c_col"], st.N)[None, :] + t0 * prog.y_tok_stride)
-            tok = (vec(ot["c_row_tok"], st.M)[:, None].expand(st.M, st.N)
+            off = (vec(ot["c_row"], st.M)[:, None] + vec(ot["c_col"], st.N)[None, :]
+                   + t0 * prog.y_tok_stride)
+            tok = (vec(ot["c_row_tok"], st.M)[:, None].expand_as(c)
                    if "c_row_tok" in ot else
-                   vec(ot["c_col_tok"], st.N)[None, :].expand(st.M, st.N))
+                   vec(ot["c_col_tok"], st.N)[None, :].expand_as(c))
             keep = tok < valid
             y[off[keep]] = c[keep]
     return y.reshape(prog.out_dims)
@@ -479,25 +578,40 @@ class _Operand(ctypes.Structure):
     _fields_ = [("base", ctypes.c_void_p), ("mid", ctypes.c_int),
                 ("row", ctypes.c_void_p), ("col", ctypes.c_void_p),
                 ("row_tok", ctypes.c_void_p), ("col_tok", ctypes.c_void_p),
-                ("tok_stride", ctypes.c_longlong)]
+                ("tok_stride", ctypes.c_longlong), ("vec", ctypes.c_int)]
 
 
 class _ChainStep(ctypes.Structure):
-    _fields_ = [("a", _Operand), ("b", _Operand),
+    _fields_ = [("t", _Operand), ("w_is_a", ctypes.c_int),
+                ("w_offset", ctypes.c_int),
                 ("M", ctypes.c_int), ("K", ctypes.c_int), ("N", ctypes.c_int),
-                ("bk", ctypes.c_int), ("tile_m", ctypes.c_int),
-                ("tile_n", ctypes.c_int), ("out_mid", ctypes.c_int),
+                ("bk", ctypes.c_int), ("kc", ctypes.c_int),
+                ("tile_m", ctypes.c_int), ("tile_n", ctypes.c_int),
+                ("tr", ctypes.c_int), ("out_mid", ctypes.c_int),
+                ("y_vec", ctypes.c_int),
                 ("c_row", ctypes.c_void_p), ("c_col", ctypes.c_void_p),
                 ("c_row_tok", ctypes.c_void_p), ("c_col_tok", ctypes.c_void_p)]
 
 
 class _FusedParams(ctypes.Structure):
-    _fields_ = [("y", ctypes.c_void_p), ("tokens", ctypes.c_longlong),
+    _fields_ = [("y", ctypes.c_void_p), ("packed", ctypes.c_void_p),
+                ("tokens", ctypes.c_longlong),
                 ("y_tok_stride", ctypes.c_longlong),
                 ("block_tokens", ctypes.c_int), ("n_steps", ctypes.c_int),
                 ("tile_offset", ctypes.c_int),
                 ("mid_offset", ctypes.c_int * _MAX_STEPS),
                 ("steps", _ChainStep * _MAX_STEPS)]
+
+
+class _PackOp(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("row", ctypes.c_void_p),
+                ("col", ctypes.c_void_p), ("rows", ctypes.c_int),
+                ("cols", ctypes.c_int), ("offset", ctypes.c_int)]
+
+
+class _PackParams(ctypes.Structure):
+    _fields_ = [("packed", ctypes.c_void_p), ("n_ops", ctypes.c_int),
+                ("ops", _PackOp * _MAX_STEPS)]
 
 
 @functools.lru_cache(maxsize=256)
@@ -529,7 +643,8 @@ def fused_segment_contract(
     batch_edge: str = BATCH_EDGE,
 ) -> tuple[tuple[str, ...], torch.Tensor]:
     """Execute the chain ``steps`` over the live work list ``work`` in one
-    launch.
+    call: the pack of the batch-free operands, then the chain (two CUDA
+    launches, one count in ``launches.COUNTS``).
 
     Returns ``(result_edges, result)``: the entry the per-step route would
     append, with the batch axis wherever the last step leaves it.
@@ -553,6 +668,49 @@ def fused_segment_contract(
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     prog = program_for(work, steps, block_k=block_k, block_tokens=block_tokens,
                        n_sm=n_sm, batch_edge=batch_edge)
+    return _run(work, prog)
+
+
+def _launch_params(prog: Program, dev: torch.device):
+    """(device tables, pack params, chain params) of ``prog`` on ``dev``:
+    the tables copied once, the parameter structs filled with everything
+    but the per-call pointers."""
+    tab = torch.from_numpy(prog.tables).to(dev)
+
+    def tptr(tables: dict, name: str):
+        return tab.data_ptr() + 4 * tables[name] if name in tables else None
+
+    pack = _PackParams()
+    pack.n_ops = len(prog.packs)
+    for i, pk in enumerate(prog.packs):
+        pack.ops[i] = _PackOp(None, tab.data_ptr() + 4 * pk.row,
+                              tab.data_ptr() + 4 * pk.col, pk.rows, pk.cols,
+                              pk.offset)
+    params = _FusedParams()
+    params.tokens, params.y_tok_stride = prog.tokens, prog.y_tok_stride
+    params.block_tokens = prog.block_tokens
+    params.n_steps = len(prog.steps)
+    params.tile_offset = sum(prog.mid_elems)
+    for i, off in enumerate(prog.mid_offsets):
+        params.mid_offset[i] = off
+    for i, st in enumerate(prog.steps):
+        t, ot = st.t.tables, st.out_tables
+        is_mid = st.t.src[0] == "mid"
+        params.steps[i] = _ChainStep(
+            _Operand(None, st.t.src[1] if is_mid else -1, tptr(t, "row"),
+                     tptr(t, "col"), tptr(t, "row_tok"), tptr(t, "col_tok"),
+                     st.t.tok_stride, 0),
+            int(st.w_is_a), st.w_offset, st.M, st.K, st.N, st.bk, st.kc,
+            st.tile_m, st.tile_n, st.tr, st.out_mid, int(st.y_vec), tptr(ot, "c_row"), tptr(ot, "c_col"),
+            tptr(ot, "c_row_tok"), tptr(ot, "c_col_tok"))
+    return tab, pack, params
+
+
+def _run(work, prog: Program) -> tuple[tuple[str, ...], torch.Tensor]:
+    """One call of ``prog`` on the CUDA work list: the pack, then the
+    chain.  Tests pass programs of other token blocks here to show the
+    result does not depend on them."""
+    dev = work[0][1].device
     ins = [work[p][1] for p in prog.input_positions]
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError("fused_path kernel takes float32 operands")
@@ -561,42 +719,26 @@ def fused_segment_contract(
     y = torch.empty(prog.out_dims, dtype=torch.float32, device=dev)
     if prog.tokens == 0:
         return prog.out_edges, y
-
-    tab = prog.device_tables.get(dev.index)
-    if tab is None:
-        tab = torch.from_numpy(prog.tables).to(dev)
-        prog.device_tables[dev.index] = tab
-
-    def tptr(tables: dict, name: str):
-        return tab.data_ptr() + 4 * tables[name] if name in tables else None
-
-    def operand(op: Operand) -> _Operand:
-        t = op.tables
-        is_mid = op.src[0] == "mid"
-        return _Operand(None if is_mid else ins[op.src[1]].data_ptr(),
-                        op.src[1] if is_mid else -1,
-                        tptr(t, "row"), tptr(t, "col"), tptr(t, "row_tok"),
-                        tptr(t, "col_tok"), op.tok_stride)
-
-    params = _FusedParams()
-    params.y, params.tokens = y.data_ptr(), prog.tokens
-    params.y_tok_stride = prog.y_tok_stride
-    params.block_tokens = prog.block_tokens
-    params.n_steps = len(prog.steps)
-    params.tile_offset = sum(prog.mid_elems)
-    for i, off in enumerate(prog.mid_offsets):
-        params.mid_offset[i] = off
+    packed = torch.empty(prog.packed_elems, dtype=torch.float32, device=dev)
+    state = prog.device_state.get(dev.index)
+    if state is None:
+        state = prog.device_state[dev.index] = _launch_params(prog, dev)
+    _, pack, params = state
+    # only the operand, output and scratch pointers change between calls;
+    # the launch copies the structs, so one caller at a time may reuse them
+    pack.packed = params.packed = packed.data_ptr()
+    params.y = y.data_ptr()
+    for i, pk in enumerate(prog.packs):
+        pack.ops[i].src = ins[pk.slot].data_ptr()
     for i, st in enumerate(prog.steps):
-        ot = st.out_tables
-        params.steps[i] = _ChainStep(
-            operand(st.a), operand(st.b), st.M, st.K, st.N, st.bk,
-            st.tile_m, st.tile_n, st.out_mid, tptr(ot, "c_row"),
-            tptr(ot, "c_col"), tptr(ot, "c_row_tok"), tptr(ot, "c_col_tok"))
-    n_blocks = -(-prog.tokens // prog.block_tokens)
+        if st.t.src[0] == "in":
+            base = ins[st.t.src[1]].data_ptr()
+            params.steps[i].t.base = base
+            params.steps[i].t.vec = int(st.t.vec and base % 16 == 0)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fused_path_launch(ctypes.byref(params), n_blocks,
-                               prog.smem_bytes, stream)
+    rc = lib.fused_path_launch(ctypes.byref(pack), ctypes.byref(params),
+                               prog.n_token_blocks, prog.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_path launch failed: {lib.fused_path_error_string(rc).decode()}"
@@ -610,7 +752,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_path")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_path_launch.argtypes = [p, i, i, p]
+        lib.fused_path_launch.argtypes = [p, p, i, i, p]
         lib.fused_path_launch.restype = i
         lib.fused_path_max_steps.restype = i
         lib.fused_path_max_tile.restype = i

@@ -19,6 +19,7 @@ dataflows' agreement are exact.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 
@@ -94,6 +95,24 @@ def _replay(work, i, j, contract=None):
     return [w for k, w in enumerate(work) if k not in (i, j)] + [(ec, val)]
 
 
+def _chain_case(tokens: int, mid_as_a: bool):
+    """A two-step chain on a small TT layer: X @ (G3 G4) then the other
+    core merge, with the interior result as operand B (the plans' order)
+    or, with the last pair swapped, as operand A."""
+    from repro_torch.core import tt_linear_network
+
+    in_modes, out_modes, ranks = (4, 6), (8, 4), (3, 5, 2)
+    tn = tt_linear_network(tokens, in_modes, out_modes, ranks)
+    # G1 G2 -> (i1 i2 r2), G3 G4 -> (r2 j1 j2); then X with the input half
+    steps = [(0, 1), (0, 1), (0, 2), (0, 1)]
+    work = [(n.edges, torch.from_numpy(_np(n.dims, 10 + k, 0.5)))
+            for k, n in enumerate(tn.nodes)]
+    for (i, j) in steps[:2]:
+        work = _replay(work, i, j, lambda a, b, ax: torch.tensordot(a, b, dims=ax))
+    chain = [(0, 2), (1, 0) if mid_as_a else (0, 1)]
+    return work, chain
+
+
 def segment_cases(max_tokens=None):
     """(plan file, layer, tokens) for every fused segment of the committed
     plans, at a ragged token count and at the plan's own; with
@@ -153,6 +172,75 @@ def test_tt_gemm_cuda_dataflows_bit_identical(cuda_device):
             for df in DATAFLOWS for bm, bn in ((32, 32), (128, 64))]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
+
+
+#: the train plans' weight-gradient shapes with their blocks, the serve
+#: shapes 37 and 1 x 2048 x 16, and a ragged case
+WS_CASES = [((2048, 2048, 16), (128, 128, 16)), ((768, 2048, 16), (128, 128, 16)),
+            ((2048, 768, 16), (128, 128, 16)), ((2048, 768, 16), (128, 16, 16)),
+            ((37, 2048, 16), (128, 128, 16)), ((1, 2048, 16), (128, 128, 16)),
+            ((200, 300, 90), (32, 32, 32))]
+
+
+def _ws_case(shape, blocks, device, seed):
+    (m, k, n), (bm, bk, bn) = shape, blocks
+    a = torch.from_numpy(_np((m, k), seed)).to(device)
+    b = torch.from_numpy(_np((k, n), seed + 1)).to(device)
+    return a, b, dict(block_m=ops.clamp_block(bm, m), block_k=ops.clamp_block(bk, k),
+                      block_n=ops.clamp_block(bn, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", WS_CASES)
+def test_tt_gemm_cuda_ws_equals_os_and_is(cuda_device, shape, blocks):
+    """The split WS grid against the unsplit OS and IS kernels, bit for bit,
+    and against the plain version at 1e-5 of the output's scale (K runs to
+    2048 here, so outputs near 0 carry the rounding of terms of size ~50)."""
+    a, b, blk = _ws_case(shape, blocks, cuda_device, 44)
+    ws = tt_gemm.tt_gemm(a, b, dataflow="WS", **blk)
+    for df in ("OS", "IS"):
+        assert torch.equal(ws, tt_gemm.tt_gemm(a, b, dataflow=df, **blk)), df
+    want = tt_gemm.tt_gemm_plain(a, b, dataflow="WS", **blk)
+    scale = max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(ws.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
+    row = tt_gemm.tt_gemm(a[-1:].contiguous(), b, dataflow="WS", **blk)
+    assert torch.equal(row[0], ws[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", WS_CASES)
+def test_tt_gemm_cuda_ws_does_not_depend_on_the_grid(cuda_device, shape, blocks):
+    """The same call over grids for other SM counts and over hand-made
+    m-range / k-group splits (the private launch helper's test-only grid
+    argument) gives the same bits."""
+    a, b, blk = _ws_case(shape, blocks, cuda_device, 46)
+    (m, k, n) = shape
+    grids = [tt_gemm.ws_grid(m, k, n, n_sm=sm, **blk) for sm in (1, 7, 132, 1000)]
+    g = grids[2]
+    grids += [dataclasses.replace(g, mtiles_per_range=mr, kblocks_per_group=kg)
+              for mr, kg in ((1, 1), (3, 5), (2, g.n_kblocks))]
+    grids.append(dataclasses.replace(g, rows_per_thread=1, row_groups=5))
+    launches.reset()
+    outs = [tt_gemm._ws_gemm(a, b, grid) for grid in grids]
+    assert launches.COUNTS["tt_gemm_ws"] == len(grids)
+    for grid, o in zip(grids[1:], outs[1:]):
+        assert torch.equal(o, outs[0]), grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(7, 5, 3), (1, 1, 1), (5, 13, 6)])
+@pytest.mark.parametrize("shape", [(33, 47, 65), (1, 9, 2), (130, 300, 17)])
+def test_tt_gemm_cuda_ws_odd_blocks_equal_os(cuda_device, shape, blocks):
+    """Blocks that are no multiple of 4 (the WS kernel's scalar staging and
+    padded register tiles) and shapes with K % 4 != 0: WS == OS == IS."""
+    (m, k, n), (bm, bk, bn) = shape, blocks
+    a = torch.from_numpy(_np((m, k), 48)).to(cuda_device)
+    b = torch.from_numpy(_np((k, n), 49)).to(cuda_device)
+    blk = dict(block_m=bm, block_k=bk, block_n=bn)
+    ws = tt_gemm.tt_gemm(a, b, dataflow="WS", **blk)
+    for df in ("OS", "IS"):
+        assert torch.equal(ws, tt_gemm.tt_gemm(a, b, dataflow=df, **blk)), df
 
 
 @pytest.mark.cuda
@@ -220,6 +308,70 @@ def test_fused_path_cuda_matches_plain_and_per_step_route(cuda_device, plan_file
             w = _replay(w, i, j, contract)
         assert w[-1][0] == ec
         assert torch.equal(w[-1][1], got), dataflow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name,tokens", [c for c in segment_cases()
+                                                   if c[2] == 37])
+def test_fused_path_cuda_one_token_equals_per_step_route(cuda_device, plan_file,
+                                                        name, tokens):
+    """One token (a decode-sized call): bit for bit the per-step route."""
+    entries, chain, lp = _segment(plan_file, name, 1)
+    work = _segment_tensors(entries, cuda_device, 64)
+    t = lp["tiling"]
+    blocks = dict(block_m=t["block_m"], block_k=t["block_k"], block_n=t["block_n"])
+    ec, got = fused_path.fused_segment_contract(
+        work, chain, block_tokens=t["block_tokens"], **blocks)
+    w = list(work)
+    contract = ops.gemm_contract(dataflow=lp["dataflow"], **blocks)
+    for (i, j) in chain:
+        w = _replay(w, i, j, contract)
+    assert w[-1][0] == ec and torch.equal(w[-1][1], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attn.wq", "mlp.wg", "mlp.wd"])
+def test_fused_path_cuda_does_not_depend_on_the_token_block(cuda_device, name):
+    """Full-width segments at 2048 and 37 tokens through programs of other
+    token blocks (the private launch helper's test-only program
+    argument): the same bits."""
+    for tokens in (2048, 37):
+        entries, chain, lp = _segment("tt-lm-100m.train.tt_gemm.json", name, tokens)
+        work = _segment_tensors(entries, cuda_device, 66)
+        bk = lp["tiling"]["block_k"]
+        progs = [fused_path.compile_program(entries, chain, block_k=bk,
+                                            block_tokens=bt)
+                 for bt in (1, 2, 8, 16, 24, 32, 64)]
+        launches.reset()
+        outs = [fused_path._run(work, prog)[1] for prog in progs]
+        assert launches.COUNTS["fused_path"] == len(progs)
+        for prog, o in zip(progs[1:], outs[1:]):
+            assert torch.equal(o, outs[0]), (tokens, prog.block_tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mid_as_a", [False, True])
+@pytest.mark.parametrize("tokens", [1, 37, 64])
+@pytest.mark.parametrize("blocks", [(128, 128, 128), (32, 8, 16), (8, 16, 8)])
+def test_fused_path_cuda_small_chains_equal_per_step_route(cuda_device, blocks,
+                                                          tokens, mid_as_a):
+    """A chain whose interior result is operand A (the last step's weight
+    side is then B) as well as B, at several token blocks: bit for bit the
+    per-step CUDA route."""
+    work, chain = _chain_case(tokens, mid_as_a)
+    work = [(e, t.to(cuda_device)) for e, t in work]
+    bm, bk, bn = blocks
+    w = list(work)
+    contract = ops.gemm_contract(dataflow="WS", block_m=bm, block_k=bk, block_n=bn)
+    for (i, j) in chain:
+        w = _replay(w, i, j, contract)
+    entries = [(e, tuple(t.shape)) for e, t in work]
+    progs = [fused_path.compile_program(entries, chain, block_k=bk, block_tokens=bt)
+             for bt in (1, 2, 8, 16, 24, 64)]
+    for prog in progs:
+        ec, got = fused_path._run(work, prog)
+        assert ec == w[-1][0]
+        assert torch.equal(got, w[-1][1]), prog.block_tokens
 
 
 @pytest.mark.cuda

@@ -25,11 +25,10 @@ from repro.core import fusion as ref_fusion
 from repro.core.paths import find_topk_paths as ref_find_topk_paths
 from repro.core.tensor_network import tt_linear_network as ref_tt_linear_network
 from repro.kernels import fused_path as ref_fused
-from repro_torch.core import tt_linear_network
 from repro_torch.kernels import fused_path, launches, ops
 from repro_torch.plan import LayerPlan, Tiling, execution_log, reset_execution_log
 from repro_torch.plan.executor import planned_tt_linear
-from test_torch_cuda import _replay, _segment, segment_cases
+from test_torch_cuda import _chain_case, _replay, _segment, segment_cases
 
 torch.set_num_threads(2)
 
@@ -46,22 +45,6 @@ def test_compile_segment_equals_reference(plan_file, name, tokens):
     work, chain, _ = _segment(plan_file, name, tokens)
     assert fused_path._compile_segment(work, chain, "b") == \
         ref_fused._compile_segment(work, chain, "b")
-
-
-def _chain_case(tokens: int, mid_as_a: bool):
-    """A two-step chain on a small TT layer: X @ (G3 G4) then the other
-    core merge, with the interior result as operand B (the plans' order)
-    or, with the last pair swapped, as operand A."""
-    in_modes, out_modes, ranks = (4, 6), (8, 4), (3, 5, 2)
-    tn = tt_linear_network(tokens, in_modes, out_modes, ranks)
-    # G1 G2 -> (i1 i2 r2), G3 G4 -> (r2 j1 j2); then X with the input half
-    steps = [(0, 1), (0, 1), (0, 2), (0, 1)]
-    work = [(n.edges, torch.from_numpy(_np(n.dims, 10 + k, 0.5)))
-            for k, n in enumerate(tn.nodes)]
-    for (i, j) in steps[:2]:
-        work = _replay(work, i, j, lambda a, b, ax: torch.tensordot(a, b, dims=ax))
-    chain = [(0, 2), (1, 0) if mid_as_a else (0, 1)]
-    return work, chain
 
 
 @pytest.mark.parametrize("mid_as_a", [False, True])
@@ -165,19 +148,23 @@ def test_segmented_layer_equals_unsegmented_bit_for_bit(tokens, dataflow):
 
 
 def test_segment_smem_bytes_known_shapes():
-    """fp32 interior (token block x 16) plus the two staging tiles of the
-    largest step: full-width attn.wq at a 16-token block holds a 16 x 16
-    interior and tiles of 16 x 128 + 128 x 16 (step 4, block_k 128)."""
+    """fp32 interior (token block x 16, rounded to 4 floats) plus the
+    staging tiles of the largest round, which takes as many k-blocks as
+    fit in 24 576 floats.  Full-width attn.wq at a 16-token block: a 16 x
+    16 interior; its first step (16 x 768 @ 768 x 16, block_k 128) stages
+    5 k-blocks a round, a 16 x (640 + 4) A tile and a 640 x 16 B tile."""
     entries, chain, lp = _segment("tt-lm-100m.train.tt_gemm.json", "attn.wq", 64)
     work = [(e, torch.zeros(d)) for e, d in entries]
     assert fused_path.segment_smem_bytes(work, chain, block_tokens=16,
-                                         block_k=128) == 4 * (16 * 16 + 2 * 16 * 128)
-    # mlp.wg plans block_k 16: the tiles shrink to 16 x 16 + 16 x 16 and,
-    # for the second step, 64 x 16 + 16 x 16
+                                         block_k=128) == \
+        4 * (16 * 16 + 16 * (640 + 4) + 640 * 16)
+    # mlp.wg plans block_k 16: its first step stages 47 k-blocks of 16 a
+    # round (752 of the 768), more than the second step's tiles need
     entries, chain, _ = _segment("tt-lm-100m.train.tt_gemm.json", "mlp.wg", 64)
     work = [(e, torch.zeros(d)) for e, d in entries]
     assert fused_path.segment_smem_bytes(work, chain, block_tokens=16,
-                                         block_k=16) == 4 * (16 * 16 + 64 * 16 + 16 * 16)
+                                         block_k=16) == \
+        4 * (16 * 16 + 16 * (752 + 4) + 752 * 16)
 
 
 def test_choose_block_tokens_fills_the_card():
@@ -189,6 +176,53 @@ def test_choose_block_tokens_fills_the_card():
                                           plan_block=256, n_sm=16) == 64
     assert fused_path.choose_block_tokens(entries, chain, block_k=128,
                                           plan_block=4, n_sm=16) == 4
+    prog = fused_path.compile_program(entries, chain, block_k=128, block_tokens=8)
+    assert prog.n_token_blocks == 256
+    # 37 tokens: the block is not cut below 8 tokens, so 5 blocks
+    entries, chain, _ = _segment("tt-lm-100m.train.tt_gemm.json", "mlp.wd", 37)
+    bt = fused_path.choose_block_tokens(entries, chain, block_k=128, plan_block=256)
+    prog = fused_path.compile_program(entries, chain, block_k=128, block_tokens=bt)
+    assert bt == 8 and prog.n_token_blocks == 5
+
+
+def _smoke_train_segments():
+    return [c for c in segment_cases()
+            if c[0] in ("tt-lm-smoke.train.tt_gemm.json", "tt-lm-smoke.tt_gemm.json")
+            and c[2] == 37]
+
+
+@pytest.mark.parametrize("block_tokens", [1, 2, 4, 8, 16, 24, 32, 48, 64])
+@pytest.mark.parametrize("tokens", [1, 37, 100])
+@pytest.mark.parametrize("plan_file,name,_tokens", _smoke_train_segments())
+def test_offset_tables_mirror_with_packs(plan_file, name, _tokens, tokens,
+                                         block_tokens):
+    """The packed batch-free operands at 1-64-token blocks (powers of two
+    and not) and ragged token counts, through the torch mirror of the
+    kernel's grid, against the plain version."""
+    entries, work, chain, _, blocks = _plan_segment(plan_file, name, tokens, 50)
+    _, want = fused_path.fused_segment_contract_plain(work, chain, **blocks)
+    prog = fused_path.compile_program(entries, chain, block_k=blocks["block_k"],
+                                      block_tokens=block_tokens)
+    assert prog.packed_elems == sum(-(-p.rows * p.cols // 4) * 4 for p in prog.packs)
+    assert prog.n_token_blocks == -(-tokens // block_tokens)
+    got = fused_path.run_program_plain(prog, [work[p][1] for p in prog.input_positions])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("block_tokens", [1, 2, 4, 8, 16, 24, 32, 48, 64])
+@pytest.mark.parametrize("tokens", [1, 37])
+@pytest.mark.parametrize("mid_as_a", [False, True])
+def test_small_chain_mirror_with_packs(mid_as_a, tokens, block_tokens):
+    """The mirror on a chain whose interior result is operand A as well as
+    B (the last step's packed operand is then B)."""
+    work, chain = _chain_case(tokens, mid_as_a)
+    _, want = fused_path.fused_segment_contract_plain(work, chain, block_k=8)
+    entries = [(e, tuple(t.shape)) for e, t in work]
+    prog = fused_path.compile_program(entries, chain, block_k=8,
+                                      block_tokens=block_tokens)
+    assert prog.steps[-1].w_is_a != mid_as_a
+    got = fused_path.run_program_plain(prog, [work[p][1] for p in prog.input_positions])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():

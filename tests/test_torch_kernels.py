@@ -100,6 +100,86 @@ def test_gemm_rejects_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
+# the WS kernel's grid (K3): cover, size and the split-K fold, on the CPU
+# ---------------------------------------------------------------------------
+
+#: (M, K, N) with the plan's blocks, clamped as the executor clamps them:
+#: the three weight-gradient shapes of the train plans, the serve shapes,
+#: and a ragged case
+WS_GRID_CASES = [((2048, 2048, 16), (128, 128, 16)),
+                 ((768, 2048, 16), (128, 128, 16)),
+                 ((2048, 768, 16), (128, 128, 16)),
+                 ((37, 2048, 16), (128, 128, 16)),
+                 ((1, 2048, 16), (128, 128, 16)),
+                 ((200, 300, 90), (32, 32, 32)),
+                 ((200, 300, 90), (128, 32, 64))]
+
+
+def _ws_grid(shape, blocks, n_sm=132):
+    (m, k, n), (bm, bk, bn) = shape, blocks
+    return tt_gemm.ws_grid(m, k, n, block_m=ops.clamp_block(bm, m),
+                           block_k=ops.clamp_block(bk, k),
+                           block_n=ops.clamp_block(bn, n), n_sm=n_sm)
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("shape,blocks", WS_GRID_CASES)
+def test_ws_grid_covers_every_row_and_kblock_once(shape, blocks, n_sm):
+    g = _ws_grid(shape, blocks, n_sm)
+    m, k, n = shape
+    seen = np.zeros((g.n_kblocks, m, n), np.int32)
+    for rows, kbs, cols in g.blocks_work():
+        assert len(rows) and len(kbs) and len(cols)
+        seen[kbs.start:kbs.stop, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+    assert g.smem_bytes <= tt_gemm.SMEM_LIMIT_BYTES
+    assert 1 <= g.rows_per_thread <= tt_gemm.WS_TILE_ROWS
+    assert g.row_groups * -(-g.block_n // 4) <= 256
+
+
+@pytest.mark.parametrize("shape,blocks", WS_GRID_CASES)
+def test_ws_grid_fills_the_card(shape, blocks):
+    """At least 132 blocks wherever the n-bands x rows x k-blocks allow
+    it (an m-tile keeps WS_MIN_TILE_ROWS rows), about 2 x 132 at the
+    weight-gradient shapes."""
+    g = _ws_grid(shape, blocks)
+    m, _, _ = shape
+    most = g.n_nbands * -(-m // tt_gemm.WS_MIN_TILE_ROWS) * g.n_kblocks
+    assert g.blocks >= min(132, most)
+    if shape[0] >= 37:
+        assert g.blocks >= 132
+    if shape in ((2048, 2048, 16), (768, 2048, 16), (2048, 768, 16)):
+        assert 264 <= g.blocks <= 2 * 264
+
+
+@pytest.mark.parametrize("shape,blocks", WS_GRID_CASES)
+def test_ws_grid_workspace_is_one_partial_per_kblock(shape, blocks):
+    g = _ws_grid(shape, blocks)
+    m, k, n = shape
+    n_kb = -(-k // g.block_k)
+    assert g.n_kblocks == n_kb
+    assert g.workspace_elems == (n_kb * m * n if g.n_kgroups > 1 else 0)
+    # one k-block: nothing to split, no workspace
+    one = tt_gemm.ws_grid(m, k, n, block_m=128, block_k=ops.clamp_block(k, k),
+                          block_n=g.block_n)
+    assert one.n_kgroups == 1 and one.workspace_elems == 0
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("shape,blocks", WS_GRID_CASES[3:])
+def test_ws_split_fold_mirror_equals_plain(shape, blocks, n_sm):
+    """Partials per k-block into the workspace, then the ascending fold:
+    bit for bit the plain version's k-fold."""
+    m, k, n = shape
+    a, b = torch.from_numpy(_np((m, k), 7)), torch.from_numpy(_np((k, n), 8))
+    g = _ws_grid(shape, blocks, n_sm)
+    got = tt_gemm.run_ws_grid_plain(a, b, g)
+    want = tt_gemm.tt_gemm_plain(a, b, dataflow="WS", block_m=128,
+                                 block_k=g.block_k, block_n=g.block_n)
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # streaming_tt (K1): plain version against the Pallas kernel
 # ---------------------------------------------------------------------------
 
