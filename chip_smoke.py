@@ -16,15 +16,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``tt_gemm`` route.  Per kernel: max abs error, kernel ms, plain ms,
    ``library_ms`` (PyTorch calls that compute the same function; used
    nowhere in the port) and the bound (bytes over 3.35 TB/s or fp32 FLOPs
-   over 67 TFLOP/s, the larger).
+   over 67 TFLOP/s, the larger).  Every OS and IS shape of a decode step
+   is timed by CUDA-graph replay beside one ``torch.matmul``, with the sum
+   weighted by its launches per decode step.
 4. serve: full-width tt-lm-100m with random weights from a seed, through
    ``python -m repro_torch.launch.serve``'s code path: the full plan with
    ``--strict-plan`` (continuous, then oneshot: the tokens must match), the
    plan pair, and the pair with ``--plan-backend tt_gemm`` (the dataflow
    kernels).  Launch counts are zeroed just before and read just after.
 5. per call: launches of one prefill and one decode step per plan
-   setting; a decode step's wall time and the card's busy share
-   (``torch.profiler``).
+   setting; a decode step's wall time, the card's busy share and the
+   device time of the setting's kernels (``torch.profiler``), under the
+   full plan (K1) and under the pair on ``tt_gemm`` (K2 + K4).
 6. check: prefill logits through the kernels agree with the plain
    executor on the card; tt-lm-smoke on the card agrees with the CPU.
 7. train: full-width tt-lm-100m through ``python -m
@@ -42,6 +45,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are False): the model is fp32.
+
 The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
@@ -79,11 +83,21 @@ SERVE = ["--batch", "4", "--n-requests", "8", "--prompt-len", "32",
 #: dx, K3 WS weight gradients and K5 fused segments
 SERVE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")
 TRAIN_KERNELS = ("streaming_tt", "tt_gemm_ws", "fused_path")
-#: the CUDA functions of each kernel of the train path: a profile sums
-#: them, since one wrapper call may launch two
+#: the CUDA functions of each kernel: a profile sums them, since one
+#: wrapper call may launch two
 KERNEL_FUNCTIONS = {"K1 streaming_tt": ("free_step_kernel", "stream_kernel"),
+                    "K2 tt_gemm_os": ("os_kernel",),
                     "K3 tt_gemm_ws": ("ws_kernel", "ws_fold_kernel"),
+                    "K4 tt_gemm_is": ("is_kernel",),
                     "K5 fused_path": ("pack_kernel", "fused_kernel")}
+#: the kernels each profile sums: a train step, and a decode step under
+#: each (label, prefill plan, decode plan, --plan-backend) setting
+TRAIN_PROFILE = ("K1 streaming_tt", "K3 tt_gemm_ws", "K5 fused_path")
+DECODE_SETTINGS = (
+    ("full plan", "tt-lm-100m.json", "tt-lm-100m.json", None,
+     ("K1 streaming_tt",)),
+    ("plan pair on tt_gemm", "tt-lm-100m.pair.prefill.json",
+     "tt-lm-100m.pair.decode.json", "tt_gemm", ("K2 tt_gemm_os", "K4 tt_gemm_is")))
 
 
 def log(msg: str) -> None:
@@ -252,13 +266,14 @@ def check_streaming(device, layers) -> dict:
                    f"+ {len(prog.tok_steps)} token steps",
                 ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
                 plain_ms=timed(plain)[0], library_ms=timed(library)[0],
-                bound_ms=b_ms, bound_by=b_by)
+                library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
     log(f"  streaming_tt: {len(seen)} (layer, path, tokens) cases, "
         f"max abs err {err:.3e}")
     t4 = timing[4]
     log(f"  streaming_tt at {t4['at']}: kernel {_fmt(t4['ms'])} (host "
-        f"{_fmt(t4['host_ms'])}), plain {_fmt(t4['plain_ms'])}, library "
-        f"{_fmt(t4['library_ms'])}, bound {_fmt(t4['bound_ms'])} "
+        f"{_fmt(t4['host_ms'])}, graph {_fmt(t4['graph_ms'])}), plain "
+        f"{_fmt(t4['plain_ms'])}, library {_fmt(t4['library_ms'])} (graph "
+        f"{_fmt(t4['library_graph_ms'])}), bound {_fmt(t4['bound_ms'])} "
         f"({t4['bound_by']})")
     return dict(name="streaming_tt", max_abs_err=err, **timing[32])
 
@@ -278,11 +293,23 @@ def _einsum_equation(tn) -> str:
 
 
 def check_tt_gemm(device, layers) -> list[dict]:
+    """Every tt_gemm shape of the serving paths (decode at 4 lanes, prefill
+    at 32, 37 and 1 tokens), with the plan's blocks clamped as the executor
+    clamps them, against the plain version within 1e-5 of the output's
+    scale, and row 0 bit for bit against a one-row call.  Every OS and IS
+    shape (all of them decode shapes) is timed by CUDA-graph replay beside
+    one ``torch.matmul``, and weighted by its launches per decode step (4
+    lanes: its count in the decode plan x the model's layers), so a small
+    shape that got slower shows beside the largest one.  One record per
+    dataflow at its largest shape for the kernels line."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, tt_gemm
 
+    n_layers = get_config("tt-lm-100m").n_layers
     shapes = {"OS": set(), "WS": set(), "IS": set()}
+    per_step: dict = {}
     for plan_name, lp, tn in layers:
         tokens = (4,) if "decode" in plan_name else (32, 37, 1)
         for t in tokens:
@@ -290,17 +317,24 @@ def check_tt_gemm(device, layers) -> list[dict]:
                 n.__class__(n.name, n.edges, (t,) + n.dims[1:], n.kind)
                 if n.kind == "input" else n for n in tn.nodes])
             for g in full.gemm_sequence(lp.path_steps):
-                shapes[lp.dataflow].add((g.M, g.K, g.N, lp.tiling.block_m,
-                                         lp.tiling.block_k, lp.tiling.block_n))
+                key = (g.M, g.K, g.N, ops.clamp_block(lp.tiling.block_m, g.M),
+                       ops.clamp_block(lp.tiling.block_k, g.K),
+                       ops.clamp_block(lp.tiling.block_n, g.N))
+                shapes[lp.dataflow].add(key)
+                if "decode" in plan_name:
+                    per_step[lp.dataflow, key] = (
+                        per_step.get((lp.dataflow, key), 0) + n_layers)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    grids = {"OS": tt_gemm.os_grid, "IS": tt_gemm.is_grid}
     out = []
     gen = torch.Generator().manual_seed(2)
     for df, cases in shapes.items():
-        err, best = 0.0, None
-        for (m, k, n, bm, bk, bn) in sorted(cases):
+        err, best, rows = 0.0, None, []
+        for key in sorted(cases):
+            m, k, n, bm, bk, bn = key
             a = torch.randn(m, k, generator=gen).to(device)
             b = torch.randn(k, n, generator=gen).to(device)
-            blocks = dict(block_m=ops.clamp_block(bm, m), block_k=ops.clamp_block(bk, k),
-                          block_n=ops.clamp_block(bn, n))
+            blocks = dict(block_m=bm, block_k=bk, block_n=bn)
             got = tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)
             want = tt_gemm.tt_gemm_plain(a, b, dataflow=df, **blocks)
             torch.cuda.synchronize()
@@ -315,6 +349,13 @@ def check_tt_gemm(device, layers) -> list[dict]:
             err = max(err, e)
             if best is None or m * k * n > best[0][0] * best[0][1] * best[0][2]:
                 best = ((m, k, n), a, b, blocks)
+            if df == "WS":
+                continue
+            rows.append(((m, k, n), tuple(blocks.values()),
+                         grids[df](m, k, n, n_sm=n_sm, **blocks).blocks,
+                         per_step.get((df, key), 0),
+                         graph_ms(lambda: tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)),
+                         graph_ms(lambda: torch.matmul(a, b))))
         (m, k, n), a, b, blocks = best
         b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
         ms, host_ms = timed(lambda: tt_gemm.tt_gemm(a, b, dataflow=df, **blocks))
@@ -330,6 +371,15 @@ def check_tt_gemm(device, layers) -> list[dict]:
             library_graph_ms=graph_ms(lambda: torch.matmul(a, b)),
             bound_ms=b_ms, bound_by=b_by)
         log(f"  tt_gemm {df}: {len(cases)} main-path shapes, max abs err {err:.3e}")
+        for mkn, blk, n_blocks, count, k_ms, lib_ms in rows:
+            log(f"    {df} M,K,N={mkn} blocks {blk}: {n_blocks} CUDA blocks, "
+                f"kernel graph {_fmt(k_ms)}, torch.matmul graph {_fmt(lib_ms)}, "
+                f"x{count} per decode step")
+        if rows and all(r[4] is not None and r[5] is not None for r in rows):
+            log(f"  tt_gemm {df} per decode step (4 lanes, "
+                f"{sum(r[3] for r in rows)} launches, graph ms x launches): "
+                f"kernel {sum(r[3] * r[4] for r in rows):.4f} ms, torch.matmul "
+                f"{sum(r[3] * r[5] for r in rows):.4f} ms")
         out.append(rec)
     return out
 
@@ -543,12 +593,36 @@ def device_time(avgs) -> tuple[float, float, list]:
             sorted(on_card, key=_dev_us, reverse=True))
 
 
+def kernel_split(top, busy: float, n: int, kernels) -> list[str]:
+    """Device ms per step of each kernel in ``kernels`` (its CUDA
+    functions of :data:`KERNEL_FUNCTIONS` summed) over ``n`` profiled
+    steps whose card was busy ``busy`` ms a step, and their sum."""
+    lines, grand = [], 0.0
+    for kernel in kernels:
+        names = KERNEL_FUNCTIONS[kernel]
+        parts = {fn: [e for e in top if re.search(rf"\b{fn}\b", e.key)]
+                 for fn in names}
+        ms = {fn: sum(_dev_us(e) for e in es) / 1e3 / n for fn, es in parts.items()}
+        total = sum(ms.values())
+        grand += total
+        lines.append(
+            f"  {kernel}: {total:.3f} ms a step ({100 * total / busy:.1f}% of busy)"
+            " = " + " + ".join(
+                f"{fn} {ms[fn]:.3f} ms x{sum(e.count for e in parts[fn]) // n}"
+                f" ({100 * ms[fn] / total if total else 0:.1f}%)" for fn in names))
+    if len(kernels) > 1:
+        lines.append(f"  {' + '.join(k.split()[0] for k in kernels)}: {grand:.3f} "
+                     f"ms a step ({100 * grand / busy:.1f}% of busy)")
+    return lines
+
+
 def decode_profile(device) -> list[str]:
-    """Where a full-width decode step (full plan, 4 busy lanes) spends its
-    time: host wall per step, the card's busy time per step from
-    ``torch.profiler``, and the kernels that take the most of it.  A
-    measurement only: when the profiler records no device time the lines
-    say "not measured" and the run goes on."""
+    """Where a full-width decode step (4 busy lanes) spends its time under
+    each plan setting: host wall per step, the card's busy time per step
+    from ``torch.profiler``, the kernels that take the most of it, and the
+    device time of the setting's own kernels.  A measurement only: when
+    the profiler records no device time the lines say "not measured" and
+    the run goes on."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -559,48 +633,56 @@ def decode_profile(device) -> list[str]:
     from repro_torch.serve import ServeEngine
 
     cfg = get_config("tt-lm-100m")
-    plan = load_plan(os.path.join(PLANS, "tt-lm-100m.json"))
-    eng = ServeEngine(cfg, api(cfg, device=device).init_params(0), n_slots=4,
-                      max_seq=64, prompt_bucket=8, prefill_plan=plan,
-                      decode_plan=plan, arch="tt-lm-100m")
-    caches = eng.fresh_caches()
-    for lane in range(4):
-        _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
-        caches = eng.admit(caches, small, lane)
-    tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
+    params = api(cfg, device=device).init_params(0)
+    notes = []
+    for label, pre, dec, backend, kernels in DECODE_SETTINGS:
+        eng = ServeEngine(cfg, params, n_slots=4, max_seq=64, prompt_bucket=8,
+                          prefill_plan=load_plan(os.path.join(PLANS, pre)),
+                          decode_plan=load_plan(os.path.join(PLANS, dec)),
+                          arch="tt-lm-100m", plan_backend=backend)
+        caches = eng.fresh_caches()
+        for lane in range(4):
+            _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
+            caches = eng.admit(caches, small, lane)
+        tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
 
-    def steps(n):
-        nonlocal caches
-        for i in range(n):
-            _, caches = eng.decode(tok, pos + i, caches)
+        def steps(n):
+            nonlocal caches
+            for i in range(n):
+                _, caches = eng.decode(tok, pos + i, caches)
 
-    steps(3)
-    torch.cuda.synchronize()
-    n = 5
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            steps(n)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / n
-        avgs = prof.key_averages()
-    except Exception as e:  # the profiler is optional instrumentation here
-        return [f"decode step profile: not measured ({type(e).__name__}: {e})"]
+        steps(3)
+        torch.cuda.synchronize()
+        n = 5
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                steps(n)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / n
+            avgs = prof.key_averages()
+        except Exception as e:  # the profiler is optional instrumentation here
+            notes.append(f"decode step profile ({label}): not measured "
+                         f"({type(e).__name__}: {e})")
+            continue
 
-    busy, every, top = device_time(avgs)
-    busy, every = busy / n, every / n
-    if busy <= 0:
-        return [f"decode step (full plan, 4 lanes): {wall:.2f} ms wall; card "
-                "busy time not measured (the profiler saw no device time)"]
-    return [f"decode step (full plan, 4 lanes, torch.profiler over {n} steps): "
-            f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
-            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
-            f"(device events only; every event's device time summed: "
-            f"{every:.2f} ms)",
-            "  top device time per step: " + "; ".join(
-                f"{e.key[:48]} {_dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
-                for e in top[:6])]
+        busy, every, top = device_time(avgs)
+        busy, every = busy / n, every / n
+        if busy <= 0:
+            notes.append(f"decode step ({label}, 4 lanes): {wall:.2f} ms wall; card "
+                         "busy time not measured (the profiler saw no device time)")
+            continue
+        notes += [f"decode step ({label}, 4 lanes, torch.profiler over {n} steps): "
+                  f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
+                  f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
+                  f"(device events only; every event's device time summed: "
+                  f"{every:.2f} ms)",
+                  "  top device time per step: " + "; ".join(
+                      f"{e.key[:48]} {_dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
+                      for e in top[:6])]
+        notes += kernel_split(top, busy, n, kernels)
+    return notes
 
 
 def output_check(device) -> list[str]:
@@ -857,16 +939,7 @@ def train_profile(device) -> list[str]:
                      f"idle {100 * (1 - busy / wall):.1f}%")
         notes.append("  top device time: " + "; ".join(
             f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
-        for kernel, names in KERNEL_FUNCTIONS.items():
-            parts = {fn: [e for e in top if re.search(rf"\b{fn}\b", e.key)]
-                     for fn in names}
-            ms = {fn: sum(_dev_us(e) for e in es) / 1e3 for fn, es in parts.items()}
-            total = sum(ms.values())
-            notes.append(
-                f"  {kernel}: {total:.2f} ms ({100 * total / busy:.1f}% of busy) = "
-                + " + ".join(f"{fn} {ms[fn]:.2f} ms x{sum(e.count for e in parts[fn])}"
-                             f" ({100 * ms[fn] / total if total else 0:.1f}%)"
-                             for fn in names))
+        notes += kernel_split(top, busy, 1, TRAIN_PROFILE)
     install_plan(None)
     return notes
 

@@ -43,9 +43,10 @@
 //     its rows are aligned and its columns contiguous, through its tables
 //     (masked per token) otherwise.
 //   * Each thread keeps a register tile of up to 4 rows x 4 columns
-//     (gemm_tile.cuh's kblock_tile, shared with the WS kernel), its k loop
-//     unrolled 8 deep (at 4 the compiler's schedule ran the chain 1.5-2.1x
-//     slower on an H100; PERF.md).
+//     (gemm_tile.cuh's kblocks_fold, shared with the tt_gemm kernels) and
+//     runs a round's k-blocks as one loop, folding at each k-block edge.
+//     block_k must be a multiple of 4 (plans clamp it to a power of two of
+//     at least 8); the wrapper and the launcher refuse any other.
 //   * The fp32 interior stays in shared memory across steps; the last step
 //     writes straight into the segment's output layout through its
 //     tables, the batch axis wherever it falls (float4 stores where Y's
@@ -136,7 +137,6 @@ namespace {
 
 using gemm_tile::cp_async;
 using gemm_tile::cp_async_wait_all;
-using gemm_tile::kfold;
 using gemm_tile::kTileRows;
 
 __global__ void __launch_bounds__(kThreads)
@@ -211,6 +211,31 @@ __device__ __forceinline__ void stage_token(float* dst, int ld_dst,
   }
 }
 
+// gemm_tile::kblocks_fold with the register tile's rows a runtime count
+// (1 to kTileRows): the host sizes each step's tile.
+__device__ __forceinline__ void kblocks_fold_rows(
+    int rows, const float* As, int lda, int row0, int row_step,
+    const float* Bs, int ldb, int col0, int bk, int n_kb, int kb0,
+    float (&tot)[kTileRows][4]) {
+  switch (rows) {
+    case 1:
+      gemm_tile::kblocks_fold<1>(As, lda, row0, row_step, Bs, ldb, col0, bk,
+                                 n_kb, kb0, tot);
+      break;
+    case 2:
+      gemm_tile::kblocks_fold<2>(As, lda, row0, row_step, Bs, ldb, col0, bk,
+                                 n_kb, kb0, tot);
+      break;
+    case 3:
+      gemm_tile::kblocks_fold<3>(As, lda, row0, row_step, Bs, ldb, col0, bk,
+                                 n_kb, kb0, tot);
+      break;
+    default:
+      gemm_tile::kblocks_fold<4>(As, lda, row0, row_step, Bs, ldb, col0, bk,
+                                 n_kb, kb0, tot);
+  }
+}
+
 // __grid_constant__: the step table is read in place from parameter space.
 __global__ void __launch_bounds__(kThreads)
 fused_kernel(const __grid_constant__ FusedParams p) {
@@ -255,15 +280,8 @@ fused_kernel(const __grid_constant__ FusedParams p) {
           __syncthreads();
           if (!active) continue;
           const int kb0 = k0 / bk, kbs = min(kc / bk, n_kb - kb0);
-          for (int j = 0; j < kbs; ++j) {
-            float part[kTileRows][4];
-            gemm_tile::kblock_tile<8>(As + j * bk, lda, ty, n_ty, st.tr,
-                                      Bs + j * bk * ldb, ldb, 4 * tx, bk, part);
-#pragma unroll
-            for (int i = 0; i < kTileRows; ++i)
-#pragma unroll
-              for (int c = 0; c < 4; ++c) kfold(&acc[i][c], part[i][c], kb0 + j);
-          }
+          kblocks_fold_rows(st.tr, As, lda, ty, n_ty, Bs, ldb, 4 * tx, bk,
+                            kbs, kb0, acc);
         }
         if (!active || 4 * tx >= tn) continue;
 #pragma unroll
@@ -313,7 +331,8 @@ extern "C" int fused_path_launch(const PackParams* pack,
   for (int s = 0; s < params->n_steps; ++s) {
     const ChainStep& st = params->steps[s];
     const int n_tx = (st.tile_n + 3) / 4;
-    if (st.bk < 1 || st.kc < st.bk || st.kc % st.bk != 0 || st.tr < 1 ||
+    if (st.bk < 1 || st.bk % 4 != 0 || st.kc < st.bk || st.kc % st.bk != 0 ||
+        st.tr < 1 ||
         st.tr > gemm_tile::kTileRows || st.tile_m % st.tr != 0 ||
         n_tx * (st.tile_m / st.tr) > kThreads)
       return (int)cudaErrorInvalidValue;

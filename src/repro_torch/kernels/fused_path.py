@@ -716,6 +716,10 @@ def _run(work, prog: Program) -> tuple[tuple[str, ...], torch.Tensor]:
         raise TypeError("fused_path kernel takes float32 operands")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("fused_path: operands must be contiguous")
+    if any(st.bk % 4 for st in prog.steps):
+        raise ValueError("fused_path kernel: each step's clamped block_k must "
+                         "be a multiple of 4, got "
+                         f"{[st.bk for st in prog.steps]}")
     y = torch.empty(prog.out_dims, dtype=torch.float32, device=dev)
     if prog.tokens == 0:
         return prog.out_edges, y

@@ -1,30 +1,47 @@
 """Dataflow-configurable GEMM (OS / WS / IS): CUDA kernel + plain version.
 
 Port of ``src/repro/kernels/tt_gemm.py``.  The Pallas kernel picked its
-dataflow through the grid order; the CUDA kernel (``csrc/tt_gemm.cu``)
-picks which operand tile stays resident in shared memory:
+dataflow through the grid order; the CUDA kernels (``csrc/tt_gemm.cu``)
+keep what the dataflow names resident while the rest streams, over a grid
+the host picks for the card:
 
-  OS  one block per output tile, k loop inside, fp32 accumulator in
-      registers, C written once;
-  WS  a grid of (n-band x m-range x k-group) blocks chosen for the card by
-      :func:`ws_grid`; in each block the k-block's B tile stays resident
-      while the A tiles of the m-range stream past it.  Split over K, every
-      k-block's partial goes to a workspace and a second launch folds them
-      in ascending order; unsplit, partial C folds in registers or
-      round-trips through C once per k-fold;
-  IS  one block per m-band, A tile resident while B streams, same fp32
-      partial-sum contract as WS.
+  OS  (m-tile x n-tile) blocks chosen by :func:`os_grid`; each block's
+      output tile stays in registers while A's and B's k-block tiles stream
+      past it (``cp.async``), and every output is stored once;
+  WS  (n-band x m-range x k-group) blocks chosen by :func:`ws_grid`; in
+      each block the k-block's B tile stays resident while the A tiles of
+      the m-range stream past it.  Split over K, every k-block's partial
+      goes to a workspace and a second launch folds them in ascending
+      order; unsplit, partial C folds in registers or round-trips through
+      C once per k-fold;
+  IS  (m-band x n-group) blocks chosen by :func:`is_grid`; each block
+      stages its band of A once (across all of K where it fits shared
+      memory) and keeps it while the B tiles of its n-tiles stream past
+      it, each n-tile folded in registers.  A band too deep for shared
+      memory stages per k-block, and a group of several n-tiles then folds
+      its partials through C, the reference's ``o = o + part``.
+
+At every decode shape of the plans IS runs OS's schedule under its own
+name: the calls give fewer tiles than SMs, so :func:`is_grid` gives each
+block one n-tile, and every tile fits shared memory, so both stage a
+block's rows of A and its B rows across all of K in one pass
+(:attr:`BandGrid.one_pass`).  IS's band reuse and its fold through C take
+effect only past that.
 
 Each output element sums its k-blocks in ascending order in fp32 (the
 workspace keeps each k-block's partial apart, so a split changes no bit;
 no atomics), so the three dataflows agree bit for bit at one ``block_k``
-and a row never depends on M, on the WS grid or on the other rows of the
+and a row never depends on M, on a grid or on the other rows of the
 call.  Ragged dims are masked in the kernel instead of zero-padded.
 
-What bounds WS at the train plans' weight gradients (M,K,N = 2048,2048,16
-and 768|2048 x 2048|768 x 16, ``block_n`` 16) is the bytes of A, not FMAs
-(0.0051 ms against 0.002 ms at 2048,2048,16), and before the split the
-grid: one block per n-band meant one block for the whole product.
+What bounds the calls the plans make is not bytes or FMAs.  The decode
+GEMMs (OS and IS, 4 tokens) move 1-45 KB each (~0.013 us at 3.35 TB/s):
+the launch, the round trips to memory and the FMA chains set their time,
+so the grids fill the card with small tiles and a block puts every copy
+of a short K in flight before one wait.  WS at the train plans' weight
+gradients (M,K,N = 2048,2048,16) is bound by the bytes of A (0.0051 ms
+against 0.002 ms of FMAs), and before the split by its grid: one block per
+n-band meant one block for the whole product.
 """
 
 from __future__ import annotations
@@ -32,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Iterator, Literal
+from typing import ClassVar, Iterator, Literal
 
 import torch
 
@@ -44,17 +61,39 @@ DATAFLOWS = ("OS", "WS", "IS")
 _CODE = {"OS": 0, "IS": 2}   # tt_gemm_launch's codes; WS has its own launcher
 _COUNTER = {"OS": "tt_gemm_os", "WS": "tt_gemm_ws", "IS": "tt_gemm_is"}
 _THREADS = 256
-_MAX_PER_THREAD = 64
 #: dynamic shared memory one Hopper block may use
 SMEM_LIMIT_BYTES = 232_448
-#: the WS kernel's register tile: up to this many rows x 4 columns a thread
+#: the register tile of every dataflow: up to this many rows x 4 columns
+#: a thread
 WS_TILE_ROWS = 4
 #: the WS grid's m-tiles are not cut below this many rows
 WS_MIN_TILE_ROWS = 4
+#: an OS tile or IS band is not cut below this many rows
+BAND_MIN_ROWS = 4
+#: the widest n-tile of an OS or IS block (a grid choice: no bit depends
+#: on it)
+BAND_MAX_TILE_N = 128
+#: an OS or IS n-tile is halved, down to BAND_MIN_TILE_N columns, while the
+#: card is not full and a block would stage more than this many floats of
+#: B; on an H100 a block's staging, not its FMAs, sets a decode GEMM's time
+BAND_B_FLOATS = 512
+BAND_MIN_TILE_N = 8
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _kpad(cols: int) -> int:
+    """``cols`` rounded up to a multiple of 4 (``csrc/gemm_tile.cuh``:
+    kpad): the depth a k-block stages at, zero-filled past ``block_k``."""
+    return _cdiv(cols, 4) * 4
+
+
+def _pad_ld(cols: int) -> int:
+    """Row stride of a staged A tile ``cols`` wide (``csrc/tt_gemm.cu``:
+    pad_ld): rounded up to 4, plus 4."""
+    return _kpad(cols) + 4
 
 
 def _check_blocks(dataflow: str, block_m: int, block_k: int,
@@ -126,9 +165,9 @@ class WSGrid:
 
     @property
     def smem_bytes(self) -> int:
-        lda = _cdiv(self.block_k, 4) * 4 + 4
+        lda = _pad_ld(self.block_k)
         ldb = 4 * _cdiv(self.block_n, 4)
-        return 4 * (self.tile_m * lda + self.block_k * ldb)
+        return 4 * (self.tile_m * lda + _kpad(self.block_k) * ldb)
 
     def block_work(self, b: int) -> tuple[range, range, range]:
         """(rows, k-blocks, columns) block ``b`` computes."""
@@ -174,8 +213,8 @@ def ws_grid(m: int, k: int, n: int, *, block_m: int, block_k: int,
     if n_tx > _THREADS:
         raise ValueError(f"tt_gemm WS: block_n {block_n} over {4 * _THREADS}")
     ty_max = _THREADS // n_tx
-    lda = _cdiv(block_k, 4) * 4 + 4
-    b_floats = block_k * 4 * n_tx
+    lda = _pad_ld(block_k)
+    b_floats = _kpad(block_k) * 4 * n_tx
     max_rows = (SMEM_LIMIT_BYTES // 4 - b_floats) // lda
     if max_rows < 1:
         raise ValueError(
@@ -221,6 +260,229 @@ def run_ws_grid_plain(a: torch.Tensor, b: torch.Tensor,
     c = work[0]
     for kb in range(1, grid.n_kblocks):
         c = c + work[kb]
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class BandGrid:
+    """How one OS or IS launch covers ``(M, K, N)``: blocks over (m-band x
+    n-group), each a band of :attr:`tile_m` rows and a group of up to
+    ``ntiles_per_group`` n-tiles of ``tile_n`` columns, each thread a
+    register tile of ``rows_per_thread`` rows (strided by ``row_groups``)
+    x 4 columns.  ``a_whole`` stages the band of A across all of K once;
+    ``one_pass`` stages every tile of a block before one wait (each n-tile
+    then folds in registers over one loop across K), else the block's
+    (n-tile, k-block) tiles stream through a two-stage ring.  Both need a
+    ``block_k`` that is a multiple of 4.  The kernel's block
+    (``blockIdx.x``, ``blockIdx.y``) = (m-band, n-group) does what
+    ``block_steps(m-band * n_ngroups + n-group)`` lists, in that order."""
+
+    m: int
+    k: int
+    n: int
+    block_k: int
+    tile_n: int
+    rows_per_thread: int
+    row_groups: int
+    ntiles_per_group: int
+    a_whole: bool
+    one_pass: bool
+
+    dataflow: ClassVar[str] = ""
+
+    def __post_init__(self):
+        if (self.a_whole or self.one_pass) and self.block_k % 4:
+            raise ValueError(f"tt_gemm {self.dataflow}: a whole band of A or "
+                             "one pass needs block_k a multiple of 4")
+        if self.one_pass and not (self.a_whole or self.ntiles_per_group == 1):
+            raise ValueError(f"tt_gemm {self.dataflow}: one pass folds in "
+                             "registers: a whole band of A or one n-tile a "
+                             "block")
+
+    @property
+    def tile_m(self) -> int:
+        """Rows of one band (the block's rows)."""
+        return self.rows_per_thread * self.row_groups
+
+    @property
+    def n_kblocks(self) -> int:
+        return _cdiv(self.k, self.block_k)
+
+    @property
+    def n_ntiles(self) -> int:
+        return _cdiv(self.n, self.tile_n)
+
+    @property
+    def n_mbands(self) -> int:
+        return _cdiv(self.m, self.tile_m)
+
+    @property
+    def n_ngroups(self) -> int:
+        return _cdiv(self.n_ntiles, self.ntiles_per_group)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_mbands * self.n_ngroups
+
+    @property
+    def smem_bytes(self) -> int:
+        ldb = 4 * _cdiv(self.tile_n, 4)
+        depth = self.n_kblocks * self.block_k
+        if self.a_whole or self.one_pass:
+            a = self.tile_m * _pad_ld(depth)
+        else:
+            a = 2 * self.tile_m * _pad_ld(self.block_k)
+        if self.one_pass:
+            b = self.ntiles_per_group * depth * ldb
+        else:
+            b = 2 * _kpad(self.block_k) * ldb
+        return 4 * (a + b)
+
+    def block_steps(self, b: int) -> list[tuple[range, range, int, bool]]:
+        """(rows, columns, k-block, through C) of each tile block ``b``
+        computes, in the kernel's order: n-tile by n-tile, each n-tile's
+        k-blocks ascending and folded in registers, when the A band is
+        whole or the group has one n-tile; else k-block by k-block, each
+        partial folded through C."""
+        mb, ng = divmod(b, self.n_ngroups)
+        rows = range(mb * self.tile_m, min(self.m, (mb + 1) * self.tile_m))
+        j0 = ng * self.ntiles_per_group
+        n_j = min(self.ntiles_per_group, self.n_ntiles - j0)
+        via_c = not self.a_whole and n_j > 1
+        kbs = range(self.n_kblocks)
+        order = ([(j, kb) for kb in kbs for j in range(n_j)] if via_c
+                 else [(j, kb) for j in range(n_j) for kb in kbs])
+        return [(rows, range((j0 + j) * self.tile_n,
+                             min(self.n, (j0 + j + 1) * self.tile_n)), kb, via_c)
+                for j, kb in order]
+
+
+@dataclasses.dataclass(frozen=True)
+class OSGrid(BandGrid):
+    """An OS launch: one n-tile a block, A and B both streamed per
+    k-block, the output tile resident in registers."""
+
+    dataflow: ClassVar[str] = "OS"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.ntiles_per_group != 1 or self.a_whole:
+            raise ValueError("an OS block owns one output tile and streams A")
+
+
+@dataclasses.dataclass(frozen=True)
+class ISGrid(BandGrid):
+    """An IS launch: the A band resident while B streams."""
+
+    dataflow: ClassVar[str] = "IS"
+
+
+def _band_grid(cls, m: int, k: int, n: int, block_m: int, block_k: int,
+               block_n: int, n_sm: int) -> BandGrid:
+    _check_blocks(cls.dataflow, block_m, block_k, block_n)
+    m1, k1, n1 = max(m, 1), max(k, 1), max(n, 1)
+    tile_n = min(block_n, BAND_MAX_TILE_N, 4 * _cdiv(n1, 4))
+    ldb = 4 * _cdiv(tile_n, 4)
+    ty_max = _THREADS // (ldb // 4)
+    max_rows = ((SMEM_LIMIT_BYTES // 4 - 2 * _kpad(block_k) * ldb)
+                // (2 * _pad_ld(block_k)))
+    if max_rows < 1:
+        raise ValueError(
+            f"tt_gemm {cls.dataflow}: block_k {block_k} is too deep for two "
+            f"staged tiles in the {SMEM_LIMIT_BYTES} B of shared memory a "
+            "block has")
+
+    def tile(rows: int) -> tuple[int, int]:
+        rows = max(1, min(rows, WS_TILE_ROWS * ty_max, max_rows))
+        tr = _cdiv(rows, ty_max)
+        return tr, rows // tr
+
+    n_nt, n_kb = _cdiv(n1, tile_n), _cdiv(k1, block_k)
+    tr, ty = tile(min(block_m, m1))
+    if _cdiv(m1, tr * ty) * n_nt < n_sm:
+        wanted = _cdiv(n_sm, n_nt)
+        tr, ty = tile(max(min(tr * ty, BAND_MIN_ROWS), m1 // wanted))
+    tm = tr * ty
+    # then narrower n-tiles, while the card is not full and a block would
+    # stage more than BAND_B_FLOATS of B (its K rows x tile_n columns)
+    while (_cdiv(m1, tm) * _cdiv(n1, tile_n) < n_sm and tile_n > BAND_MIN_TILE_N
+           and n_kb * block_k * tile_n > BAND_B_FLOATS):
+        tile_n = max(BAND_MIN_TILE_N, 4 * _cdiv(tile_n, 8))
+    ldb = 4 * _cdiv(tile_n, 4)
+    n_nt = _cdiv(n1, tile_n)
+    group, a_whole = 1, False
+    if cls is ISGrid:
+        group = max(1, min(n_nt, _cdiv(m1, tm) * n_nt // n_sm))
+        a_whole = block_k % 4 == 0 and 4 * (
+            tm * _pad_ld(n_kb * block_k) + 2 * block_k * ldb) <= SMEM_LIMIT_BYTES
+    if block_k % 4 == 0 and (a_whole or group == 1):
+        one = cls(m, k, n, block_k, tile_n, tr, ty, group, a_whole, True)
+        if one.smem_bytes <= SMEM_LIMIT_BYTES:
+            return one
+    return cls(m, k, n, block_k, tile_n, tr, ty, group, a_whole, False)
+
+
+@functools.lru_cache(maxsize=1024)
+def os_grid(m: int, k: int, n: int, *, block_m: int, block_k: int,
+            block_n: int, n_sm: int = 132) -> OSGrid:
+    """The OS kernel's grid for one call, aiming at ``n_sm`` blocks.
+
+    1. The output tile: ``min(block_n, BAND_MAX_TILE_N, N)`` columns (to a
+       multiple of 4) by up to ``min(block_m, M)`` rows, as ``row_groups``
+       threads per 4-column group (256 threads over the groups) times up
+       to :data:`WS_TILE_ROWS` rows each, cut to fit two staged k-blocks
+       in shared memory.
+    2. While ``m-tiles x n-tiles`` stays under ``n_sm``, the tile shrinks
+       to ``M // wanted`` rows (not below :data:`BAND_MIN_ROWS`), so that
+       M alone could fill the card; then, while it still does not and a
+       block would stage more than :data:`BAND_B_FLOATS` of B, the
+       n-tile halves (not below :data:`BAND_MIN_TILE_N` columns).
+    3. ``one_pass`` where a block's rows of A and B across all of K fit
+       shared memory (and ``block_k`` is a multiple of 4); else the
+       k-blocks stream through a two-stage ring.
+
+    At the decode shapes on 132 SMs: 64,128,16 (blocks 64,128,16) -> 32
+    tiles of 4 rows x 8 columns, 1 k-block; 16,192,4 (16,64,8) -> 4 tiles
+    of 4 x 4, its 3 k-blocks in one pass; 128,8,8 (32,8,8) -> 32 tiles.
+    ``block_k`` alone fixes the bits; the grid changes none.
+    """
+    return _band_grid(OSGrid, m, k, n, block_m, block_k, block_n, n_sm)
+
+
+@functools.lru_cache(maxsize=1024)
+def is_grid(m: int, k: int, n: int, *, block_m: int, block_k: int,
+            block_n: int, n_sm: int = 132) -> ISGrid:
+    """The IS kernel's grid for one call: the band as :func:`os_grid` cuts
+    its tile (aiming at ``n_sm`` m-bands x n-tiles), then n-groups of
+    ``m-bands x n-tiles // n_sm`` n-tiles where there are more tiles than
+    SMs.  The band of A is staged whole (all of K) where it and two B
+    tiles fit shared memory, else one k-block at a time; ``one_pass`` as
+    :func:`os_grid` sets it, for a group of one n-tile or a whole band.
+
+    At the decode shapes on 132 SMs: 32,16,256 (blocks 32,16,128) -> 8
+    bands of 4 rows x 8 n-tiles of 32 = 64 blocks; 16,192,4 (16,16,8) -> 4
+    bands, each with its 12 k-blocks in one pass; 16,64,48 (16,16,64) -> 4
+    bands x 6 n-tiles of 8.  Every decode shape gives fewer tiles than
+    SMs, so each group is one n-tile: the launch runs OS's schedule.
+    """
+    return _band_grid(ISGrid, m, k, n, block_m, block_k, block_n, n_sm)
+
+
+def run_band_grid_plain(a: torch.Tensor, b: torch.Tensor,
+                        grid: BandGrid) -> torch.Tensor:
+    """The CPU mirror of an OS or IS launch over ``grid``: every block
+    folds the k-block partials of its tiles into C in the kernel's order
+    (first k-block stored, later ones added).  Each partial is the plain
+    version's (one product over all rows), so the mirror checks the
+    grid's cover and the fold order, not the FMAs."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    bk = grid.block_k
+    parts = [a32[:, k0:k0 + bk] @ b32[k0:k0 + bk] for k0 in range(0, grid.k, bk)]
+    c = torch.full((grid.m, grid.n), float("nan"))
+    for blk in range(grid.blocks):
+        for rows, cols, kb, _ in grid.block_steps(blk):
+            r, q = slice(rows.start, rows.stop), slice(cols.start, cols.stop)
+            c[r, q] = parts[kb][r, q] if kb == 0 else c[r, q] + parts[kb][r, q]
     return c
 
 
@@ -281,42 +543,53 @@ def tt_gemm(
         raise ValueError(f"tt_gemm: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("tt_gemm: operands must be contiguous")
-    if block_m * block_n > _THREADS * _MAX_PER_THREAD:
-        raise ValueError(
-            f"tt_gemm: tile {block_m}x{block_n} exceeds "
-            f"{_THREADS * _MAX_PER_THREAD} outputs per block")
-    smem = 4 * (block_m * block_k + block_k * block_n)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"tt_gemm: tiles ({block_m}, {block_k}, {block_n}) need {smem} B "
-            f"of shared memory, over the {SMEM_LIMIT_BYTES} B a block has")
     m, k = a.shape
     n = b.shape[1]
+    blocks = dict(block_m=block_m, block_k=block_k, block_n=block_n,
+                  n_sm=_n_sm(a.device))
     if dataflow == "WS":
-        return _ws_gemm(a, b, ws_grid(m, k, n, block_m=block_m, block_k=block_k,
-                                      block_n=block_n, n_sm=_n_sm(a.device)))
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return c
-    if max(m * k, k * n, m * n) >= 2**31:
-        raise ValueError("tt_gemm: operand too large for 32-bit dims")
-    lib = _lib()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.tt_gemm_launch(_CODE[dataflow], a.data_ptr(), b.data_ptr(),
-                            c.data_ptr(), m, k, n, block_m, block_k, block_n,
-                            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"tt_gemm {dataflow} launch failed: "
-            f"{lib.tt_gemm_error_string(rc).decode()} (M={m} K={k} N={n}, "
-            f"blocks {block_m}x{block_k}x{block_n})")
-    launches.COUNTS[_COUNTER[dataflow]] += 1
-    return c
+        return _ws_gemm(a, b, ws_grid(m, k, n, **blocks))
+    grid = os_grid if dataflow == "OS" else is_grid
+    return _band_gemm(a, b, grid(m, k, n, **blocks))
 
 
 @functools.lru_cache(maxsize=None)
 def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _band_gemm(a: torch.Tensor, b: torch.Tensor, grid: BandGrid) -> torch.Tensor:
+    """One OS or IS call on checked CUDA operands over ``grid`` (one CUDA
+    launch, one count).  Tests pass their own grid here to show the result
+    does not depend on it."""
+    m, k = a.shape
+    n = b.shape[1]
+    if (grid.m, grid.k, grid.n) != (m, k, n):
+        raise ValueError(f"tt_gemm {grid.dataflow}: grid for "
+                         f"{(grid.m, grid.k, grid.n)}, operands {(m, k, n)}")
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return c
+    if k == 0:
+        return c.zero_()
+    if max(m * k, k * n, m * n) >= 2**31:
+        raise ValueError("tt_gemm: operand too large for 32-bit dims")
+    if grid.smem_bytes > SMEM_LIMIT_BYTES:
+        raise ValueError(f"tt_gemm {grid.dataflow}: grid needs "
+                         f"{grid.smem_bytes} B of shared memory")
+    lib = _lib()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.tt_gemm_launch(
+        _CODE[grid.dataflow], a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k,
+        n, grid.block_k, grid.tile_n, grid.rows_per_thread, grid.row_groups,
+        grid.ntiles_per_group, int(grid.a_whole), int(grid.one_pass), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"tt_gemm {grid.dataflow} launch failed: "
+            f"{lib.tt_gemm_error_string(rc).decode()} (M={m} K={k} N={n}, "
+            f"{grid})")
+    launches.COUNTS[_COUNTER[grid.dataflow]] += 1
+    return c
 
 
 def _ws_gemm(a: torch.Tensor, b: torch.Tensor, grid: WSGrid) -> torch.Tensor:
@@ -359,7 +632,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tt_gemm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tt_gemm_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
+        lib.tt_gemm_launch.argtypes = [i, p, p, p] + [i] * 10 + [p]
         lib.tt_gemm_launch.restype = i
         lib.tt_gemm_ws_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.tt_gemm_ws_launch.restype = i

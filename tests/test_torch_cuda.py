@@ -228,6 +228,110 @@ def test_tt_gemm_cuda_ws_does_not_depend_on_the_grid(cuda_device, shape, blocks)
         assert torch.equal(o, outs[0]), grid
 
 
+#: every OS and IS GEMM of a decode step under tt-lm-100m.pair.decode.json
+#: at 4 lanes, (M, K, N) with the plan's blocks clamped as the executor
+#: clamps them (tests/test_torch_kernels.py re-derives the list)
+DECODE_CASES = [((128, 8, 8), (32, 8, 8)), ((12, 12, 128), (16, 16, 16)),
+                ((48, 64, 16), (32, 64, 16)), ((16, 192, 4), (16, 64, 8)),
+                ((128, 16, 4), (32, 16, 8)), ((96, 16, 32), (32, 16, 16)),
+                ((256, 8, 8), (64, 8, 8)), ((64, 128, 16), (64, 128, 16)),
+                ((16, 256, 4), (16, 128, 8)), ((128, 16, 4), (64, 16, 8)),
+                ((96, 16, 32), (64, 16, 16)), ((8, 8, 384), (8, 8, 128)),
+                ((16, 64, 48), (16, 16, 64)), ((16, 192, 4), (16, 16, 8)),
+                ((16, 16, 256), (16, 16, 128)), ((32, 16, 256), (32, 16, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", DECODE_CASES)
+def test_tt_gemm_cuda_decode_shapes_dataflows_bit_identical(cuda_device, shape,
+                                                            blocks):
+    """OS == WS == IS bit for bit at every decode shape, each within 1e-5
+    of the output's scale of the plain version, row 0 as a one-row call."""
+    a, b, blk = _ws_case(shape, blocks, cuda_device, 50)
+    want = tt_gemm.tt_gemm_plain(a, b, **blk)
+    scale = max(1.0, want.abs().max().item())
+    outs = {df: tt_gemm.tt_gemm(a, b, dataflow=df, **blk) for df in DATAFLOWS}
+    for df, got in outs.items():
+        assert torch.equal(got, outs["WS"]), df
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5 * scale)
+        row = tt_gemm.tt_gemm(a[:1].contiguous(), b, dataflow=df, **blk)
+        assert torch.equal(row[0], got[0]), df
+
+
+def _band_grids(dataflow, shape, blk):
+    """The OS or IS grid of a call for other SM counts and hand-made ones:
+    fewer rows a thread, the two-stage ring and one pass, and for IS every
+    n-tile in one group and the band staged per k-block; those that fit
+    shared memory."""
+    (m, k, n) = shape
+    make = tt_gemm.os_grid if dataflow == "OS" else tt_gemm.is_grid
+    grids = [make(m, k, n, n_sm=sm, **blk) for sm in (1, 7, 132, 1000)]
+    g = dataclasses.replace(grids[2], one_pass=False)
+    grids += [g, dataclasses.replace(g, rows_per_thread=1,
+                                     row_groups=min(5, 256 // -(-g.tile_n // 4)))]
+    if g.a_whole or g.ntiles_per_group == 1:
+        grids.append(dataclasses.replace(g, one_pass=True))
+    if dataflow == "IS":
+        grids += [dataclasses.replace(g, ntiles_per_group=g.n_ntiles),
+                  dataclasses.replace(g, ntiles_per_group=g.n_ntiles, a_whole=True,
+                                      one_pass=True),
+                  dataclasses.replace(g, a_whole=not g.a_whole),
+                  dataclasses.replace(g, a_whole=False, ntiles_per_group=g.n_ntiles)]
+    return [gr for gr in grids if gr.smem_bytes <= tt_gemm.SMEM_LIMIT_BYTES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", ["OS", "IS"])
+@pytest.mark.parametrize("shape,blocks", DECODE_CASES + WS_CASES)
+def test_tt_gemm_cuda_os_is_do_not_depend_on_the_grid(cuda_device, dataflow, shape,
+                                                      blocks):
+    """The same call over grids for other SM counts and over hand-made
+    tiles, rings, n-groups and A stagings (the private launch helper's
+    test-only grid argument) gives WS's bits."""
+    a, b, blk = _ws_case(shape, blocks, cuda_device, 52)
+    ws = tt_gemm.tt_gemm(a, b, dataflow="WS", **blk)
+    grids = _band_grids(dataflow, shape, blk)
+    launches.reset()
+    outs = [tt_gemm._band_gemm(a, b, grid) for grid in grids]
+    assert launches.COUNTS[f"tt_gemm_{dataflow.lower()}"] == len(grids)
+    for grid, o in zip(grids, outs):
+        assert torch.equal(o, ws), grid
+
+
+#: IS calls with several n-tiles (hand-made narrow n-tiles where N is
+#: narrow), so one block's group can fold through C
+IS_ROUTE_CASES = [((32, 16, 256), (32, 16, 128), 32), ((8, 8, 384), (8, 8, 128), 128),
+                  ((16, 64, 48), (16, 16, 64), 8), ((16, 192, 4), (16, 16, 8), 1),
+                  ((37, 2048, 16), (128, 128, 16), 4), ((200, 300, 90), (32, 32, 32), 12),
+                  ((33, 47, 65), (7, 5, 3), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks,tile_n", IS_ROUTE_CASES)
+def test_tt_gemm_cuda_is_c_route_equals_register_fold(cuda_device, shape, blocks,
+                                                      tile_n):
+    """IS with the band staged per k-block and every n-tile in one group
+    folds its partials through C; with the band whole it folds in
+    registers.  Both give the same bits, and WS's."""
+    a, b, blk = _ws_case(shape, blocks, cuda_device, 54)
+    (m, k, n) = shape
+    g = tt_gemm.is_grid(m, k, n, **blk)
+    g = dataclasses.replace(g, tile_n=tile_n,
+                            row_groups=min(g.row_groups, 256 // -(-tile_n // 4)))
+    via_c = dataclasses.replace(g, a_whole=False, ntiles_per_group=g.n_ntiles,
+                                one_pass=False)
+    in_regs = dataclasses.replace(g, a_whole=True, ntiles_per_group=g.n_ntiles,
+                                  one_pass=False)
+    assert g.n_ntiles > 1
+    assert all(step[3] for step in via_c.block_steps(0))
+    assert not any(step[3] for step in in_regs.block_steps(0))
+    ws = tt_gemm.tt_gemm(a, b, dataflow="WS", **blk)
+    got = [tt_gemm._band_gemm(a, b, gr) for gr in (via_c, in_regs)]
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], ws)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [(7, 5, 3), (1, 1, 1), (5, 13, 6)])
 @pytest.mark.parametrize("shape", [(33, 47, 65), (1, 9, 2), (130, 300, 17)])
@@ -382,6 +486,16 @@ def test_fused_path_cuda_rows_are_independent(cuda_device):
     one = [(e, v[:1].contiguous() if e[0] == "b" else v) for e, v in work]
     _, row = fused_path.fused_segment_contract(one, chain, block_k=128)
     assert torch.equal(row[..., 0], full[..., 0])
+
+
+@pytest.mark.cuda
+def test_fused_path_cuda_refuses_a_block_k_off_4(cuda_device):
+    """The kernel stages k-blocks 4-aligned; a block_k that clamps to no
+    multiple of 4 raises instead of launching."""
+    entries, chain, lp = _segment("tt-lm-100m.train.tt_gemm.json", "mlp.wd", 37)
+    work = _segment_tensors(entries, cuda_device, 72)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_path.fused_segment_contract(work, chain, block_k=10)
 
 
 @pytest.mark.cuda

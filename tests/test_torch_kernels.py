@@ -14,6 +14,8 @@ order, so they differ by a few ulp times the contraction depth.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +30,9 @@ from repro_torch.core import find_topk_paths, tt_linear_network
 from repro_torch.dse_cli import model_dse_layers
 from repro_torch.kernels import launches, ops, ref, streaming_tt, tt_gemm
 from repro_torch.plan.executor import as_candidate_path
-from test_torch_cuda import plan_layer, streaming_cases
+from repro_torch.plan import load_plan
+from test_torch_cuda import (DECODE_CASES, IS_ROUTE_CASES, PLANS, plan_layer,
+                             streaming_cases)
 
 torch.set_num_threads(2)
 
@@ -177,6 +181,157 @@ def test_ws_split_fold_mirror_equals_plain(shape, blocks, n_sm):
     want = tt_gemm.tt_gemm_plain(a, b, dataflow="WS", block_m=128,
                                  block_k=g.block_k, block_n=g.block_n)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the OS and IS kernels' grids (K2, K4): cover, k-block order, size and the
+# fold, on the CPU
+# ---------------------------------------------------------------------------
+
+#: the decode shapes (blocks clamped as the executor clamps them), ragged
+#: shapes with odd blocks, and a deep K of 16 k-blocks
+BAND_GRID_CASES = DECODE_CASES + [((33, 47, 65), (7, 5, 3)), ((1, 9, 2), (1, 1, 1)),
+                                  ((200, 300, 90), (32, 32, 32)),
+                                  ((37, 2048, 16), (64, 128, 16))]
+
+
+def _band_grid(dataflow, shape, blocks, n_sm=132):
+    (m, k, n), (bm, bk, bn) = shape, blocks
+    make = tt_gemm.os_grid if dataflow == "OS" else tt_gemm.is_grid
+    return make(m, k, n, block_m=bm, block_k=bk, block_n=bn, n_sm=n_sm)
+
+
+def _is_route_grid(shape, blocks, tile_n):
+    """IS with the band staged per k-block and every n-tile in one group:
+    the route that folds through C (as tests/test_torch_cuda.py runs it)."""
+    g = _band_grid("IS", shape, tuple(ops.clamp_block(b, d) for b, d in
+                                      zip(blocks, shape)))
+    g = dataclasses.replace(g, tile_n=tile_n,
+                            row_groups=min(g.row_groups, 256 // -(-tile_n // 4)))
+    return dataclasses.replace(g, a_whole=False, ntiles_per_group=g.n_ntiles,
+                               one_pass=False)
+
+
+def _assert_cover(g):
+    """Every output of the call is computed by one block, its k-blocks
+    0, 1, ... in ascending order, each once; the grid fits the kernel."""
+    m, _, n = g.m, g.k, g.n
+    last = np.full((m, n), -1)
+    for b in range(g.blocks):
+        steps = g.block_steps(b)
+        assert steps
+        for rows, cols, kb, _ in steps:
+            assert len(rows) and len(cols)
+            r, c = slice(rows.start, rows.stop), slice(cols.start, cols.stop)
+            assert (last[r, c] == kb - 1).all()
+            last[r, c] = kb
+    assert (last == g.n_kblocks - 1).all()
+    assert g.smem_bytes <= tt_gemm.SMEM_LIMIT_BYTES
+    assert 1 <= g.rows_per_thread <= tt_gemm.WS_TILE_ROWS
+    assert g.row_groups * -(-g.tile_n // 4) <= 256
+    if g.one_pass:
+        assert g.block_k % 4 == 0 and (g.a_whole or g.ntiles_per_group == 1)
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("dataflow", ["OS", "IS"])
+@pytest.mark.parametrize("shape,blocks", BAND_GRID_CASES)
+def test_band_grid_covers_every_output_once_in_kblock_order(shape, blocks, dataflow,
+                                                            n_sm):
+    g = _band_grid(dataflow, shape, blocks, n_sm)
+    assert g.dataflow == dataflow
+    _assert_cover(g)
+    # one pass wherever a block's tiles across all of K fit; else the ring
+    fits = (g.block_k % 4 == 0 and (g.a_whole or g.ntiles_per_group == 1)
+            and dataclasses.replace(g, one_pass=True).smem_bytes
+            <= tt_gemm.SMEM_LIMIT_BYTES)
+    assert g.one_pass == fits
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "IS"])
+@pytest.mark.parametrize("shape,blocks", BAND_GRID_CASES)
+def test_band_grid_fills_the_card(shape, blocks, dataflow):
+    """At least 132 blocks wherever the tiles allow it (a tile keeps
+    BAND_MIN_ROWS rows and the plan's n-tiles), and no tile larger than
+    the plan's blocks."""
+    g = _band_grid(dataflow, shape, blocks)
+    m, _, n = shape
+    most = -(-m // tt_gemm.BAND_MIN_ROWS) * g.n_ntiles
+    assert g.blocks >= min(132, most)
+    assert g.tile_m <= max(blocks[0], 1) and g.tile_n <= blocks[2]
+    if (shape, blocks) in DECODE_CASES:
+        assert g.one_pass
+    if dataflow == "OS" and shape == (64, 128, 16):
+        assert 16 <= g.blocks <= 64
+    if dataflow == "IS" and shape == (32, 16, 256):
+        assert g.blocks >= 16 and g.a_whole
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("dataflow", ["OS", "IS"])
+@pytest.mark.parametrize("shape,blocks", BAND_GRID_CASES)
+def test_band_grid_mirror_equals_plain(shape, blocks, dataflow, n_sm):
+    """The blocks' tiles folded in the kernel's order: bit for bit the
+    plain version's k-fold."""
+    m, k, n = shape
+    a, b = torch.from_numpy(_np((m, k), 9)), torch.from_numpy(_np((k, n), 10))
+    g = _band_grid(dataflow, shape, blocks, n_sm)
+    want = tt_gemm.tt_gemm_plain(a, b, dataflow=dataflow, block_m=blocks[0],
+                                 block_k=blocks[1], block_n=blocks[2])
+    assert torch.equal(tt_gemm.run_band_grid_plain(a, b, g), want)
+
+
+@pytest.mark.parametrize("shape,blocks,tile_n", IS_ROUTE_CASES)
+def test_is_grid_through_c_covers_and_equals_plain(shape, blocks, tile_n):
+    """The IS route that folds through C (k-blocks outside, n-tiles
+    inside): every output once per k-block in ascending order, and its
+    mirror equals the plain version."""
+    g = _is_route_grid(shape, blocks, tile_n)
+    assert all(step[3] for b in range(g.blocks) for step in g.block_steps(b))
+    _assert_cover(g)
+    m, k, n = shape
+    a, b = torch.from_numpy(_np((m, k), 11)), torch.from_numpy(_np((k, n), 12))
+    want = tt_gemm.tt_gemm_plain(a, b, dataflow="IS", block_m=8,
+                                 block_k=g.block_k, block_n=8)
+    assert torch.equal(tt_gemm.run_band_grid_plain(a, b, g), want)
+
+
+def test_os_grid_rejects_an_is_layout():
+    g = tt_gemm.os_grid(64, 128, 16, block_m=64, block_k=128, block_n=16)
+    for change in (dict(a_whole=True), dict(ntiles_per_group=2)):
+        with pytest.raises(ValueError, match="OS"):
+            dataclasses.replace(g, **change)
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "IS"])
+def test_band_grid_odd_block_k_streams_padded_kblocks(dataflow):
+    """A block_k that is no multiple of 4 streams its k-blocks through the
+    two-stage ring (each staged 4-aligned, zero-filled): no whole band of
+    A and no one pass, and a grid that asks for either is refused."""
+    g = _band_grid(dataflow, (33, 47, 65), (7, 5, 3))
+    assert not g.one_pass and not g.a_whole
+    for change in (dict(one_pass=True), dict(a_whole=True)):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            dataclasses.replace(g, **change)
+
+
+def test_decode_cases_are_the_decode_plan_gemms():
+    """DECODE_CASES, which the card tests run, are exactly the distinct OS
+    and IS GEMMs of a 4-lane decode step under the committed decode plan."""
+    plan = load_plan(PLANS / "tt-lm-100m.pair.decode.json")
+    families = {name.split("[")[0]: tn for name, tn in
+                model_dse_layers(get_config("tt-lm-100m"), tokens=4)}
+    got = set()
+    for lp in plan.layers:
+        if lp.name == "head":
+            continue   # tied to the embedding: never executes
+        assert lp.dataflow in ("OS", "IS")
+        t = lp.tiling
+        for g in families[lp.name].gemm_sequence(lp.path_steps):
+            got.add(((g.M, g.K, g.N), (ops.clamp_block(t.block_m, g.M),
+                                       ops.clamp_block(t.block_k, g.K),
+                                       ops.clamp_block(t.block_n, g.N))))
+    assert got == set(DECODE_CASES)
 
 
 # ---------------------------------------------------------------------------
