@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. kernels: every CUDA kernel of the serving and training paths (K1
    ``streaming_tt``, K2-K4 ``tt_gemm`` OS/WS/IS, K5 ``fused_path``) against
    its plain PyTorch version at the shapes the main paths give it, plus
-   ragged token counts; K5 also bit for bit against the per-step CUDA
-   ``tt_gemm`` route.  Per kernel: max abs error, kernel ms, plain ms,
+   ragged token counts; K1 also at the train step's 2048 tokens, forward
+   and through every dx network; K5 also bit for bit against the per-step
+   CUDA ``tt_gemm`` route.  Per kernel: max abs error, kernel ms, plain ms,
    ``library_ms`` (PyTorch calls that compute the same function; used
    nowhere in the port) and the bound (bytes over 3.35 TB/s or fp32 FLOPs
    over 67 TFLOP/s, the larger).  Every OS and IS shape of a decode step
@@ -85,7 +86,7 @@ SERVE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")
 TRAIN_KERNELS = ("streaming_tt", "tt_gemm_ws", "fused_path")
 #: the CUDA functions of each kernel: a profile sums them, since one
 #: wrapper call may launch two
-KERNEL_FUNCTIONS = {"K1 streaming_tt": ("free_step_kernel", "stream_kernel"),
+KERNEL_FUNCTIONS = {"K1 streaming_tt": ("tt_free_kernel", "tt_stream_kernel"),
                     "K2 tt_gemm_os": ("os_kernel",),
                     "K3 tt_gemm_ws": ("ws_kernel", "ws_fold_kernel"),
                     "K4 tt_gemm_is": ("is_kernel",),
@@ -109,6 +110,46 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str) -> list[str]:
+    """``function: registers, spill stores / loads`` for each entry function
+    of an ``nvcc -Xptxas -v`` log (mangled names cut to the kernel's)."""
+    out, name, spill = [], None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name, spill = None, ""
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of a mangled (nested) name, with its template
+    arguments left mangled: ``tt_stream_kernel``, ``os_kernelILi1ELb1EE``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] == "I":
+        depth, k = 0, i
+        while k < len(mangled):
+            depth += {"I": 1, "L": 1, "E": -1}.get(mangled[k], 0)
+            k += 1
+            if depth == 0:
+                break
+        name += mangled[i:k]
+    return name
 
 
 def timed(fn, reps: int = 50, warmup: int = 5) -> tuple[float, float]:
@@ -203,93 +244,133 @@ def main_path_layers():
 
 
 def check_streaming(device, layers) -> dict:
-    import numpy as np
+    """K1 at every streaming layer of the serving plans (1, 4, 32 and 37
+    tokens) and at every dx network of ``tt-lm-100m.train.json`` (37 and
+    2048 tokens) against its plain version within 1e-4 of the output's
+    scale.  Timed beside one ``torch.einsum`` (library) and the bound:
+    mlp.wg at 4, 32 and 2048 tokens, and mlp.wd's dx network at 2048 (the
+    train step's shapes).  The kernels line carries the 32-token row."""
     import torch
 
     from repro_torch.kernels import ops, streaming_tt
     from repro_torch.plan.executor import as_candidate_path
 
+    cases = []
+    for plan_name, lp, tn in layers:
+        if lp.backend == "streaming_tt":
+            timed_layer = lp.name == "mlp.wg" and plan_name == "tt-lm-100m.json"
+            cases += [(f"{lp.name} ({plan_name})", lp.path_steps, tn, t,
+                       lp.tiling.block_tokens, timed_layer and t in (4, 32))
+                      for t in (1, 4, 32, 37)]
+    for name, steps, tn in dx_networks():
+        cases += [(f"{name} dx ({TRAIN_PLANS[0]})", steps, tn, t, 256,
+                   name == "mlp.wd" and t == 2048) for t in (37, 2048)]
+    mlp_wg = next(c for c in cases if c[0].startswith("mlp.wg (tt-lm-100m.json)"))
+    cases.append(mlp_wg[:3] + (2048, mlp_wg[4], True))
     seen, err, timing = set(), 0.0, {}
     gen = torch.Generator().manual_seed(1)
-    for plan_name, lp, tn in layers:
-        if lp.backend != "streaming_tt":
+    for label, steps, tn, tokens, plan_block, timed_case in cases:
+        key = (label.split(" (")[0], steps, tokens)
+        if key in seen:
             continue
-        for tokens in (1, 4, 32, 37):
-            key = (lp.name, lp.path_steps, tokens)
-            if key in seen:
-                continue
-            seen.add(key)
-            bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
-            tn_b = streaming_tt._rebatch(tn, bt)
-            path = as_candidate_path(tn_b, lp.path_steps)
-            cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
-                     for n in tn.nodes if n.kind != "input"]
-            n_in = int(np.prod(tn.nodes[-1].dims[1:]))
-            x = torch.randn(tokens, n_in, generator=gen).to(device)
+        seen.add(key)
+        bt = ops.clamp_block(plan_block, tokens)
+        tn_b = streaming_tt._rebatch(tn, bt)
+        path = as_candidate_path(tn_b, steps)
+        cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
+                 for n in tn.nodes if n.kind != "input"]
+        n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
+        x = torch.randn(tokens, n_in, generator=gen).to(device)
 
-            def kernel():
-                return streaming_tt.streaming_tt_linear(x, cores, tn_b, path,
-                                                        block_tokens=bt)
+        def kernel():
+            return streaming_tt.streaming_tt_linear(x, cores, tn_b, path,
+                                                    block_tokens=bt)
 
-            def plain():
-                return streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, path)
+        def plain():
+            return streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, path)
 
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            e = (got - want).abs().max().item()
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            if not torch.isfinite(got).all() or e > tol:
-                raise AssertionError(
-                    f"streaming_tt {plan_name}:{lp.name} tokens {tokens}: "
-                    f"max abs err {e} > {tol}")
-            err = max(err, e)
-            if lp.name != "mlp.wg" or tokens not in (4, 32) or tokens in timing:
-                continue
-            # one PyTorch call for the same function: einsum over X and cores
-            eq = _einsum_equation(tn)
-            x3 = x.reshape((tokens,) + tn.nodes[-1].dims[1:])
-
-            def library():
-                return torch.einsum(eq, x3, *cores[::-1])
-
-            assert (library().reshape(tokens, -1) - want).abs().max().item() <= tol
-            prog = streaming_tt.program_for(tn_b, path, bt)
-            full = streaming_tt._rebatch(tn, tokens)
-            macs = sum(g.macs for g in full.gemm_sequence(lp.path_steps))
-            nbytes = 4 * (x.numel() + sum(c.numel() for c in cores)
-                          + tokens * prog.out_dim)
-            b_ms, b_by = bound(nbytes, 2 * macs)
-            ms, host_ms = timed(kernel)
-            timing[tokens] = dict(
-                at=f"{lp.name} ({plan_name}), tokens {tokens}, kernel token "
-                   f"block {prog.block_tokens}, {len(prog.free_steps)} token-free "
-                   f"+ {len(prog.tok_steps)} token steps",
-                ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
-                plain_ms=timed(plain)[0], library_ms=timed(library)[0],
-                library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        if not torch.isfinite(got).all() or e > tol:
+            raise AssertionError(f"streaming_tt {label} tokens {tokens}: "
+                                 f"max abs err {e} > {tol}")
+        err = max(err, e)
+        if not timed_case:
+            continue
+        library = _einsum_call(tn, x, cores)
+        assert (library() - want).abs().max().item() <= tol
+        prog = streaming_tt.program_for(tn_b, path)
+        grid = streaming_tt.launch_grid(
+            prog, tokens, torch.cuda.get_device_properties(device).multi_processor_count)
+        full = streaming_tt._rebatch(tn, tokens)
+        macs = sum(g.macs for g in full.gemm_sequence(steps))
+        nbytes = 4 * (x.numel() + sum(c.numel() for c in cores) + got.numel())
+        b_ms, b_by = bound(nbytes, 2 * macs)
+        ms, host_ms = timed(kernel)
+        timing[label.split(" (")[0], tokens] = dict(
+            at=f"{label}, tokens {tokens}: {len(prog.free_ops)} token-free ops in "
+               f"one launch, then {len(prog.tok_ops)} token steps over tiles of "
+               f"{grid.tile} x {grid.slices} column slices ({grid.blocks} x "
+               f"{grid.slices} blocks, {grid.smem_bytes} B shared memory)",
+            ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+            plain_ms=timed(plain)[0], library_ms=timed(library)[0],
+            library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
     log(f"  streaming_tt: {len(seen)} (layer, path, tokens) cases, "
         f"max abs err {err:.3e}")
-    t4 = timing[4]
-    log(f"  streaming_tt at {t4['at']}: kernel {_fmt(t4['ms'])} (host "
-        f"{_fmt(t4['host_ms'])}, graph {_fmt(t4['graph_ms'])}), plain "
-        f"{_fmt(t4['plain_ms'])}, library {_fmt(t4['library_ms'])} (graph "
-        f"{_fmt(t4['library_graph_ms'])}), bound {_fmt(t4['bound_ms'])} "
-        f"({t4['bound_by']})")
-    return dict(name="streaming_tt", max_abs_err=err, **timing[32])
+    for t in timing.values():
+        log(f"  streaming_tt at {t['at']}: kernel {_fmt(t['ms'])} (host "
+            f"{_fmt(t['host_ms'])}, graph {_fmt(t['graph_ms'])}), plain "
+            f"{_fmt(t['plain_ms'])}, library {_fmt(t['library_ms'])} (graph "
+            f"{_fmt(t['library_graph_ms'])}), bound {_fmt(t['bound_ms'])} "
+            f"({t['bound_by']})")
+    return dict(name="streaming_tt", max_abs_err=err, **timing["mlp.wg", 32])
 
 
-def _einsum_equation(tn) -> str:
-    """One einsum over X and the cores (input side first), output (b, i...)."""
+def dx_networks():
+    """(layer, planned dx steps, grad-input network) of every layer whose dx
+    streams through K1 under ``tt-lm-100m.train.json``, as
+    ``ops.tt_linear_backward`` builds them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backward import grad_input_network
+    from repro_torch.dse_cli import model_dse_layers
+    from repro_torch.kernels import streaming_tt
+    from repro_torch.plan import load_plan
+
+    families = {n.split("[")[0]: tn for n, tn in
+                model_dse_layers(get_config("tt-lm-100m"), tokens=8)}
+    out = []
+    for lp in load_plan(os.path.join(PLANS, TRAIN_PLANS[0])).layers:
+        op = next((o for o in lp.backward if o.wrt == "dx"), None)
+        if op is None or op.backend != "streaming_tt" or lp.name == "head":
+            continue
+        net = grad_input_network(families[lp.name])
+        out.append((lp.name, streaming_tt._path_for(net, op.path_steps).steps, net))
+    return out
+
+
+def _einsum_call(tn, x, cores):
+    """One ``torch.einsum`` over X and the cores (the streamed node first,
+    the cores from the last node back), in the plain version's output
+    layout ``(tokens, out_dim)``."""
+    import torch
+
+    from repro_torch.kernels import streaming_tt
+
     letters = {}
     for n in tn.nodes:
         for e in n.edges:
             letters.setdefault(e, chr(ord("a") + len(letters)))
-    x = tn.nodes[-1]
-    cores = [n for n in tn.nodes if n.kind != "input"][::-1]
-    outs = [x.edges[0]] + sorted((e for n in cores for e in n.edges
-                                  if e.startswith("i")), key=lambda e: int(e[1:]))
-    terms = ["".join(letters[e] for e in n.edges) for n in [x] + cores]
-    return ",".join(terms) + "->" + "".join(letters[e] for e in outs)
+    stream = streaming_tt._stream_node(tn)
+    core_nodes = [n for n in tn.nodes if n.kind != "input"]
+    out_edges = streaming_tt._stream_layout(tn)[3]
+    eq = (",".join("".join(letters[e] for e in n.edges)
+                   for n in [stream] + core_nodes[::-1])
+          + "->" + "".join(letters[e] for e in out_edges))
+    x3 = x.reshape((x.shape[0],) + stream.dims[1:])
+    ops_ = [x3] + list(cores)[::-1]
+    return lambda: torch.einsum(eq, *ops_).reshape(x.shape[0], -1)
 
 
 def check_tt_gemm(device, layers) -> list[dict]:
@@ -970,10 +1051,8 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.1f} s wall "
             f"({', '.join(f'{k} {v:.1f} s' for k, v in per_src.items())})")
         for name in _build.SOURCES:
-            ptxas = [ln.strip() for ln in
-                     (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-                     if "registers" in ln or "spill" in ln]
-            log(f"  ptxas {name}: " + " | ".join(ptxas))
+            log(f"  ptxas {name}: " + " | ".join(
+                ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())))
 
         log("--- kernels against their plain versions")
         layers = main_path_layers()
@@ -1052,7 +1131,7 @@ def main() -> int:
 
 
 def _fmt(ms: float | None) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+    return "not measured" if ms is None else f"{ms:.4g} ms"
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ import torch
 
 from repro_torch import dse_cli
 from repro_torch.configs import get_config
+from repro_torch.core import find_topk_paths, tt_linear_network
+from repro_torch.core.backward import grad_input_network
 from repro_torch.dse_cli import model_dse_layers
 from repro_torch.kernels import fused_path, launches, ops, streaming_tt, tt_gemm
 from repro_torch.plan import load_plan
@@ -78,6 +80,56 @@ def plan_layer(plan_file: str, name: str):
     families = dict(model_dse_layers(get_config("tt-lm-100m", smoke=smoke), tokens=8))
     tn = families.get(name) or families[f"{name}[0]"]
     return lp, tn
+
+
+#: the committed train plans whose dx networks stream through K1
+STREAMING_TRAIN_PLANS = ("tt-lm-100m.train.json", "tt-lm-smoke.train.json")
+
+
+def dx_cases():
+    """(plan file, layer) for every layer of :data:`STREAMING_TRAIN_PLANS`
+    whose dx network streams through K1."""
+    return [(f, lp["name"]) for f in STREAMING_TRAIN_PLANS
+            for lp in json.loads((PLANS / f).read_text())["layers"]
+            if any(op["wrt"] == "dx" and op["backend"] == "streaming_tt"
+                   for op in lp["backward"])]
+
+
+def dx_network(plan_file: str, name: str, tokens: int):
+    """(the layer's grad-input network at ``tokens``, its planned path), as
+    ``ops.tt_linear_backward`` streams dY through K1."""
+    lp, tn = plan_layer(plan_file, name)
+    op = next(op for op in lp["backward"] if op["wrt"] == "dx")
+    net = grad_input_network(streaming_tt._rebatch(tn, tokens))
+    return net, streaming_tt._path_for(net, op["path_steps"])
+
+
+#: a 3-mode network whose top paths include every step shape the compiler
+#: handles: X read through strides or gathered once per tile, Q = 1,
+#: intermediates permuted on write
+SMALL_TT = ((2, 4, 4), (4, 4, 2), (4,) * 5)
+
+
+def small_tt_paths():
+    tn = tt_linear_network(8, *SMALL_TT)
+    return tn, find_topk_paths(tn, k=400)
+
+
+def wide_free_case():
+    """A network and path whose free-phase operands (a 64 x 16 x 64 core)
+    do not fit shared memory: the free phase runs in one block through the
+    workspace."""
+    tn = tt_linear_network(8, (16, 16), (16, 16), (64, 64, 64))
+    return tn, as_candidate_path(tn, ((3, 4), (2, 3), (0, 1), (0, 1)))
+
+
+def k1_inputs(tn, tokens: int, device, seed: int, scale: float = 0.2):
+    """(x, cores) for a K1 call over ``tn`` at ``tokens``, from ``seed``;
+    the cores scaled by ``scale``."""
+    cores = [torch.from_numpy(_np(n.dims, seed + i, scale)).to(device)
+             for i, n in enumerate(tn.nodes) if n.kind != "input"]
+    n_in = int(np.prod(streaming_tt._stream_node(tn).dims[1:]))
+    return torch.from_numpy(_np((tokens, n_in), seed + 99)).to(device), cores
 
 
 def _replay(work, i, j, contract=None):
@@ -356,29 +408,125 @@ def test_tt_gemm_cuda_rejects_cpu_mix_and_bad_dtype(cuda_device):
         tt_gemm.tt_gemm(a.double(), a.double())
 
 
+K1_TOKENS = (1, 4, 5, 32, 37, 2048)
+
+
+def _k1_check(net, path, tokens, device, seed, block, scale=0.2):
+    """One K1 call against its plain version; row 0 bit for bit against a
+    one-row call.  Returns the output."""
+    x, cores = k1_inputs(net, tokens, device, seed, scale)
+    got = streaming_tt.streaming_tt_linear(x, cores, net, path, block_tokens=block)
+    want = streaming_tt.streaming_tt_linear_plain(x, cores, net, path)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    row = streaming_tt.streaming_tt_linear(x[:1].contiguous(), cores, net, path,
+                                           block_tokens=block)
+    assert torch.equal(row[0], got[0])
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan_file,name", streaming_cases())
 def test_streaming_tt_cuda_matches_plain(cuda_device, plan_file, name):
     lp, tn = plan_layer(plan_file, name)
     launches.reset()
-    for tokens in (1, 4, 37):
+    for tokens in K1_TOKENS:
         bt = ops.clamp_block(lp["tiling"]["block_tokens"], tokens)
         tn_block = streaming_tt._rebatch(tn, bt)
         path = as_candidate_path(tn_block, lp["path_steps"])
-        cores = [torch.from_numpy(_np(n.dims, 50 + i, 0.2)).to(cuda_device)
-                 for i, n in enumerate(tn.nodes) if n.kind != "input"]
-        x = torch.from_numpy(_np((tokens, int(np.prod(tn.nodes[-1].dims[1:]))),
-                                 51)).to(cuda_device)
-        got = streaming_tt.streaming_tt_linear(x, cores, tn_block, path,
-                                               block_tokens=bt)
-        want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_block, path)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-5)
-        row = streaming_tt.streaming_tt_linear(x[:1].contiguous(), cores, tn_block,
-                                               path, block_tokens=bt)
-        assert torch.equal(row[0], got[0])
-    assert launches.COUNTS["streaming_tt"] == 6
+        _k1_check(tn_block, path, tokens, cuda_device, 50, bt)
+    assert launches.COUNTS["streaming_tt"] == 2 * len(K1_TOKENS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name", dx_cases())
+def test_streaming_tt_cuda_dx_matches_plain(cuda_device, plan_file, name):
+    """The dx network of every streaming train layer (dY streamed over the
+    grad-input network, as the backward pass runs it)."""
+    net, path = dx_network(plan_file, name, 256)
+    for tokens in K1_TOKENS:
+        _k1_check(net, path, tokens, cuda_device, 60, 256)
+
+
+@pytest.mark.cuda
+def test_streaming_tt_cuda_every_small_path_matches_plain(cuda_device):
+    """Every top path of a small 3-mode network: X gathered once per tile
+    or read through strides, a step of one output column, chains of
+    token steps."""
+    tn, paths = small_tt_paths()
+    relayout = 0
+    for path in paths:
+        relayout += streaming_tt.program_for(tn, path).relayout is not None
+        for tokens in (1, 37):
+            _k1_check(tn, path, tokens, cuda_device, 70, 8)
+    assert relayout > 0
+
+
+@pytest.mark.cuda
+def test_streaming_tt_cuda_free_phase_through_the_workspace(cuda_device):
+    tn, path = wide_free_case()
+    assert not streaming_tt.program_for(tn, path).free_plan.in_smem
+    for tokens in (1, 37):   # rank 64: smaller cores keep the output near 1
+        _k1_check(tn, path, tokens, cuda_device, 75, 8, scale=0.05)
+
+
+def _cases_and_dx():
+    return ([("fwd", f, n) for f, n in streaming_cases()]
+            + [("dx", f, n) for f, n in dx_cases()])
+
+
+def _net_and_path(kind, plan_file, name):
+    if kind == "dx":
+        return dx_network(plan_file, name, 8)
+    lp, tn = plan_layer(plan_file, name)
+    return tn, as_candidate_path(tn, lp["path_steps"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,plan_file,name", _cases_and_dx())
+def test_streaming_tt_cuda_rows_are_independent(cuda_device, kind, plan_file, name):
+    """A row's bits depend on that row and the cores alone: the first 5
+    rows of a 2048-token call equal a 5-token call, row 0 a 1-token call."""
+    net, path = _net_and_path(kind, plan_file, name)
+    x, cores = k1_inputs(net, 2048, cuda_device, 80)
+    outs = [streaming_tt.streaming_tt_linear(x[:t].contiguous(), cores, net, path)
+            for t in (2048, 5, 1)]
+    assert torch.equal(outs[1], outs[0][:5])
+    assert torch.equal(outs[2], outs[0][:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,plan_file,name", _cases_and_dx())
+def test_streaming_tt_cuda_does_not_depend_on_the_grid(cuda_device, kind, plan_file,
+                                                       name):
+    """The same call over the grids of other SM counts and over forced
+    tiles, column slices, block counts and X read in place (the test-only
+    ``grid`` argument) gives the same bits."""
+    net, path = _net_and_path(kind, plan_file, name)
+    prog = streaming_tt.program_for(net, path)
+    qv = prog.tok_ops[-1].Qp // 4
+    for tokens in (5, 37, 300):
+        x, cores = k1_inputs(net, tokens, cuda_device, 90)
+        grids = [streaming_tt.launch_grid(prog, tokens, n_sm) for n_sm in (1, 7, 132, 1000)]
+        for tile, slices, blocks, xg in ((4, 1, 1, None), (4, qv, None, None),
+                                         (8, 3, 2, None), (16, 2, 1, None),
+                                         (16, 1, None, None), (4, 5, 3, None),
+                                         (8, 2, None, True)):
+            if xg and prog.relayout is not None:
+                continue
+            try:
+                grids.append(streaming_tt.launch_grid(
+                    prog, tokens, tile=tile, slices=min(slices, qv), blocks=blocks,
+                    x_global=xg))
+            except ValueError:   # over shared memory or more blocks than tiles
+                pass
+        launches.reset()
+        outs = [streaming_tt.streaming_tt_linear(x, cores, net, path, grid=g)
+                for g in grids]
+        assert launches.COUNTS["streaming_tt"] == len(grids) >= 6
+        for g, o in zip(grids[1:], outs[1:]):
+            assert torch.equal(o, outs[0]), g
 
 
 def _segment_tensors(entries, device, seed):

@@ -31,8 +31,9 @@ from repro_torch.dse_cli import model_dse_layers
 from repro_torch.kernels import launches, ops, ref, streaming_tt, tt_gemm
 from repro_torch.plan.executor import as_candidate_path
 from repro_torch.plan import load_plan
-from test_torch_cuda import (DECODE_CASES, IS_ROUTE_CASES, PLANS, plan_layer,
-                             streaming_cases)
+from test_torch_cuda import (DECODE_CASES, IS_ROUTE_CASES, PLANS, dx_cases,
+                             dx_network, k1_inputs, plan_layer, small_tt_paths,
+                             streaming_cases, wide_free_case)
 
 torch.set_num_threads(2)
 
@@ -378,39 +379,140 @@ def test_tt_linear_all_topk_paths_agree():
 # the CUDA streaming kernel's step tables, executed by their torch mirror
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("tokens", [1, 4, 37])
+PROGRAM_TOKENS = [1, 4, 37, 256]
+
+
+def _mirror_check(net, path, tokens, seed, scale=0.2):
+    prog = streaming_tt.program_for(net, path)
+    grid = streaming_tt.launch_grid(prog, tokens)
+    assert grid.smem_bytes <= streaming_tt.SMEM_LIMIT_BYTES
+    assert grid.tile % 4 == 0 and grid.tile * grid.n_tiles >= tokens
+    x, cores = k1_inputs(net, tokens, "cpu", seed, scale)
+    want = streaming_tt.streaming_tt_linear_plain(x, cores, net, path)
+    got = streaming_tt.run_program_plain(prog, x, cores)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tokens", PROGRAM_TOKENS)
 @pytest.mark.parametrize("plan_file,name", streaming_cases())
 def test_step_program_matches_plain(plan_file, name, tokens):
     lp, tn = plan_layer(plan_file, name)
     bt = ops.clamp_block(lp["tiling"]["block_tokens"], tokens)
     tn_block = streaming_tt._rebatch(tn, bt)
-    path = as_candidate_path(tn_block, lp["path_steps"])
-    prog = streaming_tt.program_for(tn_block, path, bt)
-    assert prog.smem_bytes <= streaming_tt.SMEM_LIMIT_BYTES
-    assert prog.block_tokens <= bt
-    cores = [torch.from_numpy(_np(n.dims, 30 + i, 0.2))
-             for i, n in enumerate(tn.nodes) if n.kind != "input"]
-    x = torch.from_numpy(_np((tokens, prog.n_in), 31))
-    want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_block, path)
-    got = streaming_tt.run_program_plain(prog, x, cores)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+    _mirror_check(tn_block, as_candidate_path(tn_block, lp["path_steps"]), tokens, 30)
+
+
+@pytest.mark.parametrize("tokens", PROGRAM_TOKENS)
+@pytest.mark.parametrize("plan_file,name", dx_cases())
+def test_step_program_dx_matches_plain(plan_file, name, tokens):
+    """The dx network of every streaming train layer, as the backward pass
+    streams dY through K1."""
+    net, path = dx_network(plan_file, name, 256)
+    _mirror_check(net, path, tokens, 40)
+
+
+def _small_path_cases():
+    """Indices of the small network's top paths: every one that gathers X
+    once per tile, and every 16th of the rest."""
+    tn, paths = small_tt_paths()
+    return [i for i, p in enumerate(paths)
+            if streaming_tt.program_for(tn, p).relayout is not None or i % 16 == 0]
+
+
+@pytest.mark.parametrize("index", _small_path_cases())
+def test_step_program_small_paths_match_plain(index):
+    tn, paths = small_tt_paths()
+    for tokens in (1, 37):
+        _mirror_check(tn, paths[index], tokens, 45)
+
+
+def test_step_program_free_phase_through_the_workspace_matches_plain():
+    tn, path = wide_free_case()
+    assert not streaming_tt.program_for(tn, path).free_plan.in_smem
+    for tokens in (1, 37):   # rank 64: smaller cores keep the output near 1
+        _mirror_check(tn, path, tokens, 46, scale=0.05)
+
+
+def _all_programs():
+    out = []
+    for plan_file, name in streaming_cases():
+        lp, tn = plan_layer(plan_file, name)
+        out.append((plan_file, tn, as_candidate_path(tn, lp["path_steps"])))
+    for plan_file, name in dx_cases():
+        out.append((plan_file, *dx_network(plan_file, name, 8)))
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(streaming_cases()) + len(dx_cases())))
+def test_token_steps_read_dense_operands(case):
+    """After the relayout, every token step reads its token-free operand as
+    a dense (K, Qp) workspace region that the free phase fills exactly
+    once (a copy walking it in order), and its token operand through strides (the
+    committed paths read X in place); the last step of every full-width
+    path writes Y as whole float4 vectors."""
+    plan_file, net, path = _all_programs()[case]
+    prog = streaming_tt.program_for(net, path)
+    assert prog.relayout is None
+    written = {}
+    tab = prog.tables.astype(np.int64)
+
+    def walk(m, n):
+        stride, off = m
+        return tab[off:off + n] if off >= 0 else np.arange(n) * stride
+
+    for op in prog.free_ops:
+        rel = walk(op.orow, op.M)[:, None] + walk(op.ocol, op.N)[None, :]
+        for o in (op.out + rel).reshape(-1).tolist():
+            written[o] = written.get(o, 0) + 1
+        if op.b is None:   # a copy walks its destinations: inv inverts the maps
+            inv = walk(op.inv, op.dst_len)
+            live = inv >= 0
+            assert sorted(inv[live].tolist()) == list(range(op.M * op.N))
+            assert np.array_equal(np.flatnonzero(live), np.sort(rel.reshape(-1)))
+    for op in prog.tok_ops:
+        assert isinstance(op.ps, int) and isinstance(op.ks, int) and op.ks in (0, 1)
+        dense = op.w + (np.arange(op.K)[:, None] * op.Qp + np.arange(op.Q)[None, :])
+        assert all(written.get(o) == 1 for o in dense.reshape(-1).tolist())
+    assert all(v == 1 for v in written.values())
+    if "pair.decode" not in plan_file:
+        assert prog.tok_ops[-1].vec_store
+
+
+def test_program_is_one_object_for_every_token_count():
+    """One program per (network geometry, path): its K split, tables and
+    layouts are fixed before any token count is seen, so a row's bits
+    cannot depend on the token count."""
+    for plan_file, net, path in _all_programs():
+        progs = {id(streaming_tt.program_for(streaming_tt._rebatch(net, t), path))
+                 for t in (1, 4, 8, 37, 256, 2048)}
+        assert len(progs) == 1
+        prog = streaming_tt.program_for(net, path)
+        for op in prog.tok_ops:
+            assert op.G == streaming_tt.k_groups(op.K, op.P, op.Qp)
+            assert 1 <= op.G <= min(op.K, streaming_tt.MAX_K_GROUPS)
 
 
 def test_kernel_token_block_fits_shared_memory():
-    """Full-width families stream at a power-of-two block under the target;
-    a path whose single token overflows shared memory is refused."""
+    """Full-width families stream at any token count in 4-token multiples
+    under the shared-memory limit, over half the SMs or more at decode
+    sizes; a
+    path whose single tile overflows shared memory is refused."""
     families = dict(model_dse_layers(get_config("tt-lm-100m"), tokens=256))
     for name in ("attn.wq[0]", "mlp.wg[0]", "mlp.wd[0]"):
         tn = families[name]
-        steps = find_topk_paths(tn, k=1)[0].steps
-        bt = streaming_tt.choose_block_tokens(tn, steps, 256)
-        assert bt & (bt - 1) == 0 and bt >= 1
-        assert streaming_tt.compile_program(tn, steps, bt).smem_bytes \
-            <= streaming_tt.SMEM_TARGET_BYTES
-    wide = tt_linear_network(8, (64, 64, 64), (8,), (64, 64, 64))
+        prog = streaming_tt.compile_program(tn, find_topk_paths(tn, k=1)[0].steps)
+        for tokens in (1, 4, 32, 37, 2048, 5000):
+            g = streaming_tt.launch_grid(prog, tokens, n_sm=132)
+            assert g.tile in streaming_tt.TILES and g.tile * g.n_tiles >= tokens
+            assert g.smem_bytes <= streaming_tt.SMEM_LIMIT_BYTES
+            assert g.blocks <= g.n_tiles and 1 <= g.slices <= prog.tok_ops[-1].Qp // 4
+            if tokens <= 32:   # a short call still spreads over the card
+                assert g.blocks * g.slices >= min(66, g.n_tiles * prog.tok_ops[-1].Qp // 32)
+    # X meets its last core first: 64^3 floats per token before any merge
+    wide = tt_linear_network(8, (64, 64, 64), (8, 8, 8), (64,) * 5)
+    steps = ((5, 6), (4, 5), (3, 4), (2, 3), (1, 2), (0, 1))
     with pytest.raises(ValueError, match="shared memory"):
-        streaming_tt.choose_block_tokens(
-            wide, find_topk_paths(wide, k=1)[0].steps, 8)
+        streaming_tt.launch_grid(streaming_tt.compile_program(wide, steps), 8)
 
 
 def test_plain_versions_do_not_count_launches():
