@@ -9,6 +9,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. card: ``nvidia-smi`` name and power limit.
 2. build: ``nvcc`` builds ``src/repro_torch/csrc/*.cu``, one process per
    source, all started together.
+2b. dse: the port's DSE (``python -m repro_torch.dse`` through
+   ``dse_cli.main``, in process, no JAX) emits every committed plan of
+   ``src/repro_torch/plans/`` with the argv of :data:`EMIT` into a
+   scratch directory; each must equal the committed file byte for byte.
+   Every later phase loads the emitted plans, so the main path runs the
+   port's own DSE -> compiler -> install -> kernels.  Each plan's emit
+   seconds on the host CPU are printed beside the card.
 3. kernels: every CUDA kernel of the serving and training paths (K1
    ``streaming_tt``, K2-K4 ``tt_gemm`` OS/WS/IS, K5 ``fused_path``) against
    its plain PyTorch version at the shapes the main paths give it, plus
@@ -19,7 +26,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    nowhere in the port) and the bound (bytes over 3.35 TB/s or fp32 FLOPs
    over 67 TFLOP/s, the larger).  Every OS and IS shape of a decode step
    is timed by CUDA-graph replay beside one ``torch.matmul``, with the sum
-   weighted by its launches per decode step.
+   weighted by its launches per decode step.  In bf16 (operands widened
+   to fp32 by the wrappers, one cast of the result): K1 at mlp.wg with 32
+   tokens, K2-K4 at 64,128,16, 37,2048,16 and 32,16,256 and K5 at the
+   mlp.wg segment against their plain versions at 8e-2 (the reference's
+   bf16 tolerance), and WS == OS == IS bit for bit at each GEMM shape.
 4. serve: full-width tt-lm-100m with random weights from a seed, through
    ``python -m repro_torch.launch.serve``'s code path: the full plan with
    ``--strict-plan`` (continuous, then oneshot: the tokens must match), the
@@ -63,6 +74,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,7 +83,35 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PLANS = os.path.join(SRC, "repro_torch", "plans")
+COMMITTED_PLANS = os.path.join(SRC, "repro_torch", "plans")
+#: where the phases after the dse phase read their plans: ``main`` points
+#: it at the dse phase's emissions once they match the committed files
+PLANS = COMMITTED_PLANS
+
+#: ``python -m repro_torch.dse`` argv of every committed plan (the same
+#: table as ``tests/test_torch_plan.py::EMIT``; a test holds them equal).
+#: A ``.pair.`` entry is one half of ``--emit-plan-pair``
+EMIT = {
+    "tt-lm-100m.json": ["--arch", "tt-lm-100m"],
+    "tt-lm-100m.pair.prefill.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
+    "tt-lm-100m.pair.decode.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
+    "tt-lm-smoke.json": ["--arch", "tt-lm-100m", "--smoke"],
+    "tt-lm-smoke.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
+                                 "--plan-backend", "tt_gemm"],
+    "tt-lm-100m.train.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                              "--tokens", "2048"],
+    "tt-lm-100m.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                                      "--tokens", "2048", "--plan-backend",
+                                      "tt_gemm"],
+    "tt-lm-smoke.train.json": ["--arch", "tt-lm-100m", "--smoke", "--mode",
+                               "train", "--top-k", "2", "--tokens", "32"],
+    "tt-lm-smoke.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
+                                       "--mode", "train", "--top-k", "2",
+                                       "--tokens", "32", "--plan-backend",
+                                       "tt_gemm"],
+}
+#: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
+BF16_TOL = 8e-2
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -217,6 +257,48 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the port's DSE emits the plans
+# ---------------------------------------------------------------------------
+
+def dse_phase(out_dir: str) -> dict[str, float]:
+    """Emit every plan of :data:`EMIT` into ``out_dir`` with the port's DSE
+    (``dse_cli.main``, in process) and hold each against the committed file
+    byte for byte.  Returns the emit seconds on the host CPU per call (one
+    call writes both halves of a pair)."""
+    import contextlib
+    import io
+
+    from repro_torch import dse_cli
+
+    secs = {}
+    for name, argv in EMIT.items():
+        if ".pair." in name:
+            prefix = name.split(".pair.")[0] + ".pair"
+            label = prefix + ".{prefill,decode}.json"
+            argv = argv + ["--emit-plan-pair", os.path.join(out_dir, prefix)]
+        else:
+            label = name
+            argv = argv + ["--emit-plan", os.path.join(out_dir, name)]
+        if label in secs:
+            continue
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = dse_cli.main(argv + ["--out", os.devnull])
+        secs[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"python -m repro_torch.dse {argv}: exit {rc}")
+    for name in EMIT:
+        with open(os.path.join(out_dir, name)) as f:
+            got = f.read()
+        with open(os.path.join(COMMITTED_PLANS, name)) as f:
+            want = f.read()
+        if got != want:
+            raise AssertionError(f"the port's DSE emitted {name} with other "
+                                 "bytes than the committed file")
+    return secs
 
 
 # ---------------------------------------------------------------------------
@@ -373,20 +455,13 @@ def _einsum_call(tn, x, cores):
     return lambda: torch.einsum(eq, *ops_).reshape(x.shape[0], -1)
 
 
-def check_tt_gemm(device, layers) -> list[dict]:
-    """Every tt_gemm shape of the serving paths (decode at 4 lanes, prefill
-    at 32, 37 and 1 tokens), with the plan's blocks clamped as the executor
-    clamps them, against the plain version within 1e-5 of the output's
-    scale, and row 0 bit for bit against a one-row call.  Every OS and IS
-    shape (all of them decode shapes) is timed by CUDA-graph replay beside
-    one ``torch.matmul``, and weighted by its launches per decode step (4
-    lanes: its count in the decode plan x the model's layers), so a small
-    shape that got slower shows beside the largest one.  One record per
-    dataflow at its largest shape for the kernels line."""
-    import torch
-
+def gemm_shapes(layers) -> tuple[dict, dict]:
+    """The tt_gemm calls of the serving paths (decode at 4 lanes, prefill
+    at 32, 37 and 1 tokens) with the plan's blocks clamped as the executor
+    clamps them: ``({dataflow: {(M, K, N, bm, bk, bn)}}, {(dataflow, key):
+    launches per decode step})``."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, tt_gemm
+    from repro_torch.kernels import ops
 
     n_layers = get_config("tt-lm-100m").n_layers
     shapes = {"OS": set(), "WS": set(), "IS": set()}
@@ -405,6 +480,24 @@ def check_tt_gemm(device, layers) -> list[dict]:
                 if "decode" in plan_name:
                     per_step[lp.dataflow, key] = (
                         per_step.get((lp.dataflow, key), 0) + n_layers)
+    return shapes, per_step
+
+
+def check_tt_gemm(device, layers) -> list[dict]:
+    """Every tt_gemm shape of the serving paths (decode at 4 lanes, prefill
+    at 32, 37 and 1 tokens), with the plan's blocks clamped as the executor
+    clamps them, against the plain version within 1e-5 of the output's
+    scale, and row 0 bit for bit against a one-row call.  Every OS and IS
+    shape (all of them decode shapes) is timed by CUDA-graph replay beside
+    one ``torch.matmul``, and weighted by its launches per decode step (4
+    lanes: its count in the decode plan x the model's layers), so a small
+    shape that got slower shows beside the largest one.  One record per
+    dataflow at its largest shape for the kernels line."""
+    import torch
+
+    from repro_torch.kernels import tt_gemm
+
+    shapes, per_step = gemm_shapes(layers)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     grids = {"OS": tt_gemm.os_grid, "IS": tt_gemm.is_grid}
     out = []
@@ -575,6 +668,98 @@ def check_fused(device) -> dict:
     log(f"  fused_path: 3 layers x (2048, 37) tokens, max abs err {err:.3e}, "
         "bit-identical to the per-step CUDA tt_gemm route: yes")
     return dict(name="fused_path", max_abs_err=err, **timing["mlp.wg"])
+
+
+def _bf16_close(label: str, got, want) -> float:
+    """Max abs error of a bf16 kernel result against its plain version;
+    raises unless it is bf16, finite and within the reference's bf16
+    tolerance (rtol = atol = :data:`BF16_TOL`)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if got.dtype != torch.bfloat16 or not torch.isfinite(g).all():
+        raise AssertionError(f"{label} bf16: got {got.dtype}, finite "
+                             f"{bool(torch.isfinite(g).all())}")
+    if not torch.allclose(g, w, rtol=BF16_TOL, atol=BF16_TOL):
+        raise AssertionError(f"{label} bf16: max abs err "
+                             f"{(g - w).abs().max().item()} beyond {BF16_TOL}")
+    return (g - w).abs().max().item()
+
+
+def check_bf16(device, layers) -> tuple[dict, list[str]]:
+    """Every kernel once in bf16 at a main-path shape against its plain
+    version (on the same bf16 inputs, on the card): K1 at mlp.wg with 32
+    tokens, K2-K4 at each dataflow's largest serving shape (64,128,16 OS,
+    37,2048,16 WS, 32,16,256 IS) with WS == OS == IS bit for bit there, and
+    K5 at the mlp.wg segment of ``tt-lm-100m.train.tt_gemm.json`` with 2048
+    tokens.  Returns ({kernel: max abs err}, report lines)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dse_cli import model_dse_layers
+    from repro_torch.kernels import fused_path, ops, streaming_tt, tt_gemm
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.executor import as_candidate_path
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(6)
+    errs, notes = {}, []
+
+    _, lp, tn = next(c for c in layers
+                     if c[0] == "tt-lm-100m.json" and c[1].name == "mlp.wg")
+    bt = ops.clamp_block(lp.tiling.block_tokens, 32)
+    tn_b = streaming_tt._rebatch(tn, bt)
+    path = as_candidate_path(tn_b, lp.path_steps)
+    cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device, bf16)
+             for n in tn.nodes if n.kind != "input"]
+    n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
+    x = torch.randn(32, n_in, generator=gen).to(device, bf16)
+    errs["streaming_tt"] = _bf16_close(
+        "streaming_tt mlp.wg 32 tokens",
+        streaming_tt.streaming_tt_linear(x, cores, tn_b, path, block_tokens=bt),
+        streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, path))
+    notes.append(f"streaming_tt bf16 at mlp.wg, 32 tokens: max abs err "
+                 f"{errs['streaming_tt']:.3e}")
+
+    shapes, _ = gemm_shapes(layers)
+    for df in ("OS", "WS", "IS"):
+        m, k, n, bm, bk, bn = max(shapes[df], key=lambda s: s[0] * s[1] * s[2])
+        blocks = dict(block_m=bm, block_k=bk, block_n=bn)
+        a = torch.randn(m, k, generator=gen).to(device, bf16)
+        b = torch.randn(k, n, generator=gen).to(device, bf16)
+        outs = {d: tt_gemm.tt_gemm(a, b, dataflow=d, **blocks)
+                for d in ("OS", "WS", "IS")}
+        name = f"tt_gemm_{df.lower()}"
+        errs[name] = _bf16_close(f"{name} {(m, k, n)}", outs[df],
+                                 tt_gemm.tt_gemm_plain(a, b, dataflow=df, **blocks))
+        if not (torch.equal(outs["OS"], outs["WS"])
+                and torch.equal(outs["OS"], outs["IS"])):
+            raise AssertionError(f"tt_gemm bf16 {(m, k, n)}: WS, OS and IS "
+                                 "are not bit-identical")
+        notes.append(f"{name} bf16 at M,K,N={m},{k},{n}: max abs err "
+                     f"{errs[name]:.3e}; WS == OS == IS bit for bit: yes")
+
+    plan = load_plan(os.path.join(PLANS, "tt-lm-100m.train.tt_gemm.json"))
+    lp = plan.layer("mlp.wg")
+    (s0, e0) = next(g for g in lp.segments if g[1] - g[0] >= 2)
+    blocks = dict(block_m=lp.tiling.block_m, block_k=lp.tiling.block_k,
+                  block_n=lp.tiling.block_n)
+    tn = dict((nm.split("[")[0], t_) for nm, t_ in model_dse_layers(
+        get_config("tt-lm-100m"), tokens=2048))["mlp.wg"]
+    work = [(n.edges, (torch.randn(n.dims, generator=gen) * 0.3).to(device, bf16))
+            for n in tn.nodes]
+    contract = ops.gemm_contract(dataflow=lp.dataflow, **blocks)
+    for (i, j) in lp.path_steps[:s0]:
+        work = _replay(work, i, j, contract)
+    chain = lp.path_steps[s0:e0]
+    (_, got), (_, want) = (
+        fused_path.fused_segment_contract(
+            work, chain, block_tokens=lp.tiling.block_tokens, **blocks),
+        fused_path.fused_segment_contract_plain(work, chain, **blocks))
+    errs["fused_path"] = _bf16_close("fused_path mlp.wg 2048 tokens", got, want)
+    notes.append(f"fused_path bf16 at the mlp.wg segment {[s0, e0]}, 2048 "
+                 f"tokens: max abs err {errs['fused_path']:.3e}")
+    return errs, notes
 
 
 # ---------------------------------------------------------------------------
@@ -1026,6 +1211,7 @@ def train_profile(device) -> list[str]:
 
 
 def main() -> int:
+    global PLANS
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("error: run chip_smoke.py from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -1040,6 +1226,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     t_start = time.perf_counter()
+    plan_dir = tempfile.mkdtemp(prefix="repro_torch_plans_")
     try:
         card = card_line()
         log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1054,10 +1241,21 @@ def main() -> int:
             log(f"  ptxas {name}: " + " | ".join(
                 ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())))
 
+        log("--- dse: the port's DSE emits the plans")
+        secs = dse_phase(plan_dir)
+        PLANS = plan_dir
+        log(f"dse: {len(EMIT)} plans emitted by python -m repro_torch.dse, each "
+            "byte-identical to the committed file; emit seconds on the host "
+            f"CPU ({card}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
         log("--- kernels against their plain versions")
         layers = main_path_layers()
         kernels = ([check_streaming(device, layers)] + check_tt_gemm(device, layers)
                    + [check_fused(device)])
+        bf16_errs, notes = check_bf16(device, layers)
+        for n in notes:
+            log(f"  {n}")
         for k in kernels:
             log(f"  {k['name']} at {k['at']}: kernel {_fmt(k['ms'])} (host "
                 f"{_fmt(k['host_ms'])}, graph {_fmt(k['graph_ms'])}), "
@@ -1100,6 +1298,8 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
 
     sources = {"streaming_tt": ("src/repro_torch/csrc/streaming_tt.cu",
                                 "src/repro/kernels/streaming_tt.py:149"),
@@ -1116,7 +1316,9 @@ def main() -> int:
          "replaces": sources[k["name"]][1],
          "launches": {"serve": serve_counts[k["name"]],
                       "train": train_counts[k["name"]]},
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "graph_ms": k["graph_ms"],
+         "max_abs_err": k["max_abs_err"],
+         "bf16_max_abs_err": bf16_errs[k["name"]],
+         "ms": k["ms"], "graph_ms": k["graph_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"], "at": k["at"]}

@@ -14,7 +14,8 @@ from repro_torch.models.config import ModelConfig
 #: architectures the port runs
 ARCH_IDS = ("tt-lm-100m",)
 
-#: the reference's other architectures, still to port (ROADMAP.md Queue A item 12)
+#: the reference's other architectures, still to port (ROADMAP.md Queue A
+#: item 9d; their model families, item 12)
 NOT_PORTED = (
     "zamba2-1.2b",
     "phi3-medium-14b",
@@ -35,7 +36,7 @@ def get_config(name: str, tt: bool = True, smoke: bool = False) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A item 12); ported: "
+            "(ROADMAP.md, Queue A item 9d); ported: "
             f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")

@@ -141,3 +141,68 @@ def find_topk_paths(
     dfs(tn, 0, [], [])
     out = sorted((c for _, _, c in best), key=lambda c: c.macs)
     return out
+
+
+def greedy_path(tn: TensorNetwork) -> CandidatePath:
+    """Cheapest-pair-first greedy path (baseline; not necessarily optimal)."""
+    cur = tn
+    steps: list[tuple[int, int]] = []
+    gemms: list[GemmShape] = []
+    macs = 0
+    while len(cur) > 1:
+        n = len(cur)
+        options = []
+        for i in range(n):
+            for j in range(i + 1, n):
+                if not cur.shared_edges(i, j):
+                    continue
+                nxt, g = cur.contract_pair(i, j)
+                options.append((g.macs, i, j, nxt, g))
+        if not options:
+            for i in range(n):
+                for j in range(i + 1, n):
+                    nxt, g = cur.contract_pair(i, j)
+                    options.append((g.macs, i, j, nxt, g))
+        options.sort(key=lambda t: t[0])
+        c, i, j, cur, g = options[0]
+        steps.append((i, j))
+        gemms.append(g)
+        macs += c
+    return CandidatePath(tuple(steps), macs, tuple(gemms))
+
+
+def reconstruction_path(tn: TensorNetwork) -> CandidatePath:
+    """The naive 'reconstruct W then multiply' order (paper Fig. 3 left).
+
+    Contracts all weight cores together first (materialising the full
+    weight), then applies the input — the strawman baseline.
+    """
+    cur = tn
+    steps: list[tuple[int, int]] = []
+    gemms: list[GemmShape] = []
+    macs = 0
+    while len(cur) > 1:
+        n = len(cur)
+        core_idx = [t for t in range(n) if cur.nodes[t].kind == "core"]
+        if len(core_idx) >= 2:
+            # contract the first adjacent core pair (chain order)
+            pair = None
+            for a in core_idx:
+                for b in core_idx:
+                    if a < b and cur.shared_edges(a, b):
+                        pair = (a, b)
+                        break
+                if pair:
+                    break
+            if pair is None:
+                pair = (core_idx[0], core_idx[1])
+            i, j = pair
+        else:
+            i, j = 0, 1
+            if n > 2:
+                raise AssertionError("unexpected network shape")
+        cur, g = cur.contract_pair(i, j)
+        steps.append((i, j))
+        gemms.append(g)
+        macs += g.macs
+    return CandidatePath(tuple(steps), macs, tuple(gemms))

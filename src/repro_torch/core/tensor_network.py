@@ -8,7 +8,7 @@ activation tensor, joined by labelled edges.  A *contraction path* is a
 sequence of pairwise contractions that reduces the network to the output
 tensor.  Each pairwise contraction is a GEMM whose (M, K, N) shape is
 derived from the edge dimensions — this GEMM view is what the latency
-simulator (``repro.core.simulator``) consumes.
+simulator (``repro_torch.core.simulator``) consumes.
 
 Graph semantics follow Fig. 1 of the paper: a node with d edges is a d-way
 tensor; an edge shared by two nodes is contracted; edges appearing on a
@@ -104,9 +104,20 @@ class TensorNetwork:
     def free_edges(self) -> tuple[str, ...]:
         return tuple(e for e, c in self._edge_count.items() if c == 1)
 
+    def output_dims(self) -> dict[str, int]:
+        out = {}
+        for n in self.nodes:
+            for e, d in zip(n.edges, n.dims):
+                if self._edge_count[e] == 1:
+                    out[e] = d
+        return out
+
     def shared_edges(self, i: int, j: int) -> tuple[str, ...]:
         a, b = self.nodes[i], self.nodes[j]
         return tuple(e for e in a.edges if e in b.edges)
+
+    def total_macs(self, path: Sequence[tuple[int, int]]) -> int:
+        return sum(g.macs for g in self.gemm_sequence(path))
 
     # -- contraction -------------------------------------------------------
     def contract_pair(self, i: int, j: int) -> tuple["TensorNetwork", GemmShape]:
@@ -221,6 +232,42 @@ def tt_linear_network(
     x_dims = b_dims + tuple(in_modes)
     nodes.append(Node("X", x_edges, x_dims, kind="input"))
     return TensorNetwork(nodes)
+
+
+def tt_conv_network(
+    patches: int,
+    in_modes: tuple[int, int],
+    out_modes: tuple[int, int],
+    kernel: int,
+    ranks: Sequence[int],
+) -> TensorNetwork:
+    """TT-format convolution (paper eq. 3-4 / Fig. 1f), im2col view.
+
+    Five cores: G1 (O1), G2 (O2), G3 (I1), G4 (I2), G5 (K=Kh*Kw); the
+    unfolded input X_unf has edges (I1, I2, K, L) with L = spatial patches
+    x batch.  ``ranks`` = (r1, r2, r3, r4).
+    """
+    (o1, o2), (i1, i2) = out_modes, in_modes
+    r1, r2, r3, r4 = ranks
+    nodes = [
+        Node("G1", ("o1", "r1"), (o1, r1)),
+        Node("G2", ("r1", "o2", "r2"), (r1, o2, r2)),
+        Node("G3", ("r2", "i1", "r3"), (r2, i1, r3)),
+        Node("G4", ("r3", "i2", "r4"), (r3, i2, r4)),
+        Node("G5", ("r4", "k"), (r4, kernel)),
+        Node("X", ("i1", "i2", "k", "l"), (i1, i2, kernel, patches), kind="input"),
+    ]
+    return TensorNetwork(nodes)
+
+
+def dense_linear_network(batch: int, n_in: int, n_out: int) -> TensorNetwork:
+    """Uncompressed baseline: one weight node, one GEMM."""
+    return TensorNetwork(
+        [
+            Node("W", ("j", "i"), (n_in, n_out)),
+            Node("X", ("b", "j"), (batch, n_in), kind="input"),
+        ]
+    )
 
 
 def factorize(n: int, d: int) -> tuple[int, ...]:

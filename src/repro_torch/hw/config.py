@@ -4,10 +4,10 @@ Framework-neutral copy of ``src/repro/hw/config.py`` (the port never imports
 the JAX package).
 
 :class:`HardwareConfig` is the single parameterization of the closed-form
-systolic cost model (``repro.core.simulator.gemm_cost_model``): the
+systolic cost model (``repro_torch.core.simulator.gemm_cost_model``): the
 paper's FPGA target, the TPU-v5e reading, and every candidate in the
-searched architecture space (``repro.hw.space``) are all instances of
-this one dataclass.  It lives here — below ``repro.core`` — so the
+searched architecture space (``repro_torch.hw.space``) are all instances of
+this one dataclass.  It lives here — below ``repro_torch.core`` — so the
 simulator, the cost-table engine, the plan schema (which embeds the
 winning architecture since format v3) and the architecture-space
 generator can all share it without import cycles.
@@ -32,6 +32,18 @@ class HardwareConfig:
     dram_words_per_cycle: float = 256.0   # paper: "bandwidth of 256"
     bytes_per_word: int = 1               # INT8
     gemm_overhead_cycles: int = 64        # per-GEMM reconfig/drain constant
+
+    @property
+    def macs_per_cycle(self) -> int:
+        return self.pe_rows * self.pe_cols
+
+    @property
+    def peak_macs_per_s(self) -> float:
+        return self.macs_per_cycle * self.freq_hz
+
+    @property
+    def sram_total_bytes(self) -> int:
+        return self.sram_input_bytes + self.sram_output_bytes
 
     # -- JSON embedding (plan schema v3) ----------------------------------
     def to_json(self) -> dict:

@@ -5,7 +5,7 @@ the JAX package).
 
 Named, fixed accelerator descriptions live here: the paper's FPGA setup
 (``fpga_vu9p``) and the TPU-v5e MXU reading (``tpu_v5e``).  Everything
-that needs to resolve a target by name — ``python -m repro.dse --hw``,
+that needs to resolve a target by name — ``python -m repro_torch.dse --hw``,
 plan migration (v2 → v3 embeds the named target), benchmarks — goes
 through :func:`get_target`, so adding a target is a one-line
 :func:`register_target` call.
@@ -46,6 +46,13 @@ TPU_V5E = HardwareConfig(
     bytes_per_word=_BYTES_PER_WORD,
     gemm_overhead_cycles=256,  # kernel-dispatch / pipeline-warmup constant
 )
+
+#: interconnect constants used by the roofline analysis (per chip)
+ICI_BYTES_PER_S_PER_LINK = 50e9
+HBM_BYTES_PER_S = _HBM_BYTES_PER_S
+PEAK_FLOPS_BF16 = _PEAK_FLOPS_BF16
+VMEM_BYTES = 128 * 1024 * 1024
+HBM_CAPACITY_BYTES = 16 * 1024**3
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,12 @@ k-blocks in ascending order in fp32.  The CUDA kernel shares its tile loop
 with ``csrc/tt_gemm.cu`` (``csrc/gemm_tile.cuh``), so on the card fused ==
 the per-step CUDA route bit for bit; the plain version is a chain of
 :func:`~repro_torch.kernels.tt_gemm.tt_gemm_plain` calls with the same
-blocks, bit-identical to the per-step plain route.
+blocks, bit-identical to the per-step plain route.  Operands are float32
+or bfloat16 (widened to fp32 before the launch, which is exact); the
+interior stays fp32 and the result is cast once to ``out_dtype`` (default:
+the batch-carrying operand's dtype), as in the reference's fused kernel.
+In bf16 the per-step route rounds every step's result to bf16, so there
+the two routes agree within bf16 rounding, not bit for bit.
 
 Host side: :func:`_compile_segment` is the reference's symbolic replay,
 copied; :func:`compile_program` turns it into the offset tables, packs,
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from . import _build, launches
-from .tt_gemm import tt_gemm_plain
+from .tt_gemm import tt_gemm_plain, widen
 
 #: default batch (streamed-token) edge label
 BATCH_EDGE = "b"
@@ -154,6 +159,7 @@ def fused_segment_contract_plain(
     block_k: int = 128,
     block_n: int = 128,
     batch_edge: str = BATCH_EDGE,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[tuple[str, ...], torch.Tensor]:
     """Plain PyTorch version: the chain as :func:`tt_gemm_plain` calls.
 
@@ -161,14 +167,16 @@ def fused_segment_contract_plain(
     ``ops.gemm_contract`` does and clamps its blocks against the step's
     full dims, so the result equals the per-step plain route bit for bit.
     Returns ``(result_edges, result)`` in the tensordot layout of the last
-    step.
+    step; every step's result stays fp32 and the last is cast once to
+    ``out_dtype`` (default: the batch-carrying operand's dtype).
     """
     if len(steps) < 2:
         raise ValueError("fused segments need at least two steps")
     entries = [(edges, tuple(t.shape)) for edges, t in work]
     input_positions, ops, mids = _compile_segment(entries, steps, batch_edge)
-    _stream_slot(work, input_positions, batch_edge)
+    slot = _stream_slot(work, input_positions, batch_edge)
     ins = [work[p][1] for p in input_positions]
+    out_dtype = out_dtype or ins[slot].dtype
     vals: list[torch.Tensor] = []
     for (a_src, b_src, ax_a, ax_b, (m, k, n)), (_, dc) in zip(ops, mids):
         ta = ins[a_src[1]] if a_src[0] == "in" else vals[a_src[1]]
@@ -179,9 +187,10 @@ def fused_segment_contract_plain(
         b2 = tb.permute(list(ax_b) + b_free).reshape(k, n).contiguous()
         c2 = tt_gemm_plain(a2, b2, block_m=_clamp_block(block_m, m),
                            block_k=_clamp_block(block_k, k),
-                           block_n=_clamp_block(block_n, n))
+                           block_n=_clamp_block(block_n, n),
+                           out_dtype=torch.float32)
         vals.append(c2.reshape(dc))
-    return mids[-1][0], vals[-1]
+    return mids[-1][0], vals[-1].to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +650,7 @@ def fused_segment_contract(
     block_k: int = 128,
     block_n: int = 128,
     batch_edge: str = BATCH_EDGE,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[tuple[str, ...], torch.Tensor]:
     """Execute the chain ``steps`` over the live work list ``work`` in one
     call: the pack of the batch-free operands, then the chain (two CUDA
@@ -652,7 +662,9 @@ def fused_segment_contract(
     block no larger than it (:func:`choose_block_tokens`).  CPU tensors
     take :func:`fused_segment_contract_plain`; CUDA tensors launch the
     kernel or raise.  ``block_m``/``block_n`` change no value (only
-    ``block_k`` does) and pass to the plain version.
+    ``block_k`` does) and pass to the plain version.  Operands are fp32
+    or bf16; the result is cast once to ``out_dtype`` (default: the
+    batch-carrying operand's dtype).
     """
     if len(steps) < 2:
         raise ValueError("fused segments need at least two steps")
@@ -660,7 +672,7 @@ def fused_segment_contract(
     if all(t.device.type == "cpu" for t in tensors):
         return fused_segment_contract_plain(
             work, steps, block_m=block_m, block_k=block_k, block_n=block_n,
-            batch_edge=batch_edge)
+            batch_edge=batch_edge, out_dtype=out_dtype)
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("fused_path: every work-list tensor must sit on one "
@@ -668,7 +680,11 @@ def fused_segment_contract(
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     prog = program_for(work, steps, block_k=block_k, block_tokens=block_tokens,
                        n_sm=n_sm, batch_edge=batch_edge)
-    return _run(work, prog)
+    if out_dtype is None:
+        slot = _stream_slot(work, prog.input_positions, batch_edge)
+        out_dtype = work[prog.input_positions[slot]][1].dtype
+    edges, y = _run(work, prog)
+    return edges, y.to(out_dtype)
 
 
 def _launch_params(prog: Program, dev: torch.device):
@@ -708,14 +724,14 @@ def _launch_params(prog: Program, dev: torch.device):
 
 def _run(work, prog: Program) -> tuple[tuple[str, ...], torch.Tensor]:
     """One call of ``prog`` on the CUDA work list: the pack, then the
-    chain.  Tests pass programs of other token blocks here to show the
-    result does not depend on them."""
+    chain, returning the fp32 result (bf16 operands are widened first).
+    Tests pass programs of other token blocks here to show the result does
+    not depend on them."""
     dev = work[0][1].device
     ins = [work[p][1] for p in prog.input_positions]
-    if any(t.dtype != torch.float32 for t in ins):
-        raise TypeError("fused_path kernel takes float32 operands")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("fused_path: operands must be contiguous")
+    ins = widen("fused_path", *ins)
     if any(st.bk % 4 for st in prog.steps):
         raise ValueError("fused_path kernel: each step's clamped block_k must "
                          "be a multiple of 4, got "

@@ -32,14 +32,16 @@ def gemm(
     block_k: int = 128,
     block_n: int = 128,
     differentiable: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Dataflow-configurable GEMM for any (M, K, N); ragged edges are
-    masked inside the kernel.  ``differentiable=True`` routes through
-    :func:`tt_gemm.tt_gemm_vjp`, whose backward GEMMs run the same
-    kernel."""
+    masked inside the kernel.  Operands are fp32 or bf16, folded in fp32
+    and cast once to ``out_dtype`` (default: ``a``'s dtype).
+    ``differentiable=True`` routes through :func:`tt_gemm.tt_gemm_vjp`,
+    whose backward GEMMs run the same kernel."""
     kernel = _tt_gemm.tt_gemm_vjp if differentiable else _tt_gemm.tt_gemm
     return kernel(a, b, dataflow=dataflow, block_m=block_m,
-                  block_k=block_k, block_n=block_n)
+                  block_k=block_k, block_n=block_n, out_dtype=out_dtype)
 
 
 def tt_linear(
@@ -50,8 +52,11 @@ def tt_linear(
     block_tokens: int = 256,
     differentiable: bool = False,
     bwd_steps: Optional[Mapping[str, Sequence[tuple[int, int]]]] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Streaming TT-linear over any token count (the last block is masked).
+    x and the cores are fp32 or bf16, every step folds in fp32 and the
+    result is cast once to ``out_dtype`` (default: x's dtype).
 
     ``differentiable=True`` routes through
     :func:`streaming_tt.streaming_tt_linear_vjp` (dx streams through the
@@ -61,9 +66,11 @@ def tt_linear(
     """
     if differentiable:
         return _streaming.streaming_tt_linear_vjp(
-            x, cores, tn, path, bwd_steps=bwd_steps, block_tokens=block_tokens)
+            x, cores, tn, path, bwd_steps=bwd_steps, block_tokens=block_tokens,
+            out_dtype=out_dtype)
     return _streaming.streaming_tt_linear(x, cores, tn, path,
-                                          block_tokens=block_tokens)
+                                          block_tokens=block_tokens,
+                                          out_dtype=out_dtype)
 
 
 def fused_segment(
@@ -73,16 +80,19 @@ def fused_segment(
     block_m: int = 128,
     block_k: int = 128,
     block_n: int = 128,
+    out_dtype: Optional[torch.dtype] = None,
 ):
     """Execute a chain run of contraction-path steps in one launch.
 
     ``work`` is the live ``execute_path`` work list and ``steps`` the
     current-index pairs of the segment.  Returns ``(result_edges,
-    result)``: the entry the per-step route would have appended.
+    result)``: the entry the per-step route would have appended, cast
+    from the fp32 interior to ``out_dtype`` (default: the batch-carrying
+    operand's dtype).
     """
     return _fused.fused_segment_contract(
         work, steps, block_tokens=block_tokens, block_m=block_m,
-        block_k=block_k, block_n=block_n)
+        block_k=block_k, block_n=block_n, out_dtype=out_dtype)
 
 
 def _next_pow2(n: int) -> int:
@@ -113,7 +123,8 @@ def gemm_contract(
     Operands are permuted to (free..., shared...) / (shared..., free...)
     and flattened to (M, K) @ (K, N); the result keeps tensordot's axis
     order (A's free axes then B's).  Blocks are clamped to the runtime
-    dims.
+    dims.  Each step's result takes its operand's dtype, as the
+    reference's ``gemm_contract`` does (so a bf16 path rounds per step).
     """
 
     def contract(ta: torch.Tensor, tb: torch.Tensor, axes) -> torch.Tensor:

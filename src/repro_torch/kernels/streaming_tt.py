@@ -39,6 +39,7 @@ from repro_torch.core.paths import CandidatePath, find_topk_paths
 from repro_torch.core.tensor_network import Node, TensorNetwork
 
 from . import _build, launches
+from .tt_gemm import widen
 
 
 def _stream_node(tn: TensorNetwork) -> Node:
@@ -97,11 +98,14 @@ def streaming_tt_linear_plain(
     cores: Sequence[torch.Tensor],
     tn: TensorNetwork,
     path: CandidatePath,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``execute_path`` over all tokens at once.
 
     Rows are independent, so contracting the whole batch in one pass
-    computes the function the block-streamed kernel computes.
+    computes the function the block-streamed kernel computes.  Every step
+    folds in fp32; the result is cast once to ``out_dtype`` (default:
+    x's dtype).
     """
     tokens, n_in = x.shape
     stream_name, _, in_modes, out_edges, out_dim = _stream_layout(tn)
@@ -113,7 +117,7 @@ def streaming_tt_linear_plain(
     tensors.update(zip(names, cores))
     y = execute_path(full, path, tensors, out_edges=out_edges,
                      preferred_dtype=torch.float32)
-    return y.reshape(tokens, out_dim).to(x.dtype)
+    return y.reshape(tokens, out_dim).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -854,26 +858,31 @@ def streaming_tt_linear(
     *,
     block_tokens: int = 256,
     grid: Optional[Grid] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Apply a streaming TT contraction to ``x: (tokens, N_in)``.
 
     ``tn``/``path`` describe one block of ``block_tokens`` tokens (the
     plan's block); any token count is accepted, and the kernel picks its
     own tiles (:func:`launch_grid`; ``grid`` forces one, for the tests).
-    CPU tensors take :func:`streaming_tt_linear_plain`; CUDA tensors launch
-    the kernel (at most two launches, one count) or raise.
+    x and the cores are float32 or bfloat16; the kernel folds in fp32 (bf16
+    operands are widened before the launch) and the result is cast once to
+    ``out_dtype`` (default: x's dtype).  CPU tensors take
+    :func:`streaming_tt_linear_plain`; CUDA tensors launch the kernel (at
+    most two launches, one count) or raise.
     """
     dev = x.device
     if dev.type == "cpu" and all(c.device.type == "cpu" for c in cores):
-        return streaming_tt_linear_plain(x, cores, tn, path)
+        return streaming_tt_linear_plain(x, cores, tn, path,
+                                         out_dtype=out_dtype)
     for t in (x, *cores):
         if t.device != dev or dev.type != "cuda":
             raise ValueError("streaming_tt: x and every core must sit on one "
                              "CUDA device (or all on the CPU)")
-        if t.dtype != torch.float32:
-            raise TypeError("streaming_tt kernel takes float32 x and cores")
         if not t.is_contiguous():
             raise ValueError("streaming_tt: x and the cores must be contiguous")
+    out_dtype = out_dtype or x.dtype
+    x, *cores = widen("streaming_tt", x, *cores)
     if x.dim() != 2:
         raise ValueError("streaming_tt: x must be a (tokens, N_in) tensor")
     prog = program_for(tn, path)
@@ -885,7 +894,7 @@ def streaming_tt_linear(
         raise ValueError("x inner dim does not match network input modes")
     y = torch.empty((tokens, prog.out_dim), dtype=torch.float32, device=dev)
     if tokens == 0:
-        return y
+        return y.to(out_dtype)
     if max(tokens * prog.n_in, tokens * prog.out_dim) >= 2**31:
         raise ValueError("streaming_tt: activation too large for 32-bit offsets")
     st = _device_state(prog, dev)
@@ -910,7 +919,7 @@ def streaming_tt_linear(
             f"{lib.streaming_tt_error_string(rc).decode()} (tokens {tokens}, "
             f"grid {list(geo)})")
     launches.COUNTS["streaming_tt"] += 1
-    return y
+    return y.to(out_dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -965,11 +974,12 @@ class StreamingTTLinearVJP(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, tn, path, bwd_steps, block_tokens, *cores):
+    def forward(ctx, x, tn, path, bwd_steps, block_tokens, out_dtype, *cores):
         ctx.save_for_backward(x, *cores)
         ctx.meta = (tn, bwd_steps, block_tokens)
         return streaming_tt_linear(x, list(cores), tn, path,
-                                   block_tokens=block_tokens)
+                                   block_tokens=block_tokens,
+                                   out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -985,7 +995,7 @@ class StreamingTTLinearVJP(torch.autograd.Function):
             for wrt, _ in backward_networks(tn)
         }
         dx, dcores = tt_linear_backward(tn, x, g, cores, routes)
-        return (dx, None, None, None, None, *dcores)
+        return (dx, None, None, None, None, None, *dcores)
 
 
 def streaming_tt_linear_vjp(
@@ -996,9 +1006,10 @@ def streaming_tt_linear_vjp(
     *,
     bwd_steps: Optional[Mapping[str, Sequence[tuple[int, int]]]] = None,
     block_tokens: int = 256,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """:func:`streaming_tt_linear` with the gradient-network backward pass
     of :class:`StreamingTTLinearVJP`.  ``tn``/``path`` describe one block
     of ``block_tokens`` tokens, as for the forward."""
     return StreamingTTLinearVJP.apply(x, tn, path, dict(bwd_steps or {}),
-                                      block_tokens, *cores)
+                                      block_tokens, out_dtype, *cores)

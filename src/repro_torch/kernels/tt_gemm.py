@@ -28,6 +28,12 @@ block's rows of A and its B rows across all of K in one pass
 (:attr:`BandGrid.one_pass`).  IS's band reuse and its fold through C take
 effect only past that.
 
+Operands are float32 or bfloat16.  The kernels load fp32: the wrapper
+widens bf16 operands with one ``.to(torch.float32)`` before the launch,
+which is exact (every bf16 value, and every bf16 x bf16 product, is an
+fp32 value), and casts the fp32 result once to ``out_dtype`` (default:
+A's dtype), as the reference folds in fp32 and casts once.
+
 Each output element sums its k-blocks in ascending order in fp32 (the
 workspace keeps each k-block's partial apart, so a split changes no bit;
 no atomics), so the three dataflows agree bit for bit at one ``block_k``
@@ -78,6 +84,18 @@ BAND_MAX_TILE_N = 128
 #: B; on an H100 a block's staging, not its FMAs, sets a decode GEMM's time
 BAND_B_FLOATS = 512
 BAND_MIN_TILE_N = 8
+#: operand dtypes the kernels take (bf16 is widened to fp32 before launch)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def widen(name: str, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """fp32 copies of bf16 operands (fp32 ones pass through), for a kernel
+    that loads fp32; any other dtype raises ``TypeError``."""
+    bad = [t.dtype for t in tensors if t.dtype not in KERNEL_DTYPES]
+    if bad:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 operands, "
+                        f"got {bad}")
+    return [t.to(torch.float32) for t in tensors]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -494,13 +512,15 @@ def tt_gemm_plain(
     block_m: int = 128,
     block_k: int = 128,
     block_n: int = 128,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's fp32 k-fold accumulation.
 
     ``C = p_0 + p_1 + ...`` with ``p_i`` the product over the i-th k-block,
     the grouping every dataflow of the kernel uses.  ``block_m``/``block_n``
     do not change the result; they are checked so both versions take the
-    same arguments.
+    same arguments.  The fp32 result is cast once to ``out_dtype``
+    (default: A's dtype).
     """
     _check_blocks(dataflow, block_m, block_k, block_n)
     m, k = a.shape
@@ -512,7 +532,7 @@ def tt_gemm_plain(
     for k0 in range(0, k, block_k):
         p = a32[:, k0:k0 + block_k] @ b32[k0:k0 + block_k]
         c = p if c is None else c + p
-    return c.to(a.dtype)
+    return c.to(out_dtype or a.dtype)
 
 
 def tt_gemm(
@@ -523,22 +543,25 @@ def tt_gemm(
     block_m: int = 128,
     block_k: int = 128,
     block_n: int = 128,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """``a @ b`` through the dataflow kernel (fp32, row-major operands).
+    """``a @ b`` through the dataflow kernel (fp32 or bf16 row-major
+    operands, fp32 fold, one cast to ``out_dtype``, default A's dtype).
 
     CPU tensors take :func:`tt_gemm_plain`; CUDA tensors launch the kernel
     or raise.
     """
     if a.device.type == "cpu" and b.device.type == "cpu":
         return tt_gemm_plain(a, b, dataflow=dataflow, block_m=block_m,
-                             block_k=block_k, block_n=block_n)
+                             block_k=block_k, block_n=block_n,
+                             out_dtype=out_dtype)
     _check_blocks(dataflow, block_m, block_k, block_n)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(
             f"tt_gemm: operands on {a.device} and {b.device}; need both on "
             "one CUDA device (or both on the CPU)")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"tt_gemm kernel takes float32, got {a.dtype}, {b.dtype}")
+    out_dtype = out_dtype or a.dtype
+    a32, b32 = widen("tt_gemm", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tt_gemm: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -548,9 +571,11 @@ def tt_gemm(
     blocks = dict(block_m=block_m, block_k=block_k, block_n=block_n,
                   n_sm=_n_sm(a.device))
     if dataflow == "WS":
-        return _ws_gemm(a, b, ws_grid(m, k, n, **blocks))
-    grid = os_grid if dataflow == "OS" else is_grid
-    return _band_gemm(a, b, grid(m, k, n, **blocks))
+        c = _ws_gemm(a32, b32, ws_grid(m, k, n, **blocks))
+    else:
+        grid = os_grid if dataflow == "OS" else is_grid
+        c = _band_gemm(a32, b32, grid(m, k, n, **blocks))
+    return c.to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -656,11 +681,11 @@ class TTGemmVJP(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, a, b, dataflow, block_m, block_k, block_n):
+    def forward(ctx, a, b, dataflow, block_m, block_k, block_n, out_dtype):
         ctx.save_for_backward(a, b)
         ctx.blocks = (dataflow, block_m, block_k, block_n)
         return tt_gemm(a, b, dataflow=dataflow, block_m=block_m,
-                       block_k=block_k, block_n=block_n)
+                       block_k=block_k, block_n=block_n, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -673,7 +698,7 @@ class TTGemmVJP(torch.autograd.Function):
         # dB (k, n) = A^T (k, m) @ g (m, n): the M axis is k -> block_k
         db = tt_gemm(a.t().contiguous(), g, dataflow=dataflow,
                      block_m=block_k, block_k=block_m, block_n=block_n)
-        return da.to(a.dtype), db.to(b.dtype), None, None, None, None
+        return da.to(a.dtype), db.to(b.dtype), None, None, None, None, None
 
 
 def tt_gemm_vjp(
@@ -684,6 +709,8 @@ def tt_gemm_vjp(
     block_m: int = 128,
     block_k: int = 128,
     block_n: int = 128,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """:func:`tt_gemm` with a backward pass through the same kernel."""
-    return TTGemmVJP.apply(a, b, dataflow, block_m, block_k, block_n)
+    return TTGemmVJP.apply(a, b, dataflow, block_m, block_k, block_n,
+                           out_dtype)

@@ -5,10 +5,13 @@ from .linear import (
     LinearSpec,
     TTConfig,
     install_plan,
+    installed_factorizations,
     linear_apply,
+    linear_flops,
     linear_init,
     plan_context,
     planned_layer,
+    planned_path_index,
 )
 from .norms import rmsnorm, rmsnorm_init
 from .rope import apply_rope, rope_for
@@ -23,8 +26,9 @@ from .attention import (
 )
 
 __all__ = [
-    "LinearSpec", "TTConfig", "install_plan",
-    "linear_apply", "linear_init", "plan_context", "planned_layer",
+    "LinearSpec", "TTConfig", "install_plan", "installed_factorizations",
+    "linear_apply", "linear_flops", "linear_init", "plan_context",
+    "planned_layer", "planned_path_index",
     "rmsnorm", "rmsnorm_init", "apply_rope", "rope_for",
     "EmbeddingSpec", "embedding_apply", "embedding_init", "head_apply",
     "MLPSpec", "mlp_apply", "mlp_init",

@@ -161,15 +161,22 @@ _PLAN: dict[str, object] = {}  # linear name -> LayerPlan
 _FACTORIZATION: dict[str, FactorizationTriple] = {}
 
 
+def installed_factorizations() -> dict[str, FactorizationTriple]:
+    """Snapshot of the model-level factorization overrides (name -> triple)."""
+    return dict(_FACTORIZATION)
+
+
 def install_plan(plan, *, force_backend: Optional[str] = None) -> None:
     """Install a :class:`repro_torch.plan.ExecutionPlan` (``None`` clears).
 
     Any schema version the loader migrates is accepted, train-mode plans
-    with ``backward`` entries and fused ``segments`` included.
+    with ``backward`` entries and fused ``segments`` included.  Legacy
+    form: a ``{name: path_index}`` mapping, wrapped into jnp-backend layer
+    plans whose steps resolve against the top-K list at run time.
     ``force_backend`` overrides every entry's backend, forward and
     backward (``LayerPlan.with_backend``).
     """
-    from repro_torch.plan.schema import BACKENDS, ExecutionPlan
+    from repro_torch.plan.schema import BACKENDS, ExecutionPlan, LayerPlan
 
     if force_backend is not None and force_backend not in BACKENDS:
         raise ValueError(
@@ -178,19 +185,26 @@ def install_plan(plan, *, force_backend: Optional[str] = None) -> None:
     _FACTORIZATION.clear()
     if plan is None:
         return
-    if not isinstance(plan, ExecutionPlan):
+    if isinstance(plan, ExecutionPlan):
+        entries = {lp.name: lp for lp in plan.layers}
+        _FACTORIZATION.update({
+            lp.name: lp.factorization.triple
+            for lp in plan.layers if lp.factorization is not None
+        })
+    elif isinstance(plan, dict):
+        entries = {
+            name: LayerPlan(name=name, path_index=int(idx), path_steps=(),
+                            dataflow="OS", partitioning=(1, 1), backend="jnp")
+            for name, idx in plan.items()
+        }
+    else:
         raise TypeError(f"cannot install plan of type {type(plan).__name__}")
-    entries = {lp.name: lp for lp in plan.layers}
-    _FACTORIZATION.update({
-        lp.name: lp.factorization.triple
-        for lp in plan.layers if lp.factorization is not None
-    })
     if force_backend is not None:
         if force_backend != "jnp" and any(
                 not v.path_steps for v in entries.values()):
             raise ValueError(
                 f"force_backend={force_backend!r} requires plans with path "
-                "steps; index-only entries execute via jnp only")
+                "steps; legacy name->index entries execute via jnp only")
         entries = {k: v.with_backend(force_backend) for k, v in entries.items()}
     _PLAN.update(entries)
 
@@ -198,6 +212,11 @@ def install_plan(plan, *, force_backend: Optional[str] = None) -> None:
 def planned_layer(name: str):
     """The installed LayerPlan for a projection, or None."""
     return _PLAN.get(name)
+
+
+def planned_path_index(name: str) -> int:
+    lp = _PLAN.get(name)
+    return lp.path_index if lp is not None else 0
 
 
 @contextlib.contextmanager
@@ -256,13 +275,23 @@ def linear_init(spec: LinearSpec, generator: torch.Generator,
     return params
 
 
-def linear_apply(spec: LinearSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W + b with x: (..., d_in) -> (..., d_out)."""
+def linear_apply(
+    spec: LinearSpec,
+    params: dict,
+    x: torch.Tensor,
+    *,
+    path_index: Optional[int] = None,
+) -> torch.Tensor:
+    """y = x @ W + b with x: (..., d_in) -> (..., d_out).
+
+    An explicit ``path_index`` bypasses the installed plan: the plain
+    executor contracts that entry of the top-K list.
+    """
     lead = tuple(x.shape[:-1])
     if not spec.tensorized:
         y = torch.einsum("...i,io->...o", x, params["w"])
     else:
-        lp = planned_layer(spec.name)
+        lp = planned_layer(spec.name) if path_index is None else None
         n_cores = len(spec.out_modes) + len(spec.in_modes)
         from repro_torch.plan.executor import (has_kernel_backward,
                                                planned_tt_linear)
@@ -297,7 +326,8 @@ def linear_apply(spec: LinearSpec, params: dict, x: torch.Tensor) -> torch.Tenso
                 bdims, spec.in_modes, spec.out_modes, spec.tt_ranks,
                 spec.tt.top_k
             )
-            idx = lp.path_index if lp is not None else 0
+            idx = (path_index if path_index is not None
+                   else planned_path_index(spec.name))
             steps = paths[min(idx, len(paths) - 1)].steps
         if lp is not None:
             from repro_torch.plan.executor import record_execution
@@ -315,3 +345,13 @@ def linear_apply(spec: LinearSpec, params: dict, x: torch.Tensor) -> torch.Tenso
     if spec.bias:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+def linear_flops(spec: LinearSpec, tokens: int, path_index: int = 0) -> int:
+    """Forward FLOPs for ``tokens`` rows (dense vs TT path)."""
+    if not spec.tensorized:
+        return 2 * tokens * spec.d_in * spec.d_out
+    paths = _topk_paths_cached(
+        tokens, spec.in_modes, spec.out_modes, spec.tt_ranks, spec.tt.top_k
+    )
+    return 2 * paths[min(path_index, len(paths) - 1)].macs

@@ -512,6 +512,10 @@ class ExecutionPlan:
     def loads(cls, text: str) -> "ExecutionPlan":
         return cls.from_json(json.loads(text))
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.dumps())
+
 
 def migrate_plan_json(d: Mapping) -> dict:
     """Upgrade a plan JSON dict to the current version (idempotent).

@@ -13,8 +13,9 @@ installed:
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)  TF32 is
 off: the model is fp32 and the kernels use full fp32 FMAs.  Tolerances:
 1e-5 for GEMMs and 1e-4 for TT contractions, as the CPU parity tests use;
-kernel and plain version sum in another order.  Row independence and the
-dataflows' agreement are exact.
+kernel and plain version sum in another order; bf16 operands at 8e-2, the
+reference's bf16 tolerance (``tests/test_kernels.py:47``).  Row
+independence and the dataflows' agreement are exact, in bf16 too.
 """
 
 from __future__ import annotations
@@ -714,3 +715,94 @@ def test_planned_layer_backward_cuda_matches_cpu(cuda_device, plan_file):
         scale = max(1.0, want.abs().max().item())
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-4 * scale)
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands: the wrappers widen them to fp32 before the launch and cast
+# the fp32 result once (the reference's bf16 tolerance, 8e-2)
+# ---------------------------------------------------------------------------
+
+BF16 = dict(rtol=8e-2, atol=8e-2)
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMM_SHAPES + [(64, 128, 16), (37, 2048, 16),
+                                                 (32, 16, 256), (64, 256, 48),
+                                                 (100, 512, 33), (16, 640, 8)])
+def test_tt_gemm_cuda_bf16_matches_plain_dataflows_bit_identical(cuda_device, shape):
+    m, k, n = shape
+    a = torch.from_numpy(_np((m, k), 120)).to(cuda_device, torch.bfloat16)
+    b = torch.from_numpy(_np((k, n), 121)).to(cuda_device, torch.bfloat16)
+    blk = dict(block_m=32, block_k=32, block_n=32)
+    launches.reset()
+    outs = [tt_gemm.tt_gemm(a, b, dataflow=df, **blk) for df in DATAFLOWS]
+    assert launches.COUNTS["tt_gemm_os"] == launches.COUNTS["tt_gemm_ws"] == \
+        launches.COUNTS["tt_gemm_is"] == 1
+    _bf16_close(outs[0], tt_gemm.tt_gemm_plain(a, b, **blk))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    wide = tt_gemm.tt_gemm(a, b, out_dtype=torch.float32, **blk)
+    assert torch.equal(wide, tt_gemm.tt_gemm(a.float(), b.float(), **blk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name", streaming_cases())
+def test_streaming_tt_cuda_bf16_matches_plain(cuda_device, plan_file, name):
+    lp, tn = plan_layer(plan_file, name)
+    for tokens in (4, 37):
+        bt = ops.clamp_block(lp["tiling"]["block_tokens"], tokens)
+        net = streaming_tt._rebatch(tn, bt)
+        path = as_candidate_path(net, lp["path_steps"])
+        x, cores = k1_inputs(net, tokens, cuda_device, 130)
+        x, cores = x.to(torch.bfloat16), [c.to(torch.bfloat16) for c in cores]
+        got = streaming_tt.streaming_tt_linear(x, cores, net, path, block_tokens=bt)
+        _bf16_close(got, streaming_tt.streaming_tt_linear_plain(x, cores, net, path))
+        wide = streaming_tt.streaming_tt_linear(x, cores, net, path, block_tokens=bt,
+                                                out_dtype=torch.float32)
+        assert torch.equal(wide, streaming_tt.streaming_tt_linear(
+            x.float(), [c.float() for c in cores], net, path, block_tokens=bt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name,tokens", segment_cases(max_tokens=64))
+def test_fused_path_cuda_bf16_matches_plain(cuda_device, plan_file, name, tokens):
+    entries, chain, lp = _segment(plan_file, name, tokens)
+    work = [(e, t.to(torch.bfloat16))
+            for e, t in _segment_tensors(entries, cuda_device, 140)]
+    t = lp["tiling"]
+    blocks = dict(block_m=t["block_m"], block_k=t["block_k"], block_n=t["block_n"])
+    ec, got = fused_path.fused_segment_contract(
+        work, chain, block_tokens=t["block_tokens"], **blocks)
+    ec2, want = fused_path.fused_segment_contract_plain(work, chain, **blocks)
+    assert ec == ec2
+    _bf16_close(got, want)
+    wide = [(e, v.float()) for e, v in work]
+    assert torch.equal(
+        fused_path.fused_segment_contract(work, chain, block_tokens=t["block_tokens"],
+                                          out_dtype=torch.float32, **blocks)[1],
+        fused_path.fused_segment_contract(wide, chain, block_tokens=t["block_tokens"],
+                                          **blocks)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_cuda_kernels_refuse_other_dtypes(cuda_device, dtype):
+    a = torch.ones(8, 8, device=cuda_device, dtype=dtype)
+    with pytest.raises(TypeError):
+        tt_gemm.tt_gemm(a, a)
+    tn = tt_linear_network(4, (4, 4), (4, 4), (4, 4, 4))
+    cores = [torch.ones(n.dims, device=cuda_device, dtype=dtype)
+             for n in tn.nodes if n.name != "X"]
+    with pytest.raises(TypeError):
+        streaming_tt.streaming_tt_linear(torch.ones(4, 16, device=cuda_device,
+                                                    dtype=dtype),
+                                         cores, tn, find_topk_paths(tn, k=1)[0])
+    work, chain = _chain_case(8, False)
+    with pytest.raises(TypeError):
+        fused_path.fused_segment_contract(
+            [(e, v.to(cuda_device, dtype)) for e, v in work], chain, block_k=8)

@@ -523,3 +523,142 @@ def test_plain_versions_do_not_count_launches():
     cores = [torch.ones(n.dims) for n in tn.nodes if n.name != "X"]
     ops.tt_linear(torch.ones(4, 16), cores, tn, find_topk_paths(tn, k=1)[0], 4)
     assert all(v == 0 for v in launches.snapshot().values())
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands: fp32 fold, one cast to out_dtype (the reference's
+# tests/test_kernels.py:38-51 and tests/test_fused_exec.py:243-255)
+# ---------------------------------------------------------------------------
+
+#: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
+BF16_TOL = dict(rtol=8e-2, atol=8e-2)
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    """fp32 data rounded to bf16 (to nearest even, as ``jnp.asarray`` rounds)."""
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_gemm_bf16_vs_pallas(dataflow):
+    a, b = _np((64, 64), 7), _np((64, 64), 8)
+    want = ref_ops.gemm(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+                        dataflow=dataflow, block_m=32, block_k=32, block_n=32,
+                        interpret=True)
+    got = ops.gemm(_bf16(a), _bf16(b), dataflow=dataflow, block_m=32,
+                   block_k=32, block_n=32)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 48), (100, 512, 33), (16, 640, 8)])
+def test_gemm_bf16_dataflows_bit_identical(shape):
+    """Every dataflow folds its k-blocks in fp32 and casts once, so the bf16
+    results agree bit for bit (K deep enough that a bf16 fold would not)."""
+    m, k, n = shape
+    a, b = _bf16(_np((m, k), m * 31 + n)), _bf16(_np((k, n), m * 31 + n + 1))
+    outs = [ops.gemm(a, b, dataflow=df) for df in DATAFLOWS]
+    assert all(o.dtype == torch.bfloat16 for o in outs)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    want = ref_ops.gemm(jnp.asarray(a.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(b.float().numpy(), jnp.bfloat16),
+                        dataflow="OS", interpret=True)
+    np.testing.assert_allclose(outs[0].float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("in_modes,out_modes,rank", [
+    ((4, 4), (4, 4), 4),
+    ((2, 4, 4), (4, 4, 2), 4),
+])
+def test_tt_linear_bf16_vs_pallas(in_modes, out_modes, rank):
+    block = 8
+    ranks = (rank,) * (len(in_modes) + len(out_modes) - 1)
+    ref_tn = ref_block_network(block, in_modes, out_modes, ranks)
+    ref_path = ref_find_topk_paths(ref_tn, k=1)[0]
+    tn = tt_linear_network(block, in_modes, out_modes, ranks)
+    path = find_topk_paths(tn, k=1)[0]
+    cores = [_np(n.dims, 31 + i, 0.3) for i, n in enumerate(tn.nodes) if n.name != "X"]
+    x = _np((24, int(np.prod(in_modes))), 32)
+    want = ref_ops.tt_linear(jnp.asarray(x, jnp.bfloat16),
+                             [jnp.asarray(c, jnp.bfloat16) for c in cores],
+                             ref_tn, ref_path, block_tokens=block, interpret=True)
+    got = ops.tt_linear(_bf16(x), [_bf16(c) for c in cores], tn, path,
+                        block_tokens=block)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **BF16_TOL)
+
+
+def _out_dtype_calls():
+    """(name, call(tensors, out_dtype)) for each wrapper with ``out_dtype``."""
+    tn = tt_linear_network(8, (2, 4, 4), (4, 4, 2), (4,) * 5)
+    path = find_topk_paths(tn, k=1)[0]
+    from test_torch_cuda import _chain_case
+
+    work, chain = _chain_case(37, False)
+    return {
+        "gemm": ([_np((40, 70), 41), _np((70, 24), 42)],
+                 lambda t, dt: ops.gemm(t[0], t[1], block_k=16, out_dtype=dt)),
+        "tt_linear": ([_np((24, 32), 43)] + [_np(n.dims, 44 + i, 0.3) for i, n in
+                                             enumerate(tn.nodes) if n.name != "X"],
+                      lambda t, dt: ops.tt_linear(t[0], t[1:], tn, path,
+                                                  block_tokens=8, out_dtype=dt)),
+        "fused_segment": ([w.numpy() for _, w in work],
+                          lambda t, dt: ops.fused_segment(
+                              [(e, v) for (e, _), v in zip(work, t)], chain,
+                              block_m=32, block_k=8, block_n=16,
+                              out_dtype=dt)[1]),
+    }
+
+
+@pytest.mark.parametrize("kind", ["gemm", "tt_linear", "fused_segment"])
+def test_out_dtype(kind):
+    """``out_dtype`` is the one cast of the fp32 fold: bf16 operands with
+    ``out_dtype=float32`` give the fp32 result of the widened operands bit
+    for bit, and the default is the (streamed) operand's dtype."""
+    arrays, call = _out_dtype_calls()[kind]
+    bf = [_bf16(x) for x in arrays]
+    widened = call([t.float() for t in bf], None)
+    got = call(bf, torch.float32)
+    assert got.dtype == torch.float32 and torch.equal(got, widened)
+    assert call(bf, None).dtype == torch.bfloat16
+    assert torch.equal(call(bf, None), widened.to(torch.bfloat16))
+    assert call([torch.from_numpy(x) for x in arrays], torch.bfloat16).dtype \
+        == torch.bfloat16
+
+
+def test_fused_segment_bf16_vs_pallas_and_per_step_rounding():
+    """K5 keeps its interior in fp32 in bf16 too (the reference's fused
+    kernel), while the per-step route rounds each step to bf16 (the
+    reference's ``gemm_contract``): both within the bf16 tolerance of the
+    reference's fused kernel."""
+    from test_torch_cuda import _chain_case
+
+    work, chain = _chain_case(37, True)
+    work = [(e, t.to(torch.bfloat16)) for e, t in work]
+    ec, got = ops.fused_segment(work, chain, block_m=32, block_k=8, block_n=16)
+    rec, want = ref_ops.fused_segment(
+        [(e, jnp.asarray(t.float().numpy(), jnp.bfloat16)) for e, t in work],
+        chain, block_tokens=16, block_m=32, block_k=8, block_n=16, interpret=True)
+    assert ec == rec and got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **BF16_TOL)
+    contract = ops.gemm_contract("OS", 32, 8, 16)
+    w = list(work)
+    for (i, j) in chain:
+        w = _replay_step(w, i, j, contract)
+        assert w[-1][1].dtype == torch.bfloat16
+    np.testing.assert_allclose(w[-1][1].float().numpy(), np.asarray(want, np.float32),
+                               **BF16_TOL)
+
+
+def _replay_step(work, i, j, contract):
+    (ea, ta), (eb, tb) = work[i], work[j]
+    shared = [x for x in ea if x in eb]
+    val = contract(ta, tb, ([ea.index(x) for x in shared],
+                            [eb.index(x) for x in shared]))
+    ec = tuple(x for x in ea if x not in shared) + tuple(
+        x for x in eb if x not in shared)
+    return [w for k, w in enumerate(work) if k not in (i, j)] + [(ec, val)]
