@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    scratch directory; each must equal the committed file byte for byte.
    Every later phase loads the emitted plans, so the main path runs the
    port's own DSE -> compiler -> install -> kernels.  Each plan's emit
-   seconds on the host CPU are printed beside the card.
+   seconds on the host CPU are printed beside the card.  The full-width
+   rank search (``tt-lm-100m.rank.json``: ``--rank-search budget --search
+   guided``, 15 decompositions) is recorded on the way for phase 3b.
 3. kernels: every CUDA kernel of the serving and training paths (K1
    ``streaming_tt``, K2-K4 ``tt_gemm`` OS/WS/IS, K5 ``fused_path``) against
    its plain PyTorch version at the shapes the main paths give it, plus
@@ -31,17 +33,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens, K2-K4 at 64,128,16, 37,2048,16 and 32,16,256 and K5 at the
    mlp.wg segment against their plain versions at 8e-2 (the reference's
    bf16 tolerance), and WS == OS == IS bit for bit at each GEMM shape.
+3b. rank space: every candidate of the full-width rank search compiles to
+   the plan it would emit; K1 runs each layer's path at 4, 32 and 2048
+   tokens and K2-K4 each path's GEMMs at 4 and 32 tokens (WS == OS == IS
+   bit for bit) against the plain versions.  A layer K1 refuses is listed
+   (and fails the run on the chosen candidate).  K1 (mlp.wg) and every
+   GEMM of the chosen candidate are timed beside ``torch.einsum`` /
+   ``torch.matmul`` and the bound.
 4. serve: full-width tt-lm-100m with random weights from a seed, through
    ``python -m repro_torch.launch.serve``'s code path: the full plan with
    ``--strict-plan`` (continuous, then oneshot: the tokens must match), the
-   plan pair, and the pair with ``--plan-backend tt_gemm`` (the dataflow
-   kernels).  Launch counts are zeroed just before and read just after.
+   plan pair, the pair with ``--plan-backend tt_gemm`` (the dataflow
+   kernels), and the rank-searched plan (continuous, oneshot: the tokens
+   must match; continuous with ``--plan-backend tt_gemm``).  Launch counts
+   are zeroed just before and read just after, and read again around the
+   rank plan's runs, which must launch K1 and each of its layers' dataflow
+   kernels.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
-   full plan (K1) and under the pair on ``tt_gemm`` (K2 + K4).
+   full plan (K1), under the pair on ``tt_gemm`` (K2 + K4) and under the
+   rank plan (K1 on two-core networks).
 6. check: prefill logits through the kernels agree with the plain
-   executor on the card; tt-lm-smoke on the card agrees with the CPU.
+   executor on the card, under the full plan and under the rank plan;
+   tt-lm-smoke on the card agrees with the CPU; the rank search's
+   calibration forward (``activation_calibration``, 32 tokens through K1
+   under the rank plan) on the card agrees with the CPU.
 7. train: full-width tt-lm-100m through ``python -m
    repro_torch.launch.train``'s code path, batch 8 x seq 256, 3 AdamW steps
    under each committed train plan (``tt-lm-100m.train.json``: K1 forward
@@ -61,8 +78,11 @@ TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
-``{"serve": n, "train": m}``, each path's counts zeroed just before it
-and read just after; the run fails unless every kernel of
+``{"serve": n, "serve_rank_plan": r, "train": m}`` (``r`` is the part of
+``n`` from the rank plan's runs), each path's counts zeroed just before
+it and read just after, its times at the rank plan's shapes
+(``rank_plan``) and the K1 refusals over the rank space; the run fails
+unless every kernel of
 :data:`SERVE_KERNELS` launched on the serve path and every kernel of
 :data:`TRAIN_KERNELS` on the train path.  Nothing of JAX or of the JAX
 package is imported.
@@ -109,6 +129,11 @@ EMIT = {
                                        "--mode", "train", "--top-k", "2",
                                        "--tokens", "32", "--plan-backend",
                                        "tt_gemm"],
+    "tt-lm-100m.rank.json": ["--arch", "tt-lm-100m", "--rank-search", "budget",
+                             "--search", "guided"],
+    "tt-lm-smoke.rank.json": ["--arch", "tt-lm-100m", "--smoke", "--top-k", "2",
+                              "--tokens", "64", "--rank-search", "budget",
+                              "--search", "guided"],
 }
 #: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
 BF16_TOL = 8e-2
@@ -123,6 +148,10 @@ SERVE = ["--batch", "4", "--n-requests", "8", "--prompt-len", "32",
 #: and K2-K4 under ``--plan-backend tt_gemm``; training runs K1 forward and
 #: dx, K3 WS weight gradients and K5 fused segments
 SERVE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")
+#: the rank-searched plan (``--rank-search budget --search guided``): its
+#: runs must launch K1 (auto backends) and the dataflow kernel of each of
+#: its layers (``--plan-backend tt_gemm``)
+RANK_PLAN = "tt-lm-100m.rank.json"
 TRAIN_KERNELS = ("streaming_tt", "tt_gemm_ws", "fused_path")
 #: the CUDA functions of each kernel: a profile sums them, since one
 #: wrapper call may launch two
@@ -138,7 +167,9 @@ DECODE_SETTINGS = (
     ("full plan", "tt-lm-100m.json", "tt-lm-100m.json", None,
      ("K1 streaming_tt",)),
     ("plan pair on tt_gemm", "tt-lm-100m.pair.prefill.json",
-     "tt-lm-100m.pair.decode.json", "tt_gemm", ("K2 tt_gemm_os", "K4 tt_gemm_is")))
+     "tt-lm-100m.pair.decode.json", "tt_gemm", ("K2 tt_gemm_os", "K4 tt_gemm_is")),
+    ("rank plan", "tt-lm-100m.rank.json", "tt-lm-100m.rank.json", None,
+     ("K1 streaming_tt",)))
 
 
 def log(msg: str) -> None:
@@ -263,33 +294,45 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 # phase 2b: the port's DSE emits the plans
 # ---------------------------------------------------------------------------
 
-def dse_phase(out_dir: str) -> dict[str, float]:
+def dse_phase(out_dir: str) -> tuple[dict[str, float], dict]:
     """Emit every plan of :data:`EMIT` into ``out_dir`` with the port's DSE
     (``dse_cli.main``, in process) and hold each against the committed file
     byte for byte.  Returns the emit seconds on the host CPU per call (one
-    call writes both halves of a pair)."""
+    call writes both halves of a pair) and, per rank-searched plan, the
+    rank search's result as the CLI ran it (every candidate's layers and
+    DSE choices, recorded on the way through ``repro_torch.rank``)."""
     import contextlib
     import io
 
+    import repro_torch.rank as rank_pkg
     from repro_torch import dse_cli
 
-    secs = {}
-    for name, argv in EMIT.items():
-        if ".pair." in name:
-            prefix = name.split(".pair.")[0] + ".pair"
-            label = prefix + ".{prefill,decode}.json"
-            argv = argv + ["--emit-plan-pair", os.path.join(out_dir, prefix)]
-        else:
-            label = name
-            argv = argv + ["--emit-plan", os.path.join(out_dir, name)]
-        if label in secs:
-            continue
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = dse_cli.main(argv + ["--out", os.devnull])
-        secs[label] = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"python -m repro_torch.dse {argv}: exit {rc}")
+    secs, searches, real, label = {}, {}, rank_pkg.rank_search, ""
+
+    def recording(*args, **kw):
+        searches[label] = res = real(*args, **kw)
+        return res
+
+    rank_pkg.rank_search = recording
+    try:
+        for name, argv in EMIT.items():
+            if ".pair." in name:
+                prefix = name.split(".pair.")[0] + ".pair"
+                label = prefix + ".{prefill,decode}.json"
+                argv = argv + ["--emit-plan-pair", os.path.join(out_dir, prefix)]
+            else:
+                label = name
+                argv = argv + ["--emit-plan", os.path.join(out_dir, name)]
+            if label in secs:
+                continue
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = dse_cli.main(argv + ["--out", os.devnull])
+            secs[label] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"python -m repro_torch.dse {argv}: exit {rc}")
+    finally:
+        rank_pkg.rank_search = real
     for name in EMIT:
         with open(os.path.join(out_dir, name)) as f:
             got = f.read()
@@ -298,7 +341,7 @@ def dse_phase(out_dir: str) -> dict[str, float]:
         if got != want:
             raise AssertionError(f"the port's DSE emitted {name} with other "
                                  "bytes than the committed file")
-    return secs
+    return secs, searches
 
 
 # ---------------------------------------------------------------------------
@@ -379,35 +422,59 @@ def check_streaming(device, layers) -> dict:
             raise AssertionError(f"streaming_tt {label} tokens {tokens}: "
                                  f"max abs err {e} > {tol}")
         err = max(err, e)
-        if not timed_case:
-            continue
-        library = _einsum_call(tn, x, cores)
-        assert (library() - want).abs().max().item() <= tol
-        prog = streaming_tt.program_for(tn_b, path)
-        grid = streaming_tt.launch_grid(
-            prog, tokens, torch.cuda.get_device_properties(device).multi_processor_count)
-        full = streaming_tt._rebatch(tn, tokens)
-        macs = sum(g.macs for g in full.gemm_sequence(steps))
-        nbytes = 4 * (x.numel() + sum(c.numel() for c in cores) + got.numel())
-        b_ms, b_by = bound(nbytes, 2 * macs)
-        ms, host_ms = timed(kernel)
-        timing[label.split(" (")[0], tokens] = dict(
-            at=f"{label}, tokens {tokens}: {len(prog.free_ops)} token-free ops in "
-               f"one launch, then {len(prog.tok_ops)} token steps over tiles of "
-               f"{grid.tile} x {grid.slices} column slices ({grid.blocks} x "
-               f"{grid.slices} blocks, {grid.smem_bytes} B shared memory)",
-            ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
-            plain_ms=timed(plain)[0], library_ms=timed(library)[0],
-            library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
+        if timed_case:
+            timing[label.split(" (")[0], tokens] = k1_timing(
+                label, tn, steps, tn_b, path, x, cores, bt, want, device)
     log(f"  streaming_tt: {len(seen)} (layer, path, tokens) cases, "
         f"max abs err {err:.3e}")
     for t in timing.values():
-        log(f"  streaming_tt at {t['at']}: kernel {_fmt(t['ms'])} (host "
-            f"{_fmt(t['host_ms'])}, graph {_fmt(t['graph_ms'])}), plain "
-            f"{_fmt(t['plain_ms'])}, library {_fmt(t['library_ms'])} (graph "
-            f"{_fmt(t['library_graph_ms'])}), bound {_fmt(t['bound_ms'])} "
-            f"({t['bound_by']})")
+        log_timing("streaming_tt", t)
     return dict(name="streaming_tt", max_abs_err=err, **timing["mlp.wg", 32])
+
+
+def k1_timing(label, tn, steps, tn_b, path, x, cores, bt, want, device) -> dict:
+    """K1 on ``x`` timed (CUDA events and CUDA-graph replay) beside its
+    plain version, one ``torch.einsum`` (library; checked against
+    ``want`` first) and the bound, with the program and grid it ran."""
+    import torch
+
+    from repro_torch.kernels import streaming_tt
+
+    tokens = x.shape[0]
+
+    def kernel():
+        return streaming_tt.streaming_tt_linear(x, cores, tn_b, path, block_tokens=bt)
+
+    def plain():
+        return streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, path)
+
+    library = _einsum_call(tn, x, cores)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (library() - want).abs().max().item() <= tol
+    prog = streaming_tt.program_for(tn_b, path)
+    grid = streaming_tt.launch_grid(
+        prog, tokens, torch.cuda.get_device_properties(device).multi_processor_count)
+    full = streaming_tt._rebatch(tn, tokens)
+    macs = sum(g.macs for g in full.gemm_sequence(steps))
+    nbytes = 4 * (x.numel() + sum(c.numel() for c in cores) + want.numel())
+    b_ms, b_by = bound(nbytes, 2 * macs)
+    ms, host_ms = timed(kernel)
+    return dict(
+        at=f"{label}, tokens {tokens}: {len(prog.free_ops)} token-free ops in "
+           f"one launch, then {len(prog.tok_ops)} token steps over tiles of "
+           f"{grid.tile} x {grid.slices} column slices ({grid.blocks} x "
+           f"{grid.slices} blocks, {grid.smem_bytes} B shared memory)",
+        ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+        plain_ms=timed(plain)[0], library_ms=timed(library)[0],
+        library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def log_timing(name: str, t: dict) -> None:
+    log(f"  {name} at {t['at']}: kernel {_fmt(t['ms'])} (host "
+        f"{_fmt(t['host_ms'])}, graph {_fmt(t['graph_ms'])}), plain "
+        f"{_fmt(t['plain_ms'])}, library {_fmt(t['library_ms'])} (graph "
+        f"{_fmt(t.get('library_graph_ms'))}), bound {_fmt(t['bound_ms'])} "
+        f"({t['bound_by']})")
 
 
 def dx_networks():
@@ -670,6 +737,142 @@ def check_fused(device) -> dict:
     return dict(name="fused_path", max_abs_err=err, **timing["mlp.wg"])
 
 
+def check_rank_space(device, rres) -> tuple[dict, list[str], list[str]]:
+    """K1 and K2-K4 at every candidate of the full-width rank search, as the
+    dse phase ran it (15 decompositions of tt-lm-100m, 1-4 modes a side,
+    ranks 4-24).  Each candidate's evaluation compiles to the plan it would
+    emit; every layer but the tied head (it never executes) runs K1 along
+    that plan's path at 4, 32 and 2048 tokens against the plain version
+    (1e-4 of the output's scale), and K2-K4 at the path's GEMMs at 4 and 32
+    tokens with the plan's blocks clamped (1e-5; WS == OS == IS bit for
+    bit).  A layer K1 refuses (shared memory) is listed, and fails the run
+    on the chosen candidate.  At the chosen candidate's shapes, K1 (mlp.wg
+    at 4, 32 and 2048 tokens) and every GEMM of its layers (4 lanes of
+    decode, 32 tokens of prefill) are timed beside ``torch.einsum`` /
+    ``torch.matmul`` and the bound.  Returns ({kernel: its row at the
+    chosen shapes}, refusals, report lines)."""
+    import torch
+
+    from repro_torch.hw import get_target
+    from repro_torch.kernels import ops, streaming_tt, tt_gemm
+    from repro_torch.plan import compile_plan
+    from repro_torch.plan.executor import as_candidate_path
+
+    hw = get_target("fpga_vu9p")
+    gen = torch.Generator().manual_seed(7)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    refusals, notes, rows = [], [], {}
+    k1_err, k1_cases, gemm_err, gemms = 0.0, 0, 0.0, {}
+    chosen_gemms: dict = {}
+    for i, ev in enumerate(rres.evals):
+        cand, chosen = ev.candidate.name, i == rres.chosen
+        plan = compile_plan(ev.named, ev.res, hw, arch=rres.arch, tokens=rres.tokens)
+        nets = {n.split("[")[0]: tn for n, tn in ev.named}
+        for lp in plan.layers:
+            if lp.name == "head":
+                continue
+            tn = nets[lp.name]
+            cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
+                     for n in tn.nodes if n.kind != "input"]
+            n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
+            for tokens in (4, 32, 2048):
+                bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
+                tn_b = streaming_tt._rebatch(tn, bt)
+                path = as_candidate_path(tn_b, lp.path_steps)
+                try:
+                    grid = streaming_tt.launch_grid(
+                        streaming_tt.program_for(tn_b, path), tokens, n_sm)
+                except ValueError as err:
+                    if chosen:
+                        raise
+                    refusals.append(f"{cand} {lp.name} ({lp.backend} in its plan), "
+                                    f"{tokens} tokens, path {list(lp.path_steps)}: "
+                                    f"{err}")
+                    continue
+                x = torch.randn(tokens, n_in, generator=gen).to(device)
+                got = streaming_tt.streaming_tt_linear(x, cores, tn_b, path,
+                                                       block_tokens=bt)
+                want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, path)
+                e = (got - want).abs().max().item()
+                tol = 1e-4 * max(1.0, want.abs().max().item())
+                if not torch.isfinite(got).all() or e > tol:
+                    raise AssertionError(
+                        f"streaming_tt {cand} {lp.name} tokens {tokens}: max abs "
+                        f"err {e} > {tol} (grid {grid})")
+                k1_err, k1_cases = max(k1_err, e), k1_cases + 1
+                if chosen and lp.name == "mlp.wg":
+                    rows["streaming_tt", tokens] = k1_timing(
+                        f"{lp.name} ({cand}, rank plan)", tn, lp.path_steps, tn_b,
+                        path, x, cores, bt, want, device)
+            for tokens in (4, 32):
+                for g in streaming_tt._rebatch(tn, tokens).gemm_sequence(lp.path_steps):
+                    key = (g.M, g.K, g.N, ops.clamp_block(lp.tiling.block_m, g.M),
+                           ops.clamp_block(lp.tiling.block_k, g.K),
+                           ops.clamp_block(lp.tiling.block_n, g.N))
+                    gemms[key] = gemms.get(key, ()) + ((cand, lp.name),)
+                    if chosen:
+                        chosen_gemms[key] = "decode" if tokens == 4 else "prefill"
+    for key, where in sorted(gemms.items()):
+        m, k, n, bm, bk, bn = key
+        a = torch.randn(m, k, generator=gen).to(device)
+        b = torch.randn(k, n, generator=gen).to(device)
+        blocks = dict(block_m=bm, block_k=bk, block_n=bn)
+        outs = {df: tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)
+                for df in ("OS", "WS", "IS")}
+        want = tt_gemm.tt_gemm_plain(a, b, dataflow="OS", **blocks)
+        e = (outs["OS"] - want).abs().max().item()
+        if not torch.isfinite(outs["OS"]).all() or e > 1e-5 * max(
+                1.0, want.abs().max().item()):
+            raise AssertionError(f"tt_gemm M,K,N={(m, k, n)} ({where[0]}): max abs "
+                                 f"err {e}")
+        if not (torch.equal(outs["OS"], outs["WS"])
+                and torch.equal(outs["OS"], outs["IS"])):
+            raise AssertionError(f"tt_gemm M,K,N={(m, k, n)}: WS, OS and IS are "
+                                 "not bit-identical")
+        row0 = tt_gemm.tt_gemm(a[:1].contiguous(), b, dataflow="OS", **blocks)
+        if not torch.equal(row0[0], outs["OS"][0]):
+            raise AssertionError(f"tt_gemm M,K,N={(m, k, n)}: row 0 depends on M")
+        gemm_err = max(gemm_err, e)
+        if key not in chosen_gemms:
+            continue
+        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
+        lib_graph = graph_ms(lambda: torch.matmul(a, b))
+        for df in ("OS", "WS", "IS"):
+            def kernel(df=df):
+                return tt_gemm.tt_gemm(a, b, dataflow=df, **blocks)
+            ms, host_ms = timed(kernel)
+            row = dict(
+                at=f"M,K,N={m},{k},{n} blocks {bm},{bk},{bn} "
+                   f"({chosen_gemms[key]}, {rres.evals[rres.chosen].candidate.name})",
+                ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+                plain_ms=timed(lambda: tt_gemm.tt_gemm_plain(
+                    a, b, dataflow=df, **blocks))[0],
+                library_ms=timed(lambda: torch.matmul(a, b))[0],
+                library_graph_ms=lib_graph, bound_ms=b_ms, bound_by=b_by,
+                macs=m * k * n, phase=chosen_gemms[key])
+            rows.setdefault(("tt_gemm", df), []).append(row)
+    notes.append(f"rank space: {len(rres.evals)} candidates, K1 at {k1_cases} "
+                 f"(candidate, layer, tokens) cases along each candidate's plan, "
+                 f"max abs err {k1_err:.3e}; K2-K4 at {len(gemms)} GEMM shapes, max "
+                 f"abs err {gemm_err:.3e}, WS == OS == IS bit for bit: yes; K1 "
+                 f"refusals: {len(refusals)}")
+    for r in refusals:
+        notes.append(f"  K1 refuses {r}")
+    for tokens in (4, 32, 2048):
+        log_timing("streaming_tt", rows["streaming_tt", tokens])
+    for df in ("OS", "WS", "IS"):
+        for r in rows[("tt_gemm", df)]:
+            log_timing(f"tt_gemm_{df.lower()}", r)
+    # the kernels line: K1 at 32 tokens; per dataflow the largest GEMM of
+    # the phase the frozen plans run it in (OS, IS decode; WS prefill)
+    out = {"streaming_tt": rows["streaming_tt", 32]}
+    for df, phase in (("OS", "decode"), ("WS", "prefill"), ("IS", "decode")):
+        out[f"tt_gemm_{df.lower()}"] = max(
+            (r for r in rows[("tt_gemm", df)] if r["phase"] == phase),
+            key=lambda r: r["macs"])
+    return out, refusals, notes
+
+
 def _bf16_close(label: str, got, want) -> float:
     """Max abs error of a bf16 kernel result against its plain version;
     raises unless it is bf16, finite and within the reference's bf16
@@ -766,11 +969,18 @@ def check_bf16(device, layers) -> tuple[dict, list[str]]:
 # phase 4 and 5: serving and the output check
 # ---------------------------------------------------------------------------
 
-def serve_runs() -> tuple[dict, list[str]]:
+def serve_runs() -> tuple[dict, dict, list[str]]:
+    """Full-width tt-lm-100m served under the full plan, the plan pair, the
+    pair on tt_gemm and the rank-searched plan (auto backends: K1; on
+    tt_gemm: the dataflow kernels its layers plan).  Returns the launch
+    counts of the whole serve path and of the rank plan's runs alone, and
+    the report lines; continuous == oneshot per request under each of the
+    full and the rank plan."""
     from repro_torch.kernels import launches
     from repro_torch.launch.serve import run
 
     full = os.path.join(PLANS, "tt-lm-100m.json")
+    rank = os.path.join(PLANS, RANK_PLAN)
     pair = ["--plan-prefill", os.path.join(PLANS, "tt-lm-100m.pair.prefill.json"),
             "--plan-decode", os.path.join(PLANS, "tt-lm-100m.pair.decode.json")]
     runs = [
@@ -779,10 +989,16 @@ def serve_runs() -> tuple[dict, list[str]]:
         ("plan pair, continuous", pair + ["--schedule", "continuous"]),
         ("plan pair on tt_gemm, continuous",
          pair + ["--schedule", "continuous", "--plan-backend", "tt_gemm"]),
+        ("rank plan, continuous", ["--plan", rank, "--schedule", "continuous"]),
+        ("rank plan, oneshot", ["--plan", rank, "--schedule", "oneshot"]),
+        ("rank plan on tt_gemm, continuous",
+         ["--plan", rank, "--schedule", "continuous", "--plan-backend", "tt_gemm"]),
     ]
-    notes, tokens = [], {}
+    notes, tokens, rank_counts = [], {}, None
     launches.reset()
     for label, argv in runs:
+        if label.startswith("rank") and rank_counts is None:
+            rank_counts = launches.snapshot()
         before = launches.snapshot()
         log(f"--- serve: {label}")
         out = run(argv + SERVE)
@@ -799,10 +1015,25 @@ def serve_runs() -> tuple[dict, list[str]]:
             if len(toks) != 16 or not all(0 <= t < 32_000 for t in toks):
                 raise AssertionError(f"{label}: request {rid} tokens {toks}")
     counts = launches.snapshot()
-    if tokens["full plan, continuous"] != tokens["full plan, oneshot"]:
-        raise AssertionError("continuous and oneshot serving disagree")
-    notes.append("continuous == oneshot per request: yes")
-    return counts, notes
+    rank_counts = {k: counts[k] - rank_counts[k] for k in counts}
+    for plan in ("full plan", "rank plan"):
+        if tokens[f"{plan}, continuous"] != tokens[f"{plan}, oneshot"]:
+            raise AssertionError(f"{plan}: continuous and oneshot serving disagree")
+        notes.append(f"{plan}: continuous == oneshot per request: yes")
+    return counts, rank_counts, notes
+
+
+def model_params(cfg, plan, device, cache: dict):
+    """Random weights from seed 0 in ``plan``'s decomposition (a v4 plan's
+    factorizations set the TT shapes; the other plans share the frozen
+    ones), made once per decomposition."""
+    from repro_torch.models import api
+
+    key = tuple(sorted((lp.name, lp.factorization.triple)
+                       for lp in plan.layers if lp.factorization is not None))
+    if key not in cache:
+        cache[key] = api(cfg, plan=plan, device=device).init_params(0)
+    return cache[key]
 
 
 def launches_per_call(device) -> list[str]:
@@ -812,7 +1043,6 @@ def launches_per_call(device) -> list[str]:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launches
-    from repro_torch.models import api
     from repro_torch.plan import load_plan
     from repro_torch.serve import ServeEngine
 
@@ -820,11 +1050,15 @@ def launches_per_call(device) -> list[str]:
     full = load_plan(os.path.join(PLANS, "tt-lm-100m.json"))
     pre = load_plan(os.path.join(PLANS, "tt-lm-100m.pair.prefill.json"))
     dec = load_plan(os.path.join(PLANS, "tt-lm-100m.pair.decode.json"))
-    params = api(cfg, device=device).init_params(0)
+    rank = load_plan(os.path.join(PLANS, RANK_PLAN))
+    cache: dict = {}
     notes = []
     for label, p, d, backend in (("full plan", full, full, None),
                                  ("plan pair", pre, dec, None),
-                                 ("plan pair on tt_gemm", pre, dec, "tt_gemm")):
+                                 ("plan pair on tt_gemm", pre, dec, "tt_gemm"),
+                                 ("rank plan", rank, rank, None),
+                                 ("rank plan on tt_gemm", rank, rank, "tt_gemm")):
+        params = model_params(cfg, p, device, cache)
         eng = ServeEngine(cfg, params, n_slots=4, max_seq=48, prompt_bucket=8,
                           prefill_plan=p, decode_plan=d, arch="tt-lm-100m",
                           plan_backend=backend)
@@ -894,18 +1128,17 @@ def decode_profile(device) -> list[str]:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models import api
     from repro_torch.plan import load_plan
     from repro_torch.serve import ServeEngine
 
     cfg = get_config("tt-lm-100m")
-    params = api(cfg, device=device).init_params(0)
+    cache: dict = {}
     notes = []
     for label, pre, dec, backend, kernels in DECODE_SETTINGS:
-        eng = ServeEngine(cfg, params, n_slots=4, max_seq=64, prompt_bucket=8,
-                          prefill_plan=load_plan(os.path.join(PLANS, pre)),
-                          decode_plan=load_plan(os.path.join(PLANS, dec)),
-                          arch="tt-lm-100m", plan_backend=backend)
+        pre, dec = (load_plan(os.path.join(PLANS, n)) for n in (pre, dec))
+        eng = ServeEngine(cfg, model_params(cfg, pre, device, cache), n_slots=4,
+                          max_seq=64, prompt_bucket=8, prefill_plan=pre,
+                          decode_plan=dec, arch="tt-lm-100m", plan_backend=backend)
         caches = eng.fresh_caches()
         for lane in range(4):
             _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
@@ -980,6 +1213,26 @@ def output_check(device) -> list[str]:
     notes.append(f"full-width prefill logits, kernels vs plain executor on the "
                  f"card: max abs diff {e:.3e} (max |logit| {scale:.3e})")
 
+    # the rank plan: its searched factorizations stay installed for the
+    # plain executor (``plan_backend="jnp"``), since they set the shapes
+    rank = load_plan(os.path.join(PLANS, RANK_PLAN))
+    m = api(cfg, plan=rank, device=device)
+    params = m.init_params(0)
+    planned, _ = m.prefill_full(params, {"tokens": toks}, 48)
+    plain, _ = api(cfg, plan=rank, plan_backend="jnp", device=device).prefill_full(
+        params, {"tokens": toks}, 48)
+    torch.cuda.synchronize()
+    if planned.shape != (1, 32, cfg.vocab) or not torch.isfinite(planned).all():
+        raise AssertionError(f"rank plan: bad logits {tuple(planned.shape)}")
+    e = (planned - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if e > 1e-4 * max(scale, 1e-3) + 1e-6:
+        raise AssertionError(f"rank plan: planned vs plain logits differ by {e} "
+                             f"(scale {scale})")
+    notes.append(f"full-width prefill logits under {RANK_PLAN}, kernels vs plain "
+                 f"executor on the card: max abs diff {e:.3e} (max |logit| "
+                 f"{scale:.3e})")
+
     smoke = get_config("tt-lm-100m", smoke=True)
     splan = load_plan(os.path.join(PLANS, "tt-lm-smoke.json"))
     sm_cpu = api(smoke, plan=splan, device="cpu")
@@ -993,6 +1246,44 @@ def output_check(device) -> list[str]:
         raise AssertionError(f"tt-lm-smoke card vs CPU logits differ by {e2}")
     notes.append(f"tt-lm-smoke prefill logits, card vs CPU: max abs diff {e2:.3e}")
     return notes
+
+
+def calibration_check(device) -> list[str]:
+    """The rank search's calibration forward (``activation_calibration``)
+    of full-width tt-lm-100m under the installed rank plan, batch 2 x seq
+    16 (32 tokens through K1), on the card against the same call on the
+    CPU, rtol 1e-4; K1 must have launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+    from repro_torch.rank import activation_calibration
+
+    cfg = get_config("tt-lm-100m")
+    install_plan(load_plan(os.path.join(PLANS, RANK_PLAN)))
+    try:
+        launches.reset()
+        t0 = time.perf_counter()
+        got = activation_calibration(cfg, batch=2, seq=16, device=device)
+        card_s = time.perf_counter() - t0
+        k1 = launches.snapshot()["streaming_tt"]
+        t0 = time.perf_counter()
+        want = activation_calibration(cfg, batch=2, seq=16, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        install_plan(None)
+    if not k1:
+        raise AssertionError("calibration on the card launched no streaming_tt")
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError(f"calibration families differ: {sorted(got)} vs "
+                             f"{sorted(want)}")
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    if rel > 1e-4:
+        raise AssertionError(f"calibration, card vs CPU: rel {rel}")
+    return [f"calibration under {RANK_PLAN} (batch 2 x seq 16, {k1} K1 launches, "
+            f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU): family RMS "
+            + ", ".join(f"{k} {got[k]:.6f}" for k in sorted(got))
+            + f"; card vs CPU max rel {rel:.1e}"]
 
 
 # ---------------------------------------------------------------------------
@@ -1242,7 +1533,7 @@ def main() -> int:
                 ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())))
 
         log("--- dse: the port's DSE emits the plans")
-        secs = dse_phase(plan_dir)
+        secs, searches = dse_phase(plan_dir)
         PLANS = plan_dir
         log(f"dse: {len(EMIT)} plans emitted by python -m repro_torch.dse, each "
             "byte-identical to the committed file; emit seconds on the host "
@@ -1256,6 +1547,10 @@ def main() -> int:
         bf16_errs, notes = check_bf16(device, layers)
         for n in notes:
             log(f"  {n}")
+        log("--- kernels over the rank space (every candidate's plan)")
+        rank_rows, refusals, notes = check_rank_space(device, searches[RANK_PLAN])
+        for n in notes:
+            log(f"  {n}")
         for k in kernels:
             log(f"  {k['name']} at {k['at']}: kernel {_fmt(k['ms'])} (host "
                 f"{_fmt(k['host_ms'])}, graph {_fmt(k['graph_ms'])}), "
@@ -1264,17 +1559,28 @@ def main() -> int:
                 f"{_fmt(k.get('library_graph_ms'))}), bound "
                 f"{_fmt(k['bound_ms'])} ({k['bound_by']})")
 
-        serve_counts, notes = serve_runs()
+        serve_counts, rank_counts, notes = serve_runs()
         for n in notes:
             log(f"  {n}")
-        log(f"serve-path launches: {serve_counts}")
+        log(f"serve-path launches: {serve_counts}; of them, the rank plan's "
+            f"runs: {rank_counts}")
         for name in SERVE_KERNELS:
             if serve_counts[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      "serve path")
+        from repro_torch.plan import load_plan
+
+        rank_kernels = {"streaming_tt"} | {
+            f"tt_gemm_{lp.dataflow.lower()}"
+            for lp in load_plan(os.path.join(PLANS, RANK_PLAN)).layers
+            if lp.name != "head"}
+        for name in sorted(rank_kernels):
+            if rank_counts[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched by the rank "
+                                     "plan's runs")
 
         for n in (launches_per_call(device) + decode_profile(device)
-                  + output_check(device)):
+                  + output_check(device) + calibration_check(device)):
             log(f"  {n}")
 
         with tempfile.TemporaryDirectory() as ckpt_root:
@@ -1315,14 +1621,19 @@ def main() -> int:
         {"name": k["name"], "route": "cuda", "source": sources[k["name"]][0],
          "replaces": sources[k["name"]][1],
          "launches": {"serve": serve_counts[k["name"]],
+                      "serve_rank_plan": rank_counts[k["name"]],
                       "train": train_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"], "at": k["at"]}
-        for k in kernels]}
+         "library_ms": k["library_ms"], "at": k["at"],
+         **({"rank_plan": {key: rank_rows[k["name"]][key] for key in (
+             "at", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+             "bound_ms", "bound_by")}} if k["name"] in rank_rows else {})}
+        for k in kernels],
+        "k1_rank_space_refusals": refusals}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(card)

@@ -1,22 +1,23 @@
 """Config registry: ``get_config("<arch>")`` / ``--arch <id>``.
 
-Port of ``src/repro/configs/__init__.py`` for the architectures the port
-runs so far (tt-lm-100m, FULL and SMOKE).  The reference's other
-architectures are named so that asking for one says it is not ported yet.
+Framework-neutral copy of ``src/repro/configs/__init__.py`` (the port
+never imports the JAX package).  Every assigned architecture has one
+module defining FULL (the exact assigned dims) and SMOKE (a reduced
+same-family variant for CPU tests).  ``get_config(name, tt=...,
+smoke=...)`` is the single entry point; the default is the TT-enabled
+deployment configuration (the paper's technique); ``tt=False`` gives the
+dense baseline.  The DSE plans every architecture; the port's model code
+runs the dense family so far (``repro_torch.models.api`` names the
+ROADMAP.md item of the others).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
-#: architectures the port runs
-ARCH_IDS = ("tt-lm-100m",)
-
-#: the reference's other architectures, still to port (ROADMAP.md Queue A
-#: item 9d; their model families, item 12)
-NOT_PORTED = (
+ARCH_IDS = (
     "zamba2-1.2b",
     "phi3-medium-14b",
     "chatglm3-6b",
@@ -29,15 +30,11 @@ NOT_PORTED = (
     "rwkv6-7b",
 )
 
-_MODULES = {"tt-lm-100m": "tt_lm_100m"}
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+_MODULES["tt-lm-100m"] = "tt_lm_100m"
 
 
 def get_config(name: str, tt: bool = True, smoke: bool = False) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A item 9d); ported: "
-            f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
@@ -47,4 +44,11 @@ def get_config(name: str, tt: bool = True, smoke: bool = False) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCH_IDS", "NOT_PORTED", "ModelConfig", "get_config"]
+def all_arch_ids() -> tuple[str, ...]:
+    return ARCH_IDS
+
+
+__all__ = [
+    "ARCH_IDS", "get_config", "all_arch_ids",
+    "SHAPES", "ModelConfig", "ShapeConfig", "shape_applicable",
+]

@@ -2,15 +2,17 @@
 
 Port of ``src/repro/dse_cli.py`` (NumPy, no JAX): the same parser, flags,
 defaults, report keys, exit codes and plan bytes.  Runs the paper's
-Algorithm 1 for the configs the port has (``tt-lm-100m``) and the paper's
-vision workloads (``resnet18/cifar10``, ``resnet18/tiny_imagenet``,
-``vit_ti4/cifar10``):
+Algorithm 1 for any named config in ``repro_torch.configs`` (e.g.
+``tt-lm-100m``, ``glm4-9b``) or the paper's vision workloads
+(``resnet18/cifar10``, ``resnet18/tiny_imagenet``, ``vit_ti4/cifar10``):
 
     PYTHONPATH=src python -m repro_torch.dse --arch tt-lm-100m
     PYTHONPATH=src python -m repro_torch.dse --arch resnet18/cifar10 --hw tpu_v5e \
         --top-k 8 --objective edp --out report.json
     PYTHONPATH=src python -m repro_torch.dse --arch vit_ti4/cifar10 \
         --hw-search budget --emit-plan plan.json   # joint arch co-search (v3)
+    PYTHONPATH=src python -m repro_torch.dse --arch tt-lm-100m \
+        --rank-search budget --search guided --emit-plan plan.json   # v4
 
 Pipeline: enumerate the model's tensorized projections as per-layer
 tensor networks -> MAC-guided top-K path search (memoised across the
@@ -22,9 +24,8 @@ per-layer (path, partitioning, dataflow) choices and stage timings;
 consume the same report via ``run_dse``.
 
 Options whose subsystems are not ported yet exit 2 with ``error: ...``
-naming their ROADMAP.md item: ``--search guided`` and ``--rank-search``
-(Queue A item 9e), ``--tune`` (item 10), ``--shards`` (item 11), and an
-``--arch`` whose config the port lacks (item 9d).
+naming their ROADMAP.md item: ``--tune`` (Queue A item 10) and
+``--shards`` (item 11).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import sys
 import time
 from typing import Optional, Sequence
 
-from repro_torch.configs import NOT_PORTED, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import (
     ALL_PARTITIONINGS,
     TensorNetwork,
@@ -51,14 +52,13 @@ from repro_torch.hw import ArchSpace, get_target, list_targets
 from repro_torch.hw import HW_TARGETS  # noqa: F401  (re-export; registry is repro_torch.hw)
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.linear import LinearSpec
+from repro_torch.rank import RANK_SEARCH_MODES
 
 OBJECTIVES = ("latency", "edp", "throughput")
 MODES = ("infer", "train", "both")
 HW_SEARCH_MODES = ("off", "budget")
 TUNE_MODES = ("off", "cache", "measure")
 SEARCH_MODES = ("exhaustive", "guided")
-#: ``repro.rank.RANK_SEARCH_MODES`` of the reference (the parser's choices)
-RANK_SEARCH_MODES = ("off", "budget")
 
 #: vision workloads of the paper's Tables 1-4 (model_layers-backed)
 VISION_ARCHS = ("resnet18/cifar10", "resnet18/tiny_imagenet", "vit_ti4/cifar10")
@@ -71,24 +71,61 @@ VISION_ARCHS = ("resnet18/cifar10", "resnet18/tiny_imagenet", "vit_ti4/cifar10")
 def _block_specs(cfg: ModelConfig) -> list[tuple[LinearSpec, int, float]]:
     """(spec, instance_count, token_scale) for every projection family.
 
-    The reference's dense/vlm branch; the moe, hybrid, rwkv and encdec
-    specs are not ported yet (ROADMAP.md, Queue A item 9d).
+    ``token_scale`` rescales the streamed token count for projections that
+    see a fraction of the batch (MoE expert capacity).
     """
-    from repro_torch.models.blocks import attn_spec, mlp_spec
+    from repro_torch.models.blocks import attn_spec, mlp_spec, moe_spec, ssm_spec, rwkv_spec
     from repro_torch.models.lm import head_spec
 
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(
-            f"config {cfg.name!r}: the DSE specs of family {cfg.family!r} "
-            "are not ported yet (ROADMAP.md, Queue A item 9d)")
     L = cfg.n_layers
     out: list[tuple[LinearSpec, int, float]] = []
-    a, m = attn_spec(cfg), mlp_spec(cfg)
-    out.extend([(a.q_spec, L, 1.0), (a.k_spec, L, 1.0),
-                (a.v_spec, L, 1.0), (a.o_spec, L, 1.0)])
-    if m.kind == "swiglu":
-        out.append((m.gate_spec, L, 1.0))
-    out.extend([(m.up_spec, L, 1.0), (m.down_spec, L, 1.0)])
+
+    def attn(spec, count):
+        out.extend([(spec.q_spec, count, 1.0), (spec.k_spec, count, 1.0),
+                    (spec.v_spec, count, 1.0), (spec.o_spec, count, 1.0)])
+
+    def mlp(spec, count, scale=1.0):
+        if spec.kind == "swiglu":
+            out.append((spec.gate_spec, count, scale))
+        out.extend([(spec.up_spec, count, scale), (spec.down_spec, count, scale)])
+
+    if cfg.family in ("dense", "vlm"):
+        attn(attn_spec(cfg), L)
+        mlp(mlp_spec(cfg), L)
+    elif cfg.family == "moe":
+        attn(attn_spec(cfg), L)
+        ms = moe_spec(cfg)
+        # capacity-padded execution (nn/moe.py): ALL experts run, each on
+        # its capacity slice of ~ top_k * cf / E of the token stream
+        cap = ms.top_k * cfg.capacity_factor / max(ms.n_experts, 1)
+        if ms.kind == "swiglu":
+            out.append((ms.expert_gate, L * ms.n_experts, cap))
+        out.extend([(ms.expert_up, L * ms.n_experts, cap),
+                    (ms.expert_down, L * ms.n_experts, cap)])
+        if ms.shared_spec is not None:
+            # shared experts are merged into ONE wider MLP per layer
+            mlp(ms.shared_spec, L)
+    elif cfg.family == "hybrid":
+        ss = ssm_spec(cfg)
+        out.extend([(ss.in_spec, L, 1.0), (ss.out_spec, L, 1.0)])
+        n_groups = L // cfg.attn_every if cfg.attn_every else 0
+        if n_groups:  # one shared parameter set, applied once per group
+            attn(attn_spec(cfg, name="shared_attn"), n_groups)
+    elif cfg.family == "rwkv":
+        rs = rwkv_spec(cfg)
+        for tag in ("wr", "wk", "wv", "wg", "wo", "cmv"):
+            out.append((rs.proj(tag), L, 1.0))
+        out.append((rs.proj("cmk", rs.ffn), L, 1.0))
+        out.append((LinearSpec(f"{rs.name}.cmr", rs.ffn, cfg.d_model,
+                               False, "attn", cfg.tt), L, 1.0))
+    elif cfg.family == "encdec":
+        attn(attn_spec(cfg, "enc_attn", causal=False), cfg.encoder_layers)
+        mlp(mlp_spec(cfg, "enc_mlp"), cfg.encoder_layers)
+        attn(attn_spec(cfg), L)
+        attn(attn_spec(cfg, "xattn"), L)
+        mlp(mlp_spec(cfg), L)
+    else:  # pragma: no cover
+        raise ValueError(cfg.family)
     out.append((head_spec(cfg), 1, 1.0))
     return out
 
@@ -146,17 +183,12 @@ def dse_problems(
         tokens = 1 if tokens is None else tokens
         return _vision_dse_layers(arch, tokens), tokens
     tokens = 1024 if tokens is None else tokens
-    if arch in NOT_PORTED:
-        raise ValueError(
-            f"arch {arch!r}: its config is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A item 9d); the port has "
-            f"('tt-lm-100m',) + {VISION_ARCHS}")
     try:
         cfg = get_config(arch, smoke=smoke)
     except KeyError:
         raise KeyError(
             f"unknown arch {arch!r}; have ('tt-lm-100m',) + "
-            f"{tuple(NOT_PORTED)} + {VISION_ARCHS}"
+            f"{tuple(ARCH_IDS)} + {VISION_ARCHS}"
         ) from None
     return model_dse_layers(cfg, tokens), tokens
 
@@ -179,29 +211,14 @@ def model_layer_paths(
 # end-to-end run
 # ---------------------------------------------------------------------------
 
-def _check_ported(tune: str, search: str, rank_search: str,
-                  shards: Optional[int], search_budget: Optional[int],
-                  accuracy_budget: Optional[float]) -> None:
+def _check_ported(tune: str, shards: Optional[int]) -> None:
     """Refuse the reference options whose subsystems the port lacks.
 
     Each raises ``ValueError`` (``main`` exits 2 with ``error: ...``)
     naming the ROADMAP.md item that ports it, rather than approximating
-    the reference's result; the budgets of those searches are refused with
-    the reference's own messages.
+    the reference's result; an unknown tune mode is refused with the
+    reference's own message.
     """
-    if search not in SEARCH_MODES:
-        raise KeyError(f"unknown search {search!r}; have {SEARCH_MODES}")
-    if search != "exhaustive":
-        raise ValueError(
-            "--search guided needs repro.search, which is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue A item 9e)")
-    if rank_search not in RANK_SEARCH_MODES:
-        raise KeyError(
-            f"unknown rank_search {rank_search!r}; have {RANK_SEARCH_MODES}")
-    if rank_search != "off":
-        raise ValueError(
-            "--rank-search needs repro.rank, which is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue A item 9e)")
     if tune not in TUNE_MODES:
         raise KeyError(f"unknown tune mode {tune!r}; have {TUNE_MODES}")
     if tune != "off":
@@ -212,10 +229,6 @@ def _check_ported(tune: str, search: str, rank_search: str,
         raise ValueError(
             "--shards needs the sharded executor, which is not ported to "
             "repro_torch yet (ROADMAP.md, Queue A item 11)")
-    if search_budget is not None:
-        raise ValueError("search_budget requires search='guided'")
-    if accuracy_budget is not None:
-        raise ValueError("accuracy_budget requires rank_search='budget'")
 
 
 def run_dse(
@@ -259,25 +272,42 @@ def run_dse(
     every candidate is evaluated through the hw-batched cost-table
     engine, and the report gains a per-candidate ``hw_search`` section.
 
-    ``tune``, ``search="guided"``, ``rank_search`` and ``shards`` keep the
-    reference's signature and are refused (:func:`_check_ported`).
+    ``search="guided"`` replaces the exhaustive sweep with the budgeted
+    explorer of ``repro_torch.search`` (``search_budget`` cost-model
+    evaluations, ``search_seed`` for the proposal stream); the report's
+    ``search`` section records the provenance (evals, found-at-eval,
+    the exhaustive count it avoided).
+
+    ``rank_search="budget"`` adds the decomposition itself as a fourth
+    searched axis (``repro_torch.rank``): every TT factorization candidate
+    is evaluated end-to-end and the report gains a ``rank_search`` section
+    with the (latency, accuracy-proxy) frontier; ``accuracy_budget``
+    caps the chosen candidate's reconstruction-error proxy (default:
+    no worse than the frozen decomposition).
+
+    ``tune`` and ``shards`` keep the reference's signature and are
+    refused (:func:`_check_ported`).
     """
-    _check_ported(tune, search, rank_search, shards, search_budget,
-                  accuracy_budget)
+    _check_ported(tune, shards)
     if mode == "both":
         _check_train_compatible(objective, engine)  # fail before any search
+        _check_rank_compatible(rank_search, "both", objective, engine, tune)
         _check_fused_compatible(fused_cost, "both", objective, engine,
                                 hw_search, search, rank_search)
         infer, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
-            hw_search, hw_budget)
+            hw_search, hw_budget, search=search, search_budget=search_budget,
+            search_seed=search_seed)
         train, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "train",
-            hw_search, hw_budget)
+            hw_search, hw_budget, search=search, search_budget=search_budget,
+            search_seed=search_seed)
         return _both_report(infer, train)
     report, _, _, _ = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, mode, hw_search,
-        hw_budget, serve_gen, serve_slots, decode_tokens, fused_cost)
+        hw_budget, serve_gen, serve_slots, decode_tokens,
+        search, search_budget, search_seed, rank_search, accuracy_budget,
+        fused_cost)
     return report
 
 
@@ -365,12 +395,15 @@ def run_dse_plan(
     v2-style with per-layer backward paths/backends/tilings.  Under
     ``hw_search="budget"`` the plan embeds the co-searched winning
     architecture (schema v3 ``hardware``) and its kernel tilings derive
-    from that architecture's array shape and buffer sizes.
+    from that architecture's array shape and buffer sizes.  Under
+    ``rank_search`` the plan embeds the chosen candidate's factorizations
+    (schema v4) so the executor contracts the *searched* decomposition —
+    vision archs excepted (their conv decompositions are structural, not
+    plan-installable).
     """
     from repro_torch.plan import BACKENDS, compile_plan
 
-    _check_ported(tune, search, rank_search, shards, search_budget,
-                  accuracy_budget)
+    _check_ported(tune, shards)
     if plan_backend != "auto" and plan_backend not in BACKENDS:
         raise ValueError(
             f"unknown plan backend {plan_backend!r}; have "
@@ -380,16 +413,32 @@ def run_dse_plan(
     infer_report = None
     if mode == "both":
         _check_train_compatible(objective, engine)  # fail before any search
+        _check_rank_compatible(rank_search, "both", objective, engine, tune)
         _check_fused_compatible(fused_cost, "both", objective, engine,
                                 hw_search, search, rank_search)
         infer_report, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
-            hw_search, hw_budget)
+            hw_search, hw_budget, search=search, search_budget=search_budget,
+            search_seed=search_seed)
     plan_mode = "train" if mode in ("train", "both") else "infer"
     report, named, res, plan_hw = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, plan_mode,
         hw_search, hw_budget, serve_gen, serve_slots, decode_tokens,
+        search, search_budget, search_seed, rank_search, accuracy_budget,
         fused_cost)
+    factorizations = None
+    rank_report = report.get("rank_search")
+    if rank_report is not None and rank_report.get("plan_embeddable"):
+        from repro_torch.plan import Factorization
+
+        factorizations = {
+            f["name"]: Factorization(
+                out_modes=tuple(f["out_modes"]),
+                in_modes=tuple(f["in_modes"]),
+                ranks=tuple(f["ranks"]),
+                accuracy_proxy=float(f["accuracy_proxy"]))
+            for f in rank_report["chosen"]["families"]
+        }
     plan = compile_plan(
         named, res, plan_hw,
         arch=arch,
@@ -399,6 +448,7 @@ def run_dse_plan(
         total_latency_s=report["total_latency_s"],
         tilings="heuristic",
         phase=phase,
+        factorizations=factorizations,
     )
     if mode == "both":
         report = _both_report(infer_report, report)
@@ -451,6 +501,37 @@ def _check_train_compatible(objective: str, engine: str) -> None:
             f"--objective {objective} is an inference objective")
     if engine == "scalar":
         raise ValueError("--mode train requires the vectorized engine")
+
+
+def _check_rank_compatible(rank_search: str, mode: str, objective: str,
+                           engine: str, tune: str) -> None:
+    """Reject combinations the rank search cannot honour.
+
+    The decomposition axis re-derives every layer's tensor network per
+    candidate, so it composes with the path/partitioning/dataflow axes,
+    the architecture co-search, and the guided explorer — but not (yet)
+    with the train decomposition, non-latency objectives, the scalar
+    engine, or the measured calibration (whose cache keys would have to
+    span every candidate's GEMM shapes)."""
+    if rank_search == "off":
+        return
+    if rank_search not in RANK_SEARCH_MODES:
+        raise KeyError(
+            f"unknown rank_search {rank_search!r}; have {RANK_SEARCH_MODES}")
+    if mode != "infer":
+        raise ValueError(
+            "--rank-search explores the inference latency/accuracy "
+            f"frontier; --mode {mode} is frozen-decomposition only")
+    if objective != "latency":
+        raise ValueError(
+            "--rank-search trades latency against the accuracy proxy; "
+            f"--objective {objective} is frozen-decomposition only")
+    if engine == "scalar":
+        raise ValueError("--rank-search requires the vectorized engine")
+    if tune != "off":
+        raise ValueError(
+            "--rank-search is analytic: the measured calibration would "
+            "need per-candidate GEMM coverage (open item)")
 
 
 def _check_fused_compatible(fused_cost: bool, mode: str, objective: str,
@@ -546,14 +627,26 @@ def _run_dse(
     serve_gen: int = 128,
     serve_slots: int = 8,
     decode_tokens: Optional[int] = None,
+    search: str = "exhaustive",
+    search_budget: Optional[int] = None,
+    search_seed: int = 0,
+    rank_search: str = "off",
+    accuracy_budget: Optional[float] = None,
     fused_cost: bool = False,
 ):
     """Shared pipeline; returns (report, named_layers, DSEResult, hw_cfg).
 
-    The reference's exhaustive pipeline with the measured calibration,
-    the guided explorer, the rank search and the shard context left out
-    (:func:`_check_ported` refuses them before this runs): its report
-    keeps their keys, as ``None``.
+    The reference's pipeline with the measured calibration and the shard
+    context left out (:func:`_check_ported` refuses them before this
+    runs): its report keeps their keys, as ``None``.
+
+    ``search="guided"`` routes the argmin through
+    ``repro_torch.search.guided_search`` — a budgeted explorer over the
+    same cost tables (latency / train-latency objectives; EDP and
+    throughput tables are pre-combined and stay exhaustive).  With
+    ``hw_search`` it replaces the exhaustive outer architecture loop;
+    without it the single target is refined exactly (same result, guided
+    provenance).
 
     The returned hardware config is the one the plan should compile for:
     the co-searched winner under ``hw_search``, else the fixed target.
@@ -594,8 +687,28 @@ def _run_dse(
                 "only")
         if engine == "scalar":
             raise ValueError("--hw-search requires the vectorized engine")
+    if search not in SEARCH_MODES:
+        raise KeyError(f"unknown search {search!r}; have {SEARCH_MODES}")
+    if search == "guided":
+        if objective != "latency":
+            raise ValueError(
+                "--search guided explores the latency (or train-latency) "
+                f"objective; the pre-combined --objective {objective} "
+                "table stays on the exhaustive path")
+        if engine == "scalar":
+            raise ValueError("--search guided requires the vectorized "
+                             "engine")
+    if search_budget is not None and search != "guided":
+        raise ValueError("search_budget requires search='guided'")
     _check_fused_compatible(fused_cost, mode, objective, engine, hw_search,
-                            "exhaustive", "off")
+                            search, rank_search)
+    if rank_search != "off":
+        _check_rank_compatible(rank_search, mode, objective, engine, "off")
+        return _run_rank_dse(
+            arch, hw, top_k, tokens, smoke, engine, hw_search, hw_budget,
+            search, search_budget, search_seed, accuracy_budget)
+    if accuracy_budget is not None:
+        raise ValueError("accuracy_budget requires rank_search='budget'")
 
     named, tokens = dse_problems(arch, tokens, smoke)
 
@@ -630,7 +743,28 @@ def _run_dse(
         space = ArchSpace(base=hw_cfg, mac_budget=hw_budget)
         cands = space.candidates()
         n_space = len(cands)
-        if mode == "train":
+        if search == "guided":
+            from repro_torch.search import guided_search
+
+            t0 = time.perf_counter()
+            res = guided_search(
+                layer_paths, hw_cfg,
+                objective=("train-latency" if mode == "train"
+                           else "latency"),
+                hw_space=cands, budget=search_budget, seed=search_seed,
+                layer_backwards=layer_backwards, calibration=None)
+            argmin_s = time.perf_counter() - t0
+            # rebuild the winner's analytic tables for the report
+            if mode == "train":
+                train_tables = build_train_cost_tables_hw(
+                    layer_paths, layer_backwards, (res.hw,), all_parts)[0]
+                tables = train_tables.fwd
+                table_build_s = train_tables.build_seconds
+            else:
+                tables = build_cost_tables_hw(layer_paths, (res.hw,),
+                                              all_parts)[0]
+                table_build_s = tables.build_seconds
+        elif mode == "train":
             trains = build_train_cost_tables_hw(
                 layer_paths, layer_backwards, cands, all_parts)
             table_build_s = trains[0].build_seconds
@@ -706,7 +840,16 @@ def _run_dse(
     # (already folded into the outer architecture loop under hw search)
     if hw_search == "off":
         t0 = time.perf_counter()
-        if mode == "train":
+        if search == "guided":
+            from repro_torch.search import guided_search
+
+            res = guided_search(
+                layer_paths, hw_cfg,
+                objective=("train-latency" if mode == "train"
+                           else "latency"),
+                budget=search_budget, seed=search_seed,
+                layer_backwards=layer_backwards, calibration=None)
+        elif mode == "train":
             res = global_search(layer_paths, hw_cfg,
                                 objective="train-latency",
                                 train_tables=train_tables)
@@ -768,8 +911,8 @@ def _run_dse(
         "total_objective": res.total_latency_s,
         "search": {
             "mode": res.search,
-            "budget": None,
-            "seed": None,
+            "budget": search_budget,
+            "seed": search_seed if search == "guided" else None,
             "evals": res.evals,
             "found_at_eval": res.found_at_eval,
             "exhaustive_evals": n_space * _table_cells(layer_paths,
@@ -818,6 +961,174 @@ def _run_dse(
             (res.hw if res.hw is not None else hw_cfg))
 
 
+def _run_rank_dse(
+    arch: str,
+    hw: str,
+    top_k: int,
+    tokens: Optional[int],
+    smoke: bool,
+    engine: str,
+    hw_search: str,
+    hw_budget: Optional[int],
+    search: str,
+    search_budget: Optional[int],
+    search_seed: int,
+    accuracy_budget: Optional[float],
+):
+    """The ``--rank-search budget`` pipeline (``repro_torch.rank``).
+
+    Evaluates every decomposition candidate through the same cost-table
+    /argmin stack as :func:`_run_dse` and reports the chosen candidate's
+    per-layer choices plus a ``rank_search`` frontier section.  Same
+    return contract as ``_run_dse`` — ``run_dse_plan`` compiles the
+    chosen candidate's networks/choices into a (v4) plan.
+    """
+    from repro_torch.rank import rank_search as _rank_search
+
+    hw_cfg = get_target(hw)
+    hw_space = None
+    space = None
+    n_space = 1
+    if hw_search == "budget":
+        space = ArchSpace(base=hw_cfg, mac_budget=hw_budget)
+        hw_space = space.candidates()
+        n_space = len(hw_space)
+
+    t0 = time.perf_counter()
+    rres = _rank_search(
+        arch, hw_cfg, top_k=top_k, tokens=tokens, smoke=smoke,
+        hw_space=hw_space, search=search, search_budget=search_budget,
+        search_seed=search_seed, accuracy_budget=accuracy_budget)
+    rank_search_s = time.perf_counter() - t0
+
+    ce = rres.chosen_eval
+    named, res = ce.named, ce.res
+    plan_hw = res.hw if res.hw is not None else hw_cfg
+
+    # rebuild the chosen candidate's analytic table for the per-layer
+    # report (under --hw-search: on its winning architecture)
+    t0 = time.perf_counter()
+    layer_paths = model_layer_paths(named, top_k)
+    path_search_s = time.perf_counter() - t0
+    if hw_search == "budget":
+        from repro_torch.core import build_cost_tables_hw
+
+        tables = build_cost_tables_hw(layer_paths, (plan_hw,),
+                                      ALL_PARTITIONINGS)[0]
+    else:
+        tables = build_cost_tables(layer_paths, hw_cfg, ALL_PARTITIONINGS)
+    seconds_table = tables.seconds
+    hw_search_report = (_hw_search_report(space, res, hw_cfg, n_space)
+                        if hw_search == "budget" else None)
+
+    layers = []
+    total_latency = 0.0
+    for (name, _), choice in zip(named, res.choices):
+        key = (choice.layer, choice.path_index, choice.partitioning,
+               choice.dataflow)
+        latency_s = seconds_table[key]
+        total_latency += latency_s
+        layers.append({
+            "name": name,
+            "path_index": choice.path_index,
+            "mac_optimal_path": choice.path_index == 0,
+            "macs": choice.path.macs,
+            "partitioning": list(choice.partitioning),
+            "dataflow": choice.dataflow.value,
+            "latency_s": latency_s,
+            "objective": choice.latency_s,
+        })
+
+    def cand_row(i: int) -> dict:
+        e = rres.evals[i]
+        c = e.candidate
+        return {
+            "name": c.name,
+            "d": c.d,
+            "rank": c.rank,
+            "n_params": c.n_params,
+            "compression": c.compression,
+            "accuracy_proxy": e.accuracy_proxy,
+            "total_latency_s": e.total_latency_s,
+            "strategy": e.res.strategy,
+            "on_frontier": i in rres.frontier,
+            "eval_seconds": e.eval_seconds,
+        }
+
+    rows = [cand_row(i) for i in range(len(rres.evals))]
+    chosen_row = dict(rows[rres.chosen])
+    chosen_row["families"] = [
+        {
+            "name": f.name,
+            "out_modes": list(f.out_modes),
+            "in_modes": list(f.in_modes),
+            "ranks": list(f.ranks),
+            "instances": f.instances,
+            "accuracy_proxy": ce.family_proxies[f.name],
+        }
+        for f in ce.candidate.families
+    ]
+    rank_report = {
+        "mode": "budget",
+        "accuracy_budget": accuracy_budget,
+        "param_budget_ratio": rres.param_budget_ratio,
+        "n_candidates": len(rres.evals),
+        "frontier": [rres.evals[i].candidate.name for i in rres.frontier],
+        "chosen": chosen_row,
+        "frozen": rows[rres.frozen],
+        "dominates_frozen": rres.dominates_frozen,
+        "improvement_pct": rres.improvement_pct,
+        # vision decompositions are structural (TT-conv) — their rank
+        # rides in the networks, not in an installable plan
+        "plan_embeddable": arch not in VISION_ARCHS,
+        "rank_search_s": rank_search_s,
+        "candidates": sorted(
+            rows, key=lambda r: (r["total_latency_s"], r["name"])),
+    }
+
+    report = {
+        "arch": arch,
+        "hw": hw,
+        "hw_chosen": res.hw.name if res.hw is not None else hw,
+        "hw_search": hw_search_report,
+        "tune": None,
+        "mode": "infer",
+        "objective": "latency",
+        "top_k": top_k,
+        "tokens": rres.tokens,
+        "engine": engine,
+        "strategy": res.strategy,
+        "total_latency_s": total_latency,
+        "total_objective": res.total_latency_s,
+        "search": {
+            "mode": res.search,
+            "budget": search_budget,
+            "seed": search_seed if search == "guided" else None,
+            "evals": sum(e.res.evals for e in rres.evals),
+            "found_at_eval": res.found_at_eval,
+            # per-candidate table sizes differ; scale the chosen
+            # candidate's cell count by the candidate count
+            "exhaustive_evals": (n_space * len(rres.evals)
+                                 * _table_cells(layer_paths,
+                                                ALL_PARTITIONINGS)),
+        },
+        "rank_search": rank_report,
+        "n_layers": len(layers),
+        "timings": {
+            "path_search_s": path_search_s,
+            "table_build_s": tables.build_seconds,
+            "argmin_s": rank_search_s,
+            "rank_search_s": rank_search_s,
+        },
+        "table": {
+            "n_cells": len(seconds_table),
+            "n_unique_gemm_evals": tables.n_unique_gemm_evals,
+            "n_unique_layers": tables.n_unique_layers,
+        },
+        "layers": layers,
+    }
+    return report, named, res, plan_hw
+
 
 # ---------------------------------------------------------------------------
 # CLI
@@ -845,8 +1156,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--search", default="exhaustive", choices=SEARCH_MODES,
                    help="exhaustive: Algorithm 1's full sweep, optimal over "
                         "the pruned space (default); guided: the budgeted "
-                        "evolutionary explorer (repro.search; not ported yet, "
-                        "ROADMAP.md Queue A item 9e) over the same "
+                        "evolutionary explorer (repro_torch.search) over the "
+                        "same "
                         "cost tables — exact per visited architecture, "
                         "bounded by --search-budget evaluations; the report "
                         "gains a search provenance section")
@@ -861,8 +1172,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rank-search", default="off", choices=RANK_SEARCH_MODES,
                    help="off: frozen TT decomposition (default); budget: "
                         "search the decomposition (modes-per-side x rank "
-                        "ladder per projection family, repro.rank; not ported "
-                        "yet, ROADMAP.md Queue A item 9e) jointly "
+                        "ladder per projection family, repro_torch.rank) "
+                        "jointly "
                         "with the mapping axes under a parameter budget — "
                         "the report gains a rank_search frontier section "
                         "and --emit-plan embeds the chosen factorizations "
@@ -962,7 +1273,7 @@ def _build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     if args.list_archs:
-        for a in ("tt-lm-100m",) + tuple(NOT_PORTED) + VISION_ARCHS:
+        for a in ("tt-lm-100m",) + tuple(ARCH_IDS) + VISION_ARCHS:
             print(a)
         return 0
     if args.list_hw:

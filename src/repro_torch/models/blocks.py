@@ -1,7 +1,9 @@
 """The dense decoder block (port of the dense branch of ``models/blocks.py``).
 
 Block params are plain dicts; ``cache`` is the block's :class:`KVCache`
-(``None`` without one).  Other families raise until they are ported.
+(``None`` without one).  The spec builders of every family are ported
+(the DSE enumerates their projections); the blocks of the other families
+raise until they are ported (ROADMAP.md, Queue A item 12).
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import torch
 from repro_torch.nn import (
     AttentionSpec,
     MLPSpec,
+    MoESpec,
+    RWKVSpec,
+    SSMSpec,
     attention_apply,
     attention_init,
     mlp_apply,
@@ -47,6 +52,41 @@ def attn_spec(cfg: ModelConfig, name: str = "attn", causal: bool = True) -> Atte
 
 def mlp_spec(cfg: ModelConfig, name: str = "mlp") -> MLPSpec:
     return MLPSpec(name, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.tt)
+
+
+def moe_spec(cfg: ModelConfig, name: str = "moe") -> MoESpec:
+    return MoESpec(
+        name=name,
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff,
+        n_experts=cfg.moe_experts,
+        top_k=cfg.moe_top_k,
+        n_shared=cfg.moe_shared,
+        shared_d_ff=cfg.moe_shared_d_ff,
+        capacity_factor=cfg.capacity_factor,
+        kind=cfg.mlp_kind,
+        tt=cfg.tt,
+    )
+
+
+def ssm_spec(cfg: ModelConfig, name: str = "ssm") -> SSMSpec:
+    return SSMSpec(
+        name=name,
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state,
+        head_dim=cfg.ssm_head_dim,
+        tt=cfg.tt,
+    )
+
+
+def rwkv_spec(cfg: ModelConfig, name: str = "rwkv") -> RWKVSpec:
+    return RWKVSpec(
+        name=name,
+        d_model=cfg.d_model,
+        head_dim=cfg.hd,
+        d_ff=cfg.d_ff,
+        tt=cfg.tt,
+    )
 
 
 def block_init(cfg: ModelConfig, generator: torch.Generator,

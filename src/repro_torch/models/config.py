@@ -1,7 +1,7 @@
 """Unified model configuration covering all assigned architecture families.
 
-Framework-neutral copy of ``src/repro/models/config.py`` (``ModelConfig``
-only; the shape grid of the dry-run is not ported).
+Framework-neutral copy of ``src/repro/models/config.py`` (the port
+never imports the JAX package).
 
 One dataclass drives decoder-only dense/GQA, MoE, SSM-hybrid (Zamba2),
 attention-free (RWKV6), encoder-decoder (Seamless) and VLM (InternVL2)
@@ -73,5 +73,47 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def is_causal_lm(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid", "rwkv", "vlm")
+
+    @property
+    def supports_long_context(self) -> bool:
+        """O(1)-state decode (SSM / hybrid / linear-attention families)."""
+        return self.family in ("hybrid", "rwkv")
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # all assigned archs decode (enc-dec decodes text)
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the assigned grid."""
+
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    step: str                    # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.step == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable?, reason).  long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "full-attention arch: 500k decode skipped (documented)"
+    return True, ""

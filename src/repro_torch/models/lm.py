@@ -128,6 +128,12 @@ def prefill_full(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
                    cache_pos=torch.zeros((), dtype=torch.long))
 
 
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
+    """Run the full prompt, returning (last-token logits (B, V), primed caches)."""
+    logits, caches = prefill_full(cfg, params, batch, max_seq)
+    return logits[:, -1], caches
+
+
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
                 cache_pos):
     """One decode step: returns (logits (B, V), caches)."""

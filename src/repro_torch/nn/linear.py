@@ -21,6 +21,7 @@ import functools
 import math
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.contraction import execute_path
@@ -236,6 +237,32 @@ def plan_context(plan, *, force_backend: Optional[str] = None) -> Iterator[None]
         _FACTORIZATION.update(saved_fact)
 
 
+_CAPTURE: Optional[dict[str, list[float]]] = None
+
+
+@contextlib.contextmanager
+def capture_activation_rms() -> Iterator[dict[str, float]]:
+    """Record per-projection input RMS during forward passes.
+
+    Feeds the rank search's optional activation-weighted accuracy proxy
+    (``repro_torch.rank.proxy.activation_calibration``): families whose
+    inputs run hot contribute more to the model-level reconstruction
+    error.  The yielded dict is filled with ``{name: mean input RMS}`` on
+    exit.  Each recorded call reads one scalar back to the host, so keep
+    the capture to a calibration batch; no hook runs while no capture is
+    open.
+    """
+    global _CAPTURE
+    saved, _CAPTURE = _CAPTURE, {}
+    out: dict[str, float] = {}
+    try:
+        yield out
+    finally:
+        rec, _CAPTURE = _CAPTURE, saved
+        for name, vals in rec.items():
+            out[name] = float(np.mean(vals))
+
+
 # ---------------------------------------------------------------------------
 # init / apply
 # ---------------------------------------------------------------------------
@@ -291,6 +318,9 @@ def linear_apply(
     if not spec.tensorized:
         y = torch.einsum("...i,io->...o", x, params["w"])
     else:
+        if _CAPTURE is not None:
+            _CAPTURE.setdefault(spec.name, []).append(float(torch.sqrt(
+                torch.mean(torch.square(x.detach().to(torch.float32))))))
         lp = planned_layer(spec.name) if path_index is None else None
         n_cores = len(spec.out_modes) + len(spec.in_modes)
         from repro_torch.plan.executor import (has_kernel_backward,

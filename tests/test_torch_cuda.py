@@ -36,6 +36,7 @@ from repro_torch.dse_cli import model_dse_layers
 from repro_torch.kernels import fused_path, launches, ops, streaming_tt, tt_gemm
 from repro_torch.plan import load_plan
 from repro_torch.plan.executor import as_candidate_path, planned_tt_linear
+from test_torch_rank_kernels import CANDIDATES, _families
 
 DATAFLOWS = ("OS", "WS", "IS")
 GEMM_SHAPES = [(32, 32, 32), (64, 96, 32), (128, 64, 96), (33, 47, 65), (1, 128, 128),
@@ -66,7 +67,8 @@ def streaming_cases():
         plan = json.loads(f.read_text())
         for lp in plan["layers"]:
             key = (plan["arch"], "smoke" in f.name, lp["name"],
-                   json.dumps(lp["path_steps"]), lp["tiling"]["block_tokens"])
+                   json.dumps(lp["path_steps"]), lp["tiling"]["block_tokens"],
+                   json.dumps(lp.get("factorization")))
             if lp["backend"] == "streaming_tt" and key not in seen:
                 seen.add(key)
                 cases.append((f.name, lp["name"]))
@@ -74,11 +76,17 @@ def streaming_cases():
 
 
 def plan_layer(plan_file: str, name: str):
-    """(layer plan JSON, the model's network for that projection)."""
+    """(layer plan JSON, the model's network for that projection, under the
+    plan's searched factorizations where it has them)."""
     smoke = "smoke" in plan_file
-    lp = next(l for l in json.loads((PLANS / plan_file).read_text())["layers"]
-              if l["name"] == name)
-    families = dict(model_dse_layers(get_config("tt-lm-100m", smoke=smoke), tokens=8))
+    layers = json.loads((PLANS / plan_file).read_text())["layers"]
+    lp = next(l for l in layers if l["name"] == name)
+    facts = {l["name"]: (tuple(l["factorization"]["out_modes"]),
+                         tuple(l["factorization"]["in_modes"]),
+                         tuple(l["factorization"]["ranks"]))
+             for l in layers if l.get("factorization")}
+    families = dict(model_dse_layers(get_config("tt-lm-100m", smoke=smoke), tokens=8,
+                                     factorizations=facts or None))
     tn = families.get(name) or families[f"{name}[0]"]
     return lp, tn
 
@@ -806,3 +814,89 @@ def test_cuda_kernels_refuse_other_dtypes(cuda_device, dtype):
     with pytest.raises(TypeError):
         fused_path.fused_segment_contract(
             [(e, v.to(cuda_device, dtype)) for e, v in work], chain, block_k=8)
+
+
+# ---------------------------------------------------------------------------
+# the rank space of full-width tt-lm-100m (the searched decompositions)
+# ---------------------------------------------------------------------------
+
+#: candidate name -> {family: network at 1024 tokens} of the rank space of
+#: full-width tt-lm-100m (15 candidates, 1-4 modes a side, ranks 4-24; the
+#: tied head never executes and is left out), as the CPU tests walk it
+RANK_SPACE = {name: _families(name) for name in CANDIDATES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RANK_SPACE))
+def test_streaming_tt_cuda_rank_space_matches_plain(cuda_device, name):
+    """K1 at every candidate's layers: every top-4 path at 4 and 32
+    tokens, the best at 2048, against the plain version; row 0 bit for bit
+    against a one-row call."""
+    launches.reset()
+    n = 0
+    for fam, tn in RANK_SPACE[name].items():
+        net = streaming_tt._rebatch(tn, 256)
+        for rank, path in enumerate(find_topk_paths(tn, k=4)):
+            cp = as_candidate_path(net, path.steps)
+            for tokens in ((4, 32, 2048) if rank == 0 else (4, 32)):
+                _k1_check(net, cp, tokens, cuda_device, 150 + n, 256)
+                n += 1
+    assert launches.COUNTS["streaming_tt"] == 2 * n
+
+
+def rank_gemm_shapes():
+    """Every GEMM of the candidates' best paths at 4 and 37 tokens, with
+    the blocks clamped as the executor clamps them."""
+    shapes = set()
+    for fams in RANK_SPACE.values():
+        for tn in fams.values():
+            path = find_topk_paths(tn, k=1)[0]
+            for t in (4, 37):
+                for g in streaming_tt._rebatch(tn, t).gemm_sequence(path.steps):
+                    shapes.add((g.M, g.K, g.N))
+    return sorted(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", rank_gemm_shapes())
+def test_tt_gemm_cuda_rank_space_matches_plain_dataflows_bit_identical(cuda_device,
+                                                                     shape):
+    """K2-K4 at the rank space's GEMMs (a 4-wide B and a 4-deep fold among
+    them): the plain version within 1e-5, WS == OS == IS bit for bit, and
+    row 0 bit for bit against a one-row call."""
+    m, k, n = shape
+    a = torch.from_numpy(_np((m, k), 160)).to(cuda_device)
+    b = torch.from_numpy(_np((k, n), 161)).to(cuda_device)
+    blk = dict(block_m=ops.clamp_block(128, m), block_k=ops.clamp_block(128, k),
+               block_n=ops.clamp_block(128, n))
+    outs = [tt_gemm.tt_gemm(a, b, dataflow=df, **blk) for df in DATAFLOWS]
+    want = tt_gemm.tt_gemm_plain(a, b, **blk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(1.0, want.abs().max().item()))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    row = tt_gemm.tt_gemm(a[:1].contiguous(), b, dataflow="OS", **blk)
+    assert torch.equal(row[0], outs[0][0])
+
+
+@pytest.mark.cuda
+def test_activation_calibration_cuda_matches_cpu(cuda_device):
+    """The rank search's calibration forward (tt-lm-smoke under its rank
+    plan, K1 forced on every layer) on the card against the CPU, rtol
+    1e-4."""
+    from repro_torch.nn import install_plan
+    from repro_torch.rank import activation_calibration
+
+    cfg = get_config("tt-lm-100m", smoke=True)
+    install_plan(load_plan(str(PLANS / "tt-lm-smoke.rank.json")),
+                 force_backend="streaming_tt")
+    try:
+        launches.reset()
+        got = activation_calibration(cfg, device=cuda_device)
+        assert launches.COUNTS["streaming_tt"] > 0
+        want = activation_calibration(cfg, device="cpu")
+    finally:
+        install_plan(None)
+    assert sorted(got) == sorted(want) and got
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4)

@@ -6,7 +6,7 @@ wall-clock keys are dropped; emitted plans hold no wall times and compare
 byte for byte, with the committed files (which ``tests/test_torch_plan.py``
 holds equal to fresh reference emissions) and with the reference's own
 emission.  Options whose subsystems the port lacks exit 2 and name their
-ROADMAP.md item.  The plan-install API of ``nn/linear.py`` follows
+ROADMAP.md item (``--tune``, ``--shards``).  The plan-install API of ``nn/linear.py`` follows
 ``tests/test_plan.py:266-283`` and ``tests/test_nn.py:66-77``.
 """
 
@@ -38,7 +38,7 @@ from repro_torch.core import FPGA_VU9P, find_topk_paths, global_search
 from repro_torch.nn import linear as port_linear
 from repro_torch.plan import (ExecutionPlan, compile_plan, execution_log,
                               reset_execution_log)
-from test_torch_plan import EMIT, PLANS, ROOT
+from test_torch_plan import EMIT, EMITTED_HERE, PLANS, ROOT, one_blas_thread  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -58,6 +58,14 @@ REPORT_ARGV = {
     "throughput": SMOKE + ["--objective", "throughput", "--serve-gen", "32"],
     "scalar": SMOKE + ["--engine", "scalar"],
     "tpu": SMOKE + ["--hw", "tpu_v5e"],
+    "guided": SMOKE + ["--search", "guided"],
+    "guided-seed-budget": SMOKE + ["--search", "guided", "--search-seed", "5",
+                                   "--search-budget", "4000"],
+    "guided-train": SMOKE + ["--search", "guided", "--mode", "train"],
+    "guided-both": SMOKE + ["--search", "guided", "--mode", "both"],
+    "guided-hw-search": SMOKE + ["--search", "guided", "--hw-search", "budget"],
+    "guided-hw-search-train": SMOKE + ["--search", "guided", "--hw-search",
+                                       "budget", "--mode", "train"],
     **{f"{arch} {hw}": ["--arch", arch, "--hw", hw, "--top-k", "2"]
        for arch in dse_cli.VISION_ARCHS for hw in ("fpga_vu9p", "tpu_v5e")},
 }
@@ -95,7 +103,7 @@ def test_report_matches_reference(case):
     assert _strip(json.loads(out)) == _strip(json.loads(rout))
 
 
-@pytest.mark.parametrize("name", sorted(EMIT))
+@pytest.mark.parametrize("name", EMITTED_HERE)
 def test_emitted_plan_equals_committed_file(name, tmp_path):
     out = tmp_path / "plan"
     if ".pair." in name:
@@ -115,6 +123,8 @@ def test_emitted_plan_equals_committed_file(name, tmp_path):
     ["--mode", "both", "--plan-backend", "tt_gemm"],
     ["--phase", "decode", "--plan-backend", "streaming_tt"],
     ["--objective", "throughput", "--hw", "tpu_v5e"],
+    ["--search", "guided", "--hw-search", "budget"],
+    ["--search", "guided", "--mode", "train", "--plan-backend", "tt_gemm"],
 ])
 def test_emitted_plan_equals_reference_emission(extra, tmp_path):
     argv = SMOKE + extra
@@ -144,6 +154,19 @@ def test_chip_smoke_emits_the_committed_plans_with_these_arguments():
     SMOKE + ["--plan-backend", "tt_gemm"],
     SMOKE + ["--hw-budget", "64"],
     ["--arch", "resnet18/cifar10", "--objective", "throughput"],
+    SMOKE + ["--search-budget", "100"],
+    SMOKE + ["--search", "guided", "--objective", "edp"],
+    SMOKE + ["--search", "guided", "--engine", "scalar"],
+    SMOKE + ["--search", "guided", "--search-budget", "10"],
+    SMOKE + ["--search", "guided", "--fused-cost"],
+    SMOKE + ["--accuracy-budget", "0.5"],
+    SMOKE + ["--rank-search", "budget", "--emit-plan-pair", os.devnull],
+    SMOKE + ["--rank-search", "budget", "--mode", "train"],
+    SMOKE + ["--rank-search", "budget", "--mode", "both"],
+    SMOKE + ["--rank-search", "budget", "--objective", "edp"],
+    SMOKE + ["--rank-search", "budget", "--engine", "scalar"],
+    SMOKE + ["--rank-search", "budget", "--fused-cost"],
+    SMOKE + ["--rank-search", "budget", "--accuracy-budget", "-1"],
 ])
 def test_listings_and_errors_match_reference(argv):
     """Listings print what the reference prints; refused combinations exit
@@ -160,13 +183,10 @@ def test_listings_and_errors_match_reference(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--search", "guided"], "item 9e"),
-    (["--rank-search", "budget"], "item 9e"),
     (["--tune", "cache"], "item 10"),
     (["--tune", "measure"], "item 10"),
     (["--shards", "2"], "item 11"),
     (["--emit-plan-pair", os.devnull, "--shards", "1"], "item 11"),
-    (["--arch", "glm4-9b"], "item 9d"),
 ])
 def test_unported_options_exit_2_and_name_their_item(argv, item):
     rc, out, err = _main(dse_cli.main, SMOKE + argv)
@@ -176,10 +196,16 @@ def test_unported_options_exit_2_and_name_their_item(argv, item):
 
 @pytest.mark.parametrize("kw", [dict(search="nope"), dict(rank_search="nope"),
                                 dict(tune="nope"), dict(search_budget=8),
-                                dict(accuracy_budget=0.1)])
+                                dict(accuracy_budget=0.1),
+                                dict(rank_search="budget", mode="train"),
+                                dict(rank_search="budget", mode="both"),
+                                dict(rank_search="budget", objective="edp"),
+                                dict(rank_search="budget", engine="scalar"),
+                                dict(search="guided", objective="throughput")])
 def test_run_dse_refuses_what_the_reference_refuses(kw):
-    """Library callers: unknown modes raise ``KeyError`` and budgets of the
-    unported searches ``ValueError``, with the reference's messages."""
+    """Library callers: unknown modes raise ``KeyError`` and combinations
+    the searches cannot honour ``ValueError``, with the reference's
+    messages."""
     args = dict(arch="tt-lm-100m", smoke=True, top_k=2, tokens=64)
     with pytest.raises((KeyError, ValueError)) as mine:
         dse_cli.run_dse(**args, **kw)

@@ -30,7 +30,7 @@ from repro.plan.compiler import check_plan_for_config as ref_check_plan
 from repro.plan.schema import ExecutionPlan as RefExecutionPlan
 from repro.plan.schema import migrate_plan_json as ref_migrate
 from repro_torch import dse_cli
-from repro_torch.configs import NOT_PORTED, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import find_topk_paths
 from repro_torch.hw import HW_TARGETS
 from repro_torch.nn import linear as port_linear
@@ -39,6 +39,24 @@ from repro_torch.plan import executor
 from repro_torch.plan.compiler import check_plan_for_config
 
 torch.set_num_threads(2)
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # pragma: no cover
+    threadpool_limits = None
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_blas_thread():
+    """One BLAS thread while this module's tests run: the rank search's
+    TT-SVDs (``numpy.linalg``) on every thread of every xdist worker at
+    once slow each other down by 50x."""
+    if threadpool_limits is None:
+        yield
+        return
+    with threadpool_limits(limits=1):
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PLANS = ROOT / "src" / "repro_torch" / "plans"
@@ -62,8 +80,19 @@ EMIT = {
                                        "--mode", "train", "--top-k", "2",
                                        "--tokens", "32", "--plan-backend",
                                        "tt_gemm"],
+    "tt-lm-100m.rank.json": ["--arch", "tt-lm-100m", "--rank-search", "budget",
+                             "--search", "guided"],
+    "tt-lm-smoke.rank.json": ["--arch", "tt-lm-100m", "--smoke", "--top-k", "2",
+                              "--tokens", "64", "--rank-search", "budget",
+                              "--search", "guided"],
 }
 PLAN_FILES = sorted(EMIT)
+#: plans whose emission takes minutes on a CPU (the full-width rank search
+#: evaluates 15 decompositions): ``chip_smoke.py`` re-emits them with the
+#: port's DSE and holds the bytes; the tests here hold the chosen
+#: candidate's leg (:func:`test_rank_plan_is_the_chosen_candidates_compile`)
+EMIT_ON_CARD_ONLY = ("tt-lm-100m.rank.json",)
+EMITTED_HERE = [n for n in PLAN_FILES if n not in EMIT_ON_CARD_ONLY]
 
 
 def test_committed_plans_are_the_listed_ones():
@@ -77,7 +106,7 @@ def test_committed_plan_roundtrips_byte_identical(name):
     assert ExecutionPlan.loads(text).dumps() == ref_load_plan(str(PLANS / name)).dumps()
 
 
-@pytest.mark.parametrize("name", PLAN_FILES)
+@pytest.mark.parametrize("name", EMITTED_HERE)
 def test_committed_plan_equals_fresh_reference_emission(name, tmp_path):
     out = tmp_path / "plan"
     if ".pair." in name:
@@ -119,9 +148,18 @@ def test_config_matches_reference(smoke):
 
 
 def test_unported_arch_points_to_roadmap():
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    """Every architecture's config is ported (the DSE plans them all); the
+    model code of the families other than dense is not, and says so."""
+    from repro_torch.models import api
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            ref_get_config(arch, smoke=True))
+        if cfg.family == "dense":
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 12"):
+            api(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -228,3 +266,56 @@ def test_port_imports_no_jax_and_no_reference():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) > 20
+
+
+def _chosen_candidate_compile(port: bool, plan_path: str) -> str:
+    """Re-derive ``plan_path``'s rank plan from its chosen candidate alone:
+    the candidate (by its d and rank) out of the full rank space, its
+    families' accuracy proxies, its layers' guided DSE leg on the fixed
+    target, and the compile, as ``dse_cli._run_rank_dse`` and
+    ``run_dse_plan`` do it for the winner.  Returns the plan's bytes."""
+    if port:
+        from repro_torch import dse_cli as cli
+        from repro_torch.configs import get_config as get_cfg
+        from repro_torch.core import ALL_PARTITIONINGS, build_cost_tables
+        from repro_torch.hw import get_target
+        from repro_torch.plan import Factorization, compile_plan, load_plan as load
+        from repro_torch.rank import RankSpace, family_proxy
+        from repro_torch.search import guided_search
+    else:
+        from repro import dse_cli as cli
+        from repro.configs import get_config as get_cfg
+        from repro.core import ALL_PARTITIONINGS, build_cost_tables
+        from repro.hw import get_target
+        from repro.plan import Factorization, compile_plan, load_plan as load
+        from repro.rank import RankSpace, family_proxy
+        from repro.search import guided_search
+    want = load(plan_path)
+    fact = next(lp.factorization for lp in want.layers if lp.factorization)
+    cfg, hw = get_cfg(want.arch), get_target(want.hw)
+    cand = next(c for c in RankSpace.from_config(cfg).candidates()
+                if c.d == len(fact.out_modes) and c.rank == max(fact.ranks))
+    named = cli.model_dse_layers(cfg, want.tokens,
+                                 factorizations=cand.factorization_map())
+    paths = cli.model_layer_paths(named, 4)
+    res = guided_search(paths, hw, objective="latency", seed=0)
+    table = build_cost_tables(paths, hw, ALL_PARTITIONINGS).seconds
+    total = 0.0
+    for c in res.choices:
+        total += table[(c.layer, c.path_index, c.partitioning, c.dataflow)]
+    facts = {f.name: Factorization(f.out_modes, f.in_modes, f.ranks,
+                                   float(family_proxy(f)))
+             for f in cand.families}
+    return compile_plan(named, res, hw, arch=want.arch, objective="latency",
+                        tokens=want.tokens, total_latency_s=total,
+                        factorizations=facts).dumps()
+
+
+@pytest.mark.parametrize("package", ["repro_torch", "repro"])
+def test_rank_plan_is_the_chosen_candidates_compile(package):
+    """``tt-lm-100m.rank.json`` (emitted on the card's host by the port and
+    byte-checked there; minutes on a CPU) is, byte for byte, the compile
+    of its chosen candidate's guided DSE leg, in either package."""
+    path = str(PLANS / "tt-lm-100m.rank.json")
+    assert _chosen_candidate_compile(package == "repro_torch", path) == \
+        (PLANS / "tt-lm-100m.rank.json").read_text()
