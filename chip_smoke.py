@@ -18,6 +18,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seconds on the host CPU are printed beside the card.  The full-width
    rank search (``tt-lm-100m.rank.json``: ``--rank-search budget --search
    guided``, 15 decompositions) is recorded on the way for phase 3b.
+2c. tune: the autotuner (``python -m repro_torch.tune`` and
+   ``repro_torch.dse --tune``, in process, the cache in the scratch
+   directory) times K1-K5 by CUDA-graph replay: 47 measurements on a cold
+   cache, a ``--tune cache`` plan A (replayed: 0 measurements, the same
+   bytes), a ``--plan-backend tt_gemm --tune measure`` plan B (75) and the
+   fused sweep (21 K5 variants against 4 per-step routes, 100 in all).
+   Full-width tt-lm-100m is then served under A and B (continuous ==
+   oneshot, every kernel their layers name launched, the banner says
+   autotuned, logits against the plain executor), each beside the
+   analytic plan of its backend (:func:`tune_phase`).
 3. kernels: every CUDA kernel of the serving and training paths (K1
    ``streaming_tt``, K2-K4 ``tt_gemm`` OS/WS/IS, K5 ``fused_path``) against
    its plain PyTorch version at the shapes the main paths give it, plus
@@ -78,13 +88,15 @@ TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
-``{"serve": n, "serve_rank_plan": r, "train": m}`` (``r`` is the part of
-``n`` from the rank plan's runs), each path's counts zeroed just before
-it and read just after, its times at the rank plan's shapes
-(``rank_plan``) and the K1 refusals over the rank space; the run fails
-unless every kernel of
-:data:`SERVE_KERNELS` launched on the serve path and every kernel of
-:data:`TRAIN_KERNELS` on the train path.  Nothing of JAX or of the JAX
+``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
+"serve_tuned": v}`` (``r`` is the part of ``n`` from the rank plan's runs;
+``u`` the tune phase's measurements, ``v`` its serving under the measured
+plans), each path's counts zeroed just before it and read just after,
+its times at the rank plan's shapes (``rank_plan``) and the K1 refusals
+over the rank space; the run fails unless every kernel of
+:data:`SERVE_KERNELS` launched on the serve path, every kernel of
+:data:`TRAIN_KERNELS` on the train path and every kernel of
+:data:`TUNE_KERNELS` on the tune path.  Nothing of JAX or of the JAX
 package is imported.
 """
 
@@ -342,6 +354,300 @@ def dse_phase(out_dir: str) -> tuple[dict[str, float], dict]:
             raise AssertionError(f"the port's DSE emitted {name} with other "
                                  "bytes than the committed file")
     return secs, searches
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the autotuner on the card, and serving under its plans
+# ---------------------------------------------------------------------------
+
+#: measurements each full-width tune call must make (the reference's counts
+#: over the same variant space, ``tests/test_torch_tune.py``)
+TUNE_MEASUREMENTS = {"tune": 47, "B": 75, "fused": 100}
+#: every kernel the measurements reach: K1 (streaming sweeps), K2-K4 (the
+#: calibration times each dominant GEMM under every dataflow), K5 (fused)
+TUNE_KERNELS = ("streaming_tt", "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is",
+                "fused_path")
+
+
+def _quiet(main, argv) -> tuple[int, str]:
+    """(exit code, stdout) of one in-process CLI call, stderr dropped."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        try:
+            rc = main(argv)
+        except SystemExit as e:   # argparse errors
+            rc = e.code
+    return rc, out.getvalue()
+
+
+def _dse(argv: list[str], out_dir: str, tag: str) -> dict:
+    """One ``python -m repro_torch.dse`` call, in process; its report."""
+    from repro_torch import dse_cli
+
+    path = os.path.join(out_dir, f"{tag}.report.json")
+    rc, _ = _quiet(dse_cli.main, ["--arch", "tt-lm-100m"] + argv + ["--out", path])
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.dse {argv}: exit {rc}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def plan_kernels(plan) -> set[str]:
+    """The kernels a plan's layers launch when served: K1 for a streaming
+    layer; for a tt_gemm layer K5 for each multi-step segment and its
+    dataflow's kernel for every step outside one.  The tied head never
+    runs."""
+    out = set()
+    for lp in plan.layers:
+        if lp.name == "head":
+            continue
+        if lp.backend == "streaming_tt":
+            out.add("streaming_tt")
+        elif lp.backend == "tt_gemm":
+            segs = lp.segments or ()
+            if any(e - s >= 2 for s, e in segs):
+                out.add("fused_path")
+            if not segs or any(e - s == 1 for s, e in segs):
+                out.add(f"tt_gemm_{lp.dataflow.lower()}")
+    return out
+
+
+def logits_vs_plain(plan, device) -> tuple[float, float]:
+    """(max abs diff, max |logit|) of full-width tt-lm-100m prefill logits
+    (seed-0 weights, 32 tokens) through ``plan``'s kernels against the
+    plain executor on the card; a rank plan's factorizations stay
+    installed for the plain run (``plan_backend="jnp"``), since they set
+    the shapes.  Fails on a bad shape, a non-finite logit or a diff over
+    1e-4 x max |logit|."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("tt-lm-100m")
+    toks = torch.randint(0, cfg.vocab, (1, 32),
+                         generator=torch.Generator().manual_seed(5)).to(device)
+    m = api(cfg, plan=plan, device=device)
+    params = m.init_params(0)
+    planned, _ = m.prefill_full(params, {"tokens": toks}, 48)
+    plain_api = (api(cfg, plan=plan, plan_backend="jnp", device=device)
+                 if any(lp.factorization is not None for lp in plan.layers)
+                 else api(cfg, plan=None, device=device))
+    plain, _ = plain_api.prefill_full(params, {"tokens": toks}, 48)
+    torch.cuda.synchronize()
+    if planned.shape != (1, 32, cfg.vocab) or not torch.isfinite(planned).all():
+        raise AssertionError(f"bad logits {tuple(planned.shape)}")
+    e = (planned - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    if e > 1e-4 * max(scale, 1e-3) + 1e-6:
+        raise AssertionError(f"planned vs plain logits differ by {e} (scale {scale})")
+    return e, scale
+
+
+def tune_phase(out_dir: str, device) -> tuple[dict, dict, list[str]]:
+    """The autotuner on the card, then full-width serving under its plans.
+
+    1. ``python -m repro_torch.tune --arch tt-lm-100m --mode measure`` on a
+       cold cache (in ``out_dir``): 47 measurements by CUDA-graph replay,
+       ``interpret`` false, the card's ``device_kind``; the calibration per
+       dataflow, each family's heuristic and measured tiling, and the
+       spread of K1's ``block_tokens`` variants per family (K1 builds one
+       program whatever the block: the spread is the noise floor).
+    2. ``repro_torch.dse --tune cache --emit-plan A`` over that cache,
+       twice: the second call measures nothing and emits the same bytes;
+       A's choices against the analytic ``tt-lm-100m.json``.
+    3. ``--plan-backend tt_gemm --tune measure --emit-plan B`` (75
+       measurements: K2-K4 at every swept tiling), then ``--fused-cost
+       --tokens 2048 --plan-backend tt_gemm --tune measure`` (K5 over 21
+       fused variants against 4 per-step routes; 100 measurements).
+    4. Serve under A and under B (continuous and oneshot: the tokens must
+       match; the banner must say "autotuned"), each between two runs of
+       the analytic plan of the same backend; each run must launch
+       every kernel its plan's layers name; prefill logits through A and B
+       within 1e-4 x max |logit| of the plain executor.
+
+    Returns the launch counts of the measurements (steps 1-3) and of the
+    serving under A and B (step 4), each zeroed just before and read just
+    after, and the report lines."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import run
+    from repro_torch.plan import load_plan
+    from repro_torch.tune import Autotuner, TuningCache
+    from repro_torch.tune import cli as tune_cli
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(device).replace(" ", "_")
+    cache = os.path.join(out_dir, "tuning_cache.json")
+    plan_a, plan_a2, plan_b = (os.path.join(out_dir, f"tuned.{t}.json")
+                               for t in ("A", "A2", "B"))
+    notes = []
+
+    # 1. python -m repro_torch.tune on a cold cache
+    stream_keys, real = [], Autotuner.tune_streaming
+
+    def recording(self, tn, steps, tokens, **kw):
+        stream_keys.append(self.streaming_key(tn, steps, tokens))
+        return real(self, tn, steps, tokens, **kw)
+
+    launches.reset()
+    Autotuner.tune_streaming = recording
+    try:
+        t0 = time.perf_counter()
+        rc, out = _quiet(tune_cli.main, ["--arch", "tt-lm-100m", "--mode",
+                                         "measure", "--cache", cache])
+        tune_s = time.perf_counter() - t0
+    finally:
+        Autotuner.tune_streaming = real
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.tune: exit {rc}")
+    rep = json.loads(out)
+    if (rep["n_measured"], rep["interpret"], rep["device_kind"]) != (
+            TUNE_MEASUREMENTS["tune"], False, kind):
+        raise AssertionError(
+            f"python -m repro_torch.tune: {rep['n_measured']} measurements, "
+            f"interpret {rep['interpret']}, device_kind {rep['device_kind']}")
+    notes.append(f"python -m repro_torch.tune --arch tt-lm-100m --mode measure "
+                 f"(cold cache): {rep['n_measured']} measurements in {tune_s:.2f} s, "
+                 f"device_kind {rep['device_kind']}, interpret {rep['interpret']}, "
+                 f"{rep['n_shapes']} calibration shapes, tokens {rep['tokens']}")
+    notes.append("calibration (measured / analytic fpga_vu9p seconds, geomean "
+                 "per dataflow): " + ", ".join(
+                     f"{d} {v!r}" for d, v in sorted(rep["calibration"].items())))
+    entries = TuningCache.load(cache).entries
+    stream_rows = [r for r in rep["families"] if r["backend"] == "streaming_tt"]
+    spreads = dict(zip((r["name"] for r in stream_rows), stream_keys))
+    for r in rep["families"]:
+        line = (f"  family {r['name']}: {r['backend']} {r['dataflow']}, heuristic "
+                f"{r['heuristic']}, measured {r.get('measured')}, "
+                f"speedup_vs_heuristic {r.get('speedup_vs_heuristic')!r}")
+        key = spreads.get(r["name"])
+        if key is not None:
+            ms = {k: v * 1e3 for k, v in entries[key].measured_s.items()}
+            line += (f"; K1 block_tokens variants (ms): "
+                     + ", ".join(f"{k} {v:.5f}" for k, v in sorted(
+                         ms.items(), key=lambda kv: int(kv[0])))
+                     + "; spread (max/min - 1) "
+                     f"{max(ms.values()) / min(ms.values()) - 1:.4f}")
+        notes.append(line)
+
+    # 2. --tune cache --emit-plan A, twice
+    argv_a = ["--tune", "cache", "--tune-cache", cache]
+    rep_a = _dse(argv_a + ["--emit-plan", plan_a], out_dir, "A")
+    rep_a2 = _dse(argv_a + ["--emit-plan", plan_a2], out_dir, "A2")
+    with open(plan_a) as f, open(plan_a2) as g:
+        same = f.read() == g.read()
+    if rep_a2["tune"]["n_measured"] != 0 or not same:
+        raise AssertionError(f"--tune cache replay: {rep_a2['tune']['n_measured']} "
+                             f"measurements, same bytes {same}")
+    a, analytic = load_plan(plan_a), load_plan(os.path.join(PLANS, "tt-lm-100m.json"))
+    diff = [f"{x.name}: {x.backend} {x.dataflow} path {list(x.path_steps)} vs "
+            f"{y.backend} {y.dataflow} path {list(y.path_steps)}"
+            for x, y in zip(a.layers, analytic.layers)
+            if (x.backend, x.dataflow, x.path_steps) != (y.backend, y.dataflow,
+                                                         y.path_steps)]
+    notes.append(f"dse --tune cache --emit-plan A: {rep_a['tune']['n_measured']} "
+                 f"measurements, {rep_a['tune']['n_cache_hits']} cache hits; the "
+                 "same call again: 0 measurements, the same bytes; A's choices vs "
+                 "the analytic tt-lm-100m.json: "
+                 + ("; ".join(diff) if diff else "same path, dataflow and backend "
+                    "in every layer (the calibration moved no choice)")
+                 + "; A's tilings: " + ", ".join(
+                     f"{lp.name} {lp.tiling.to_json()}" for lp in a.layers))
+
+    # 3. K2-K4 at every swept tiling (B), then K5 against per-step routes
+    rep_b = _dse(["--plan-backend", "tt_gemm", "--tune", "measure",
+                  "--tune-cache", cache, "--emit-plan", plan_b], out_dir, "B")
+    rep_f = _dse(["--fused-cost", "--tokens", "2048", "--plan-backend", "tt_gemm",
+                  "--tune", "measure", "--tune-cache", cache, "--emit-plan",
+                  os.path.join(out_dir, "tuned.fused.json")], out_dir, "fused")
+    for tag, r in (("B", rep_b), ("fused", rep_f)):
+        if r["tune"]["n_measured"] != TUNE_MEASUREMENTS[tag]:
+            raise AssertionError(f"dse --tune measure ({tag}): "
+                                 f"{r['tune']['n_measured']} measurements")
+    tune_counts = launches.snapshot()
+    missing = [k for k in TUNE_KERNELS if tune_counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the tune path launched no {missing}")
+    b = load_plan(plan_b)
+    notes.append(f"dse --plan-backend tt_gemm --tune measure --emit-plan B: "
+                 f"{rep_b['tune']['n_measured']} measurements; B: " + ", ".join(
+                     f"{lp.name} {lp.dataflow} {lp.tiling.to_json()} segments "
+                     f"{[list(g) for g in lp.segments or ()]}" for lp in b.layers))
+    notes.append(f"dse --fused-cost --tokens 2048 --plan-backend tt_gemm --tune "
+                 f"measure: {rep_f['tune']['n_measured']} measurements; "
+                 "fused_cost.tune rows (seconds per call):")
+    for r in rep_f["fused_cost"]["tune"] or ():
+        notes.append(f"  {r['layer']} path {r['path_index']}: {r['measured']}, "
+                     f"scale {r['scale']!r}")
+    measure_s = time.perf_counter() - t_phase
+    notes.append(f"tune measurements (steps 1-3): {measure_s:.1f} s; launches "
+                 f"{tune_counts}")
+
+    # 4. serve under A and B, beside the analytic plans of the same backend
+    plan_bh = os.path.join(out_dir, "analytic.tt_gemm.json")
+    _dse(["--plan-backend", "tt_gemm", "--emit-plan", plan_bh], out_dir, "Bh")
+    full = os.path.join(PLANS, "tt-lm-100m.json")
+    # each measured plan between two runs of its analytic counterpart: the
+    # first serve run of a process pays one-time costs
+    runs = []
+    for label, path, analytic_label, analytic_path in (
+            ("A", plan_a, "analytic tt-lm-100m.json", full),
+            ("B", plan_b, "analytic --plan-backend tt_gemm", plan_bh)):
+        runs += [(analytic_label, analytic_path, "continuous"),
+                 (label, path, "continuous"), (label, path, "oneshot"),
+                 (analytic_label, analytic_path, "continuous")]
+    tokens, tok_s, tuned = {}, {}, {k: 0 for k in launches.COUNTS}
+    launches.reset()
+    for label, path, schedule in runs:
+        before = launches.snapshot()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = run(["--plan", path, "--schedule", schedule] + SERVE)
+        if res.code != 0:
+            raise AssertionError(f"serve ({label}, {schedule}) exited {res.code}")
+        delta = {k: res.launches[k] - before[k] for k in before}
+        banner = next(ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith("plan tilings:"))
+        if label in ("A", "B"):
+            if "autotuned" not in banner:
+                raise AssertionError(f"serve ({label}): banner {banner!r}")
+            want = plan_kernels(load_plan(path))
+            idle = sorted(k for k in want if delta[k] <= 0)
+            if idle:
+                raise AssertionError(f"serve ({label}, {schedule}) launched no {idle}")
+            for k in tuned:
+                tuned[k] += delta[k]
+        tokens[(label, schedule)] = res.result.tokens_by_rid()
+        s = res.summary
+        tok_s.setdefault((label, schedule), []).append(s["gen_tok_s"])
+        notes.append(f"serve {label} ({schedule}): {s['gen_tok_s']:.1f} gen tok/s, "
+                     f"ttft p50 {s['ttft_p50_ms']:.1f} ms, wall "
+                     f"{s['wall_s'] * 1e3:.1f} ms; {banner}; launches {delta}")
+    for label in ("A", "B"):
+        if tokens[(label, "continuous")] != tokens[(label, "oneshot")]:
+            raise AssertionError(f"serve {label}: continuous and oneshot disagree")
+    for label in ("A", "B"):
+        e, scale = logits_vs_plain(load_plan(plan_a if label == "A" else plan_b),
+                                   device)
+        notes.append(f"{label}: continuous == oneshot per request: yes; prefill "
+                     f"logits vs the plain executor: max abs diff {e:.3e} (max "
+                     f"|logit| {scale:.3e})")
+    cont = {label: " / ".join(f"{v:.1f}" for v in vs)
+            for (label, sched), vs in tok_s.items() if sched == "continuous"}
+    notes.append(f"gen tok/s (continuous; analytic before / after), not a "
+                 f"claim: A {cont['A']} vs analytic "
+                 f"{cont['analytic tt-lm-100m.json']}; B {cont['B']} vs "
+                 f"analytic on tt_gemm {cont['analytic --plan-backend tt_gemm']}")
+    notes.append(f"tune phase: {time.perf_counter() - t_phase:.1f} s")
+    return tune_counts, tuned, notes
 
 
 # ---------------------------------------------------------------------------
@@ -1185,8 +1491,8 @@ def decode_profile(device) -> list[str]:
 
 
 def output_check(device) -> list[str]:
-    """Kernel path vs the plain executor, on the card, at full width; and
-    tt-lm-smoke on the card vs the CPU."""
+    """Kernel path vs the plain executor, on the card, at full width (the
+    full plan and the rank plan); and tt-lm-smoke on the card vs the CPU."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1194,50 +1500,19 @@ def output_check(device) -> list[str]:
     from repro_torch.plan import load_plan
 
     notes = []
-    cfg = get_config("tt-lm-100m")
-    plan = load_plan(os.path.join(PLANS, "tt-lm-100m.json"))
-    toks = torch.randint(0, cfg.vocab, (1, 32),
-                         generator=torch.Generator().manual_seed(5)).to(device)
-    m = api(cfg, plan=plan, device=device)
-    params = m.init_params(0)
-    planned, _ = m.prefill_full(params, {"tokens": toks}, 48)
-    plain, _ = api(cfg, plan=None, device=device).prefill_full(
-        params, {"tokens": toks}, 48)
-    torch.cuda.synchronize()
-    if planned.shape != (1, 32, cfg.vocab) or not torch.isfinite(planned).all():
-        raise AssertionError(f"bad logits {tuple(planned.shape)}")
-    e = (planned - plain).abs().max().item()
-    scale = plain.abs().max().item()
-    if e > 1e-4 * max(scale, 1e-3) + 1e-6:
-        raise AssertionError(f"planned vs plain logits differ by {e} (scale {scale})")
-    notes.append(f"full-width prefill logits, kernels vs plain executor on the "
-                 f"card: max abs diff {e:.3e} (max |logit| {scale:.3e})")
+    for name in ("tt-lm-100m.json", RANK_PLAN):
+        e, scale = logits_vs_plain(load_plan(os.path.join(PLANS, name)), device)
+        notes.append(f"full-width prefill logits under {name}, kernels vs plain "
+                     f"executor on the card: max abs diff {e:.3e} (max |logit| "
+                     f"{scale:.3e})")
 
-    # the rank plan: its searched factorizations stay installed for the
-    # plain executor (``plan_backend="jnp"``), since they set the shapes
-    rank = load_plan(os.path.join(PLANS, RANK_PLAN))
-    m = api(cfg, plan=rank, device=device)
-    params = m.init_params(0)
-    planned, _ = m.prefill_full(params, {"tokens": toks}, 48)
-    plain, _ = api(cfg, plan=rank, plan_backend="jnp", device=device).prefill_full(
-        params, {"tokens": toks}, 48)
-    torch.cuda.synchronize()
-    if planned.shape != (1, 32, cfg.vocab) or not torch.isfinite(planned).all():
-        raise AssertionError(f"rank plan: bad logits {tuple(planned.shape)}")
-    e = (planned - plain).abs().max().item()
-    scale = plain.abs().max().item()
-    if e > 1e-4 * max(scale, 1e-3) + 1e-6:
-        raise AssertionError(f"rank plan: planned vs plain logits differ by {e} "
-                             f"(scale {scale})")
-    notes.append(f"full-width prefill logits under {RANK_PLAN}, kernels vs plain "
-                 f"executor on the card: max abs diff {e:.3e} (max |logit| "
-                 f"{scale:.3e})")
-
+    toks = torch.randint(0, get_config("tt-lm-100m").vocab, (1, 32),
+                         generator=torch.Generator().manual_seed(5))
     smoke = get_config("tt-lm-100m", smoke=True)
     splan = load_plan(os.path.join(PLANS, "tt-lm-smoke.json"))
     sm_cpu = api(smoke, plan=splan, device="cpu")
     p_cpu = sm_cpu.init_params(0)
-    st = toks[:, :12].cpu() % smoke.vocab
+    st = toks[:, :12] % smoke.vocab
     want, _ = sm_cpu.prefill_full(p_cpu, {"tokens": st}, 16)
     sm_gpu = api(smoke, plan=splan, device=device)
     got, _ = sm_gpu.prefill_full(sm_gpu.init_params(0), {"tokens": st.to(device)}, 16)
@@ -1540,6 +1815,11 @@ def main() -> int:
             f"CPU ({card}): "
             + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
 
+        log("--- tune: the autotuner on the card, and serving under its plans")
+        tune_counts, tuned_counts, notes = tune_phase(plan_dir, device)
+        for n in notes:
+            log(f"  {n}")
+
         log("--- kernels against their plain versions")
         layers = main_path_layers()
         kernels = ([check_streaming(device, layers)] + check_tt_gemm(device, layers)
@@ -1622,7 +1902,9 @@ def main() -> int:
          "replaces": sources[k["name"]][1],
          "launches": {"serve": serve_counts[k["name"]],
                       "serve_rank_plan": rank_counts[k["name"]],
-                      "train": train_counts[k["name"]]},
+                      "train": train_counts[k["name"]],
+                      "tune": tune_counts[k["name"]],
+                      "serve_tuned": tuned_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],

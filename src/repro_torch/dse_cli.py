@@ -23,9 +23,10 @@ per-layer (path, partitioning, dataflow) choices and stage timings;
 ``examples/dse_explore.py`` and ``benchmarks/table2_dse_choices.py``
 consume the same report via ``run_dse``.
 
-Options whose subsystems are not ported yet exit 2 with ``error: ...``
-naming their ROADMAP.md item: ``--tune`` (Queue A item 10) and
-``--shards`` (item 11).
+``--tune cache|measure`` measures on the card (``repro_torch.tune``;
+``--device cpu`` times the plain versions on the CPU).  ``--shards``,
+whose sharded executor is not ported yet, exits 2 with ``error: ...``
+naming its ROADMAP.md item (Queue A item 11).
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ MODES = ("infer", "train", "both")
 HW_SEARCH_MODES = ("off", "budget")
 TUNE_MODES = ("off", "cache", "measure")
 SEARCH_MODES = ("exhaustive", "guided")
+
+#: dominant-GEMM shapes measured for the --tune calibration table (per
+#: dataflow, at the heuristic tiling; heaviest shapes first)
+TUNE_CALIBRATION_SHAPES = 8
 
 #: vision workloads of the paper's Tables 1-4 (model_layers-backed)
 VISION_ARCHS = ("resnet18/cifar10", "resnet18/tiny_imagenet", "vit_ti4/cifar10")
@@ -211,20 +216,13 @@ def model_layer_paths(
 # end-to-end run
 # ---------------------------------------------------------------------------
 
-def _check_ported(tune: str, shards: Optional[int]) -> None:
-    """Refuse the reference options whose subsystems the port lacks.
+def _check_ported(shards: Optional[int]) -> None:
+    """Refuse the reference option whose subsystem the port lacks.
 
-    Each raises ``ValueError`` (``main`` exits 2 with ``error: ...``)
-    naming the ROADMAP.md item that ports it, rather than approximating
-    the reference's result; an unknown tune mode is refused with the
-    reference's own message.
+    Raises ``ValueError`` (``main`` exits 2 with ``error: ...``) naming
+    the ROADMAP.md item that ports it, rather than approximating the
+    reference's result.
     """
-    if tune not in TUNE_MODES:
-        raise KeyError(f"unknown tune mode {tune!r}; have {TUNE_MODES}")
-    if tune != "off":
-        raise ValueError(
-            "--tune needs repro.tune, which is not ported to repro_torch "
-            "yet (ROADMAP.md, Queue A item 10)")
     if shards is not None:
         raise ValueError(
             "--shards needs the sharded executor, which is not ported to "
@@ -254,6 +252,7 @@ def run_dse(
     accuracy_budget: Optional[float] = None,
     shards: Optional[int] = None,
     fused_cost: bool = False,
+    device: str = "cuda",
 ) -> dict:
     """Run Algorithm 1 end-to-end; returns the JSON-serializable report.
 
@@ -285,29 +284,39 @@ def run_dse(
     caps the chosen candidate's reconstruction-error proxy (default:
     no worse than the frozen decomposition).
 
-    ``tune`` and ``shards`` keep the reference's signature and are
-    refused (:func:`_check_ported`).
+    ``tune`` turns on the measured-latency loop (``repro_torch.tune``):
+    the model's dominant GEMM shapes are measured per dataflow on
+    ``device`` (the card unless the caller asks for the CPU; ``"cache"``
+    = only cache misses, ``"measure"`` = re-measure) and the resulting
+    calibration rescales the analytic table before the argmin.  The
+    report gains a ``tune`` section; with ``--emit-plan`` the plan
+    additionally carries measured kernel tilings.
+
+    ``shards`` keeps the reference's signature and is refused
+    (:func:`_check_ported`).
     """
-    _check_ported(tune, shards)
+    _check_ported(shards)
     if mode == "both":
         _check_train_compatible(objective, engine)  # fail before any search
+        _check_tune_compatible(tune, "both", objective, hw_search)
         _check_rank_compatible(rank_search, "both", objective, engine, tune)
         _check_fused_compatible(fused_cost, "both", objective, engine,
                                 hw_search, search, rank_search)
-        infer, _, _, _ = _run_dse(
+        infer, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
             hw_search, hw_budget, search=search, search_budget=search_budget,
             search_seed=search_seed)
-        train, _, _, _ = _run_dse(
+        train, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "train",
             hw_search, hw_budget, search=search, search_budget=search_budget,
             search_seed=search_seed)
         return _both_report(infer, train)
-    report, _, _, _ = _run_dse(
+    report, _, _, _, tuner, _ = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, mode, hw_search,
-        hw_budget, serve_gen, serve_slots, decode_tokens,
+        hw_budget, tune, tune_cache, serve_gen, serve_slots, decode_tokens,
         search, search_budget, search_seed, rank_search, accuracy_budget,
-        fused_cost)
+        fused_cost, device)
+    _save_tuner(tuner)
     return report
 
 
@@ -379,6 +388,7 @@ def run_dse_plan(
     accuracy_budget: Optional[float] = None,
     shards: Optional[int] = None,
     fused_cost: bool = False,
+    device: str = "cuda",
 ):
     """Run the DSE and compile its result into an ExecutionPlan.
 
@@ -396,14 +406,18 @@ def run_dse_plan(
     ``hw_search="budget"`` the plan embeds the co-searched winning
     architecture (schema v3 ``hardware``) and its kernel tilings derive
     from that architecture's array shape and buffer sizes.  Under
-    ``rank_search`` the plan embeds the chosen candidate's factorizations
+    ``tune`` the search is measured-calibrated and the plan's tilings
+    are the autotuner's measured argmins (``tilings: "measured"``) —
+    served from the persistent cache, so a warm cache re-emits the
+    identical plan without measuring.  Under ``rank_search`` the plan
+    embeds the chosen candidate's factorizations
     (schema v4) so the executor contracts the *searched* decomposition —
     vision archs excepted (their conv decompositions are structural, not
     plan-installable).
     """
     from repro_torch.plan import BACKENDS, compile_plan
 
-    _check_ported(tune, shards)
+    _check_ported(shards)
     if plan_backend != "auto" and plan_backend not in BACKENDS:
         raise ValueError(
             f"unknown plan backend {plan_backend!r}; have "
@@ -413,19 +427,21 @@ def run_dse_plan(
     infer_report = None
     if mode == "both":
         _check_train_compatible(objective, engine)  # fail before any search
+        _check_tune_compatible(tune, "both", objective, hw_search)
         _check_rank_compatible(rank_search, "both", objective, engine, tune)
         _check_fused_compatible(fused_cost, "both", objective, engine,
                                 hw_search, search, rank_search)
-        infer_report, _, _, _ = _run_dse(
+        infer_report, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
             hw_search, hw_budget, search=search, search_budget=search_budget,
             search_seed=search_seed)
     plan_mode = "train" if mode in ("train", "both") else "infer"
-    report, named, res, plan_hw = _run_dse(
+    report, named, res, plan_hw, tuner, calibration = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, plan_mode,
-        hw_search, hw_budget, serve_gen, serve_slots, decode_tokens,
+        hw_search, hw_budget, tune, tune_cache,
+        serve_gen, serve_slots, decode_tokens,
         search, search_budget, search_seed, rank_search, accuracy_budget,
-        fused_cost)
+        fused_cost, device)
     factorizations = None
     rank_report = report.get("rank_search")
     if rank_report is not None and rank_report.get("plan_embeddable"):
@@ -446,10 +462,47 @@ def run_dse_plan(
         tokens=report["tokens"],
         backend=plan_backend,
         total_latency_s=report["total_latency_s"],
-        tilings="heuristic",
+        tilings="heuristic" if tuner is None else "measured",
+        tuner=tuner,
         phase=phase,
         factorizations=factorizations,
     )
+    if tuner is not None:
+        if calibration is not None and report["objective"] == "latency":
+            # the argmin ran over the calibrated table, so each choice's
+            # latency landed in measured-rescaled units; divide the scale
+            # back out so the plan's per-layer provenance stays in the
+            # same analytic seconds as its total_latency_s (up to float
+            # rounding — (analytic * cal) / cal can differ from analytic
+            # by an ulp).  The correction model scales per (shape bucket,
+            # dataflow), so each family's scale comes from its own
+            # choice's dominant GEMM.  Train-mode searches run analytic
+            # (calibration is None) — their latencies need no unscaling.
+            # Throughput objectives keep calibrated units: the combined
+            # value mixes two phases' scales, so no single factor
+            # recovers analytic seconds.
+            from repro_torch.plan.compiler import base_name
+            from repro_torch.tune.variants import dominant_gemm
+
+            fam_choice = {}
+            for (inst_name, _), choice in zip(named, res.choices):
+                fam_choice.setdefault(base_name(inst_name), choice)
+
+            def _unscale(lp):
+                c = fam_choice[lp.name]
+                M, K, N = dominant_gemm(c.path)
+                return dataclasses.replace(
+                    lp, latency_s=lp.latency_s / calibration.scale(
+                        M, K, N, lp.dataflow))
+
+            plan = dataclasses.replace(
+                plan, layers=tuple(_unscale(lp) for lp in plan.layers))
+        # compilation may have measured additional (per-family) sweeps;
+        # refresh the report's counters and persist the cache
+        report["tune"]["n_measured"] = tuner.n_measured
+        report["tune"]["n_cache_hits"] = tuner.n_cache_hits
+        report["tune"]["n_cache_entries"] = len(tuner.cache)
+        _save_tuner(tuner)
     if mode == "both":
         report = _both_report(infer_report, report)
     return report, plan
@@ -501,6 +554,35 @@ def _check_train_compatible(objective: str, engine: str) -> None:
             f"--objective {objective} is an inference objective")
     if engine == "scalar":
         raise ValueError("--mode train requires the vectorized engine")
+
+
+def _check_tune_compatible(tune: str, mode: str, objective: str,
+                           hw_search: str) -> None:
+    """Reject combinations the measured-latency loop cannot honour yet.
+
+    The calibration rescales the inference latency table — per candidate
+    under an architecture co-search (ROADMAP gap c, closed).  Train mode
+    is allowed since the tiling lift (ROADMAP gap b): the train *search*
+    stays analytic, but train-mode plans serve measured forward tilings
+    and any backward-op tilings already in the cache.  The throughput
+    objective is calibrated per phase (ROADMAP serving follow-on (a),
+    closed): the correction rescales the prefill and decode tables at
+    their own GEMM shapes inside ``combine_phase_tables``.  Composing
+    the calibration with the fwd+bwd decomposition or the EDP objective
+    are still open items (ROADMAP.md)."""
+    if tune == "off":
+        return
+    if tune not in TUNE_MODES:
+        raise KeyError(f"unknown tune mode {tune!r}; have {TUNE_MODES}")
+    if mode == "both":
+        raise ValueError(
+            "--tune with --mode both is ambiguous (the infer leg searches "
+            "a calibrated table, the train leg an analytic one); run the "
+            "modes separately")
+    if objective not in ("latency", "throughput"):
+        raise ValueError(
+            "--tune calibrates the latency and throughput objectives; "
+            f"--objective {objective} is analytic-only for now")
 
 
 def _check_rank_compatible(rank_search: str, mode: str, objective: str,
@@ -576,19 +658,37 @@ def _check_fused_compatible(fused_cost: bool, mode: str, objective: str,
             "segmentation (open item)")
 
 
-def _apply_fused_cost(tables, named, layer_paths, hw_cfg, tokens):
+def _make_tuner(tune: str, tune_cache: Optional[str], device: str):
+    """Build the Autotuner over the persistent cache (lazy import); it
+    measures on ``device``."""
+    from repro_torch.tune import Autotuner, DEFAULT_CACHE_PATH, TuningCache
+
+    path = tune_cache or DEFAULT_CACHE_PATH
+    return Autotuner(TuningCache.load_or_empty(path), tune, cache_path=path,
+                     device=device)
+
+
+def _save_tuner(tuner) -> None:
+    if tuner is not None and tuner.cache_path is not None:
+        tuner.save()
+
+
+def _apply_fused_cost(tables, named, layer_paths, hw_cfg, tokens, tuner):
     """Overlay the fusion-aware accounting on the inference cost tables.
 
     Re-costs every fuseable monolithic cell with the fused-segment model
     (``core.cost_table.fused_cost_tables``) at the same ``block_tokens``
     the plan compiler's tiling heuristic would stream and the same VMEM
     budget its segmentation pass enforces (fixed target => no hw caps,
-    ``_streaming_budget(None)``).  The reference's measured rescaling
-    under ``--tune`` waits for the tuner (ROADMAP.md, Queue A item 10),
-    so the section's ``tune`` is ``None``.
+    ``_streaming_budget(None)``).  With a live ``tuner``, each fused
+    layer is additionally *measured* — fused (K5) vs per-step seconds on
+    the tuner's device (``Autotuner.tune_fused``) — and its fused cells are
+    rescaled by measured/analytic fusion-advantage disagreement, so
+    ``--tune cache|measure`` calibrates the fused path too.
 
     Returns ``(tables, report_section)``.
     """
+    from repro_torch.core import fusion
     from repro_torch.core.cost_table import fused_cost_tables
     from repro_torch.plan.compiler import _pow2_le, _streaming_budget
 
@@ -601,13 +701,50 @@ def _apply_fused_cost(tables, named, layer_paths, hw_cfg, tokens):
         block_tokens=block_tokens, budget_bytes=budget_bytes, base=tables)
     fused_cells = sorted(k for k, s in tables.seconds.items()
                          if s != base_seconds[k])
+    tune_rows = None
+    if tuner is not None and fused_cells:
+        tune_rows = []
+        done: dict[str, float] = {}  # layer signature -> measured scale
+        from repro_torch.tune import network_signature
+
+        for li, ((name, tn), paths) in enumerate(zip(named, layer_paths)):
+            keys = [k for k in fused_cells if k[0] == li]
+            if not keys:
+                continue
+            p_idx = min(k[1] for k in keys)
+            steps = tuple(tuple(s) for s in paths[p_idx].steps)
+            sig = network_signature(tn, steps)
+            if sig not in done:
+                segs = fusion.segment_path(
+                    tn, steps, block_tokens=block_tokens,
+                    budget_bytes=budget_bytes)
+                meas = tuner.tune_fused(
+                    tn, steps, segs, tokens, include=(block_tokens,),
+                    budget_bytes=budget_bytes)
+                scale = 1.0
+                if meas is not None and meas["per_step_s"] > 0:
+                    k_rep = next(k for k in keys if k[1] == p_idx)
+                    analytic_adv = tables.seconds[k_rep] / base_seconds[k_rep]
+                    measured_adv = meas["fused_s"] / meas["per_step_s"]
+                    if analytic_adv > 0 and measured_adv > 0:
+                        scale = measured_adv / analytic_adv
+                done[sig] = scale
+                tune_rows.append({
+                    "layer": name,
+                    "path_index": int(p_idx),
+                    "measured": meas,
+                    "scale": scale,
+                })
+            if done[sig] != 1.0:
+                for k in keys:
+                    tables.seconds[k] *= done[sig]
     report = {
         "enabled": True,
         "block_tokens": int(block_tokens),
         "budget_bytes": int(budget_bytes),
         "n_fused_cells": len(fused_cells),
         "n_fused_layers": len({k[0] for k in fused_cells}),
-        "tune": None,
+        "tune": tune_rows,
         "build_s": time.perf_counter() - t0,
     }
     return tables, report
@@ -624,6 +761,8 @@ def _run_dse(
     mode: str = "infer",
     hw_search: str = "off",
     hw_budget: Optional[int] = None,
+    tune: str = "off",
+    tune_cache: Optional[str] = None,
     serve_gen: int = 128,
     serve_slots: int = 8,
     decode_tokens: Optional[int] = None,
@@ -633,12 +772,21 @@ def _run_dse(
     rank_search: str = "off",
     accuracy_budget: Optional[float] = None,
     fused_cost: bool = False,
+    device: str = "cuda",
 ):
-    """Shared pipeline; returns (report, named_layers, DSEResult, hw_cfg).
+    """Shared pipeline; returns (report, named_layers, DSEResult, hw_cfg,
+    tuner, calibration).
 
-    The reference's pipeline with the measured calibration and the shard
-    context left out (:func:`_check_ported` refuses them before this
-    runs): its report keeps their keys, as ``None``.
+    The reference's pipeline with the shard context left out
+    (:func:`_check_ported` refuses it before this runs): its report keeps
+    the ``sharding`` key, as ``None``.
+
+    The tuner is the live ``repro_torch.tune.Autotuner`` (measuring on
+    ``device``) when ``tune`` is on (``run_dse_plan`` hands it to the plan
+    compiler for measured tilings, then persists its cache), else
+    ``None``; the calibration is the fitted
+    ``repro_torch.tune.CostCorrection`` the search ran under
+    (``run_dse_plan`` divides its scales back out of plan latencies).
 
     ``search="guided"`` routes the argmin through
     ``repro_torch.search.guided_search`` — a budgeted explorer over the
@@ -700,10 +848,11 @@ def _run_dse(
                              "engine")
     if search_budget is not None and search != "guided":
         raise ValueError("search_budget requires search='guided'")
+    _check_tune_compatible(tune, mode, objective, hw_search)
     _check_fused_compatible(fused_cost, mode, objective, engine, hw_search,
                             search, rank_search)
     if rank_search != "off":
-        _check_rank_compatible(rank_search, mode, objective, engine, "off")
+        _check_rank_compatible(rank_search, mode, objective, engine, tune)
         return _run_rank_dse(
             arch, hw, top_k, tokens, smoke, engine, hw_search, hw_budget,
             search, search_budget, search_seed, accuracy_budget)
@@ -731,7 +880,70 @@ def _run_dse(
         bwd_search_s = time.perf_counter() - t0
         path_search_s += bwd_search_s
 
+    # stage 2b — measured calibration (repro_torch.tune): measure the model's
+    # dominant GEMM shapes per dataflow on this machine, fit the learned
+    # per-(shape-bucket, dataflow) correction from the cache, and rescale
+    # the analytic table(s) before the argmin.  Runs before the search
+    # stages because the co-search applies it per candidate (gap c).
+    tuner = None
+    tune_report = None
+    calibration = None
     fused_report = None
+    if tune != "off" and mode == "train":
+        # ROADMAP gap (b): train-mode plans may serve measured tilings —
+        # forward ops through the usual measured sweep, backward ops from
+        # whatever the cache already holds (analytic fallback on miss) —
+        # but the train *search* stays analytic: composing the measured
+        # calibration with the fwd+bwd+update decomposition is open.
+        tuner = _make_tuner(tune, tune_cache, device)
+        tune_report = {
+            "mode": tune,
+            "cache": tuner.cache_path,
+            "device_kind": tuner.device_kind,
+            "interpret": tuner.interpret,
+            "n_calibration_shapes": 0,
+            "calibration": None,
+            "correction": None,
+            "note": "train search is analytic; measured tilings only",
+            "n_measured": tuner.n_measured,
+            "n_cache_hits": tuner.n_cache_hits,
+            "n_cache_entries": len(tuner.cache),
+            "measure_s": 0.0,
+        }
+    elif tune != "off":
+        from repro_torch.tune import (
+            fit_cost_correction,
+            gemm_work_items,
+            measured_calibration,
+        )
+
+        tuner = _make_tuner(tune, tune_cache, device)
+        t0 = time.perf_counter()
+        shapes = gemm_work_items(layer_paths,
+                                 max_shapes=TUNE_CALIBRATION_SHAPES)
+        flat_calibration = measured_calibration(shapes, tuner, hw_cfg)
+        # the learned correction: per (shape bucket, dataflow) geomean
+        # ratios, falling back to the flat per-dataflow scales above on
+        # sparse buckets.  The fit is pinned to the calibration shape
+        # set so a warm cache holding extra sweep entries still fits the
+        # identical model (bit-identical re-emission is CI-asserted).
+        calibration = fit_cost_correction(
+            tuner.cache, hw_cfg, device_kind=tuner.device_kind,
+            interpret=tuner.interpret, shapes=shapes)
+        tune_report = {
+            "mode": tune,
+            "cache": tuner.cache_path,
+            "device_kind": tuner.device_kind,
+            "interpret": tuner.interpret,
+            "n_calibration_shapes": len(shapes),
+            "calibration": flat_calibration,
+            "correction": calibration.describe(),
+            "n_measured": tuner.n_measured,
+            "n_cache_hits": tuner.n_cache_hits,
+            "n_cache_entries": len(tuner.cache),
+            "measure_s": time.perf_counter() - t0,
+        }
+
     n_space = 1
     if hw_search != "off":
         # stage 2+3 joint: hw-batched tables + outer architecture loop
@@ -752,9 +964,11 @@ def _run_dse(
                 objective=("train-latency" if mode == "train"
                            else "latency"),
                 hw_space=cands, budget=search_budget, seed=search_seed,
-                layer_backwards=layer_backwards, calibration=None)
+                layer_backwards=layer_backwards, calibration=calibration)
             argmin_s = time.perf_counter() - t0
-            # rebuild the winner's analytic tables for the report
+            # rebuild the winner's analytic tables for the report: the
+            # per-layer latencies below must stay in analytic seconds
+            # even when the argmin ran over a calibrated table
             if mode == "train":
                 train_tables = build_train_cost_tables_hw(
                     layer_paths, layer_backwards, (res.hw,), all_parts)[0]
@@ -780,7 +994,8 @@ def _run_dse(
             table_build_s = per_hw[0].build_seconds
             t0 = time.perf_counter()
             res = global_search(layer_paths, hw_space=cands,
-                                hw_tables=[t.seconds for t in per_hw])
+                                hw_tables=[t.seconds for t in per_hw],
+                                calibration=calibration)
             argmin_s = time.perf_counter() - t0
             win = cands.index(res.hw)
             tables = per_hw[win]
@@ -810,7 +1025,7 @@ def _run_dse(
         table_build_s = tables.build_seconds
         if fused_cost:
             tables, fused_report = _apply_fused_cost(
-                tables, named, layer_paths, hw_cfg, tokens)
+                tables, named, layer_paths, hw_cfg, tokens, tuner)
             seconds_table = tables.seconds
             table_build_s += fused_report["build_s"]
         if objective == "edp":
@@ -827,10 +1042,13 @@ def _run_dse(
             decode_tables = build_cost_tables(decode_paths, hw_cfg, all_parts)
             decode_seconds = decode_tables.seconds
             table_build_s += decode_tables.build_seconds
+            # measured calibration applies per phase, at each phase's own
+            # GEMM shapes (ROADMAP serving follow-on (a)); the combined
+            # table is then final — stage 3 must not rescale it again
             obj_table = combine_phase_tables(
                 seconds_table, decode_seconds,
                 w_decode=serve_gen / serve_slots,
-                calibration=None,
+                calibration=calibration,
                 prefill_paths=layer_paths,
                 decode_paths=decode_paths)
         else:
@@ -848,7 +1066,7 @@ def _run_dse(
                 objective=("train-latency" if mode == "train"
                            else "latency"),
                 budget=search_budget, seed=search_seed,
-                layer_backwards=layer_backwards, calibration=None)
+                layer_backwards=layer_backwards, calibration=calibration)
         elif mode == "train":
             res = global_search(layer_paths, hw_cfg,
                                 objective="train-latency",
@@ -856,7 +1074,9 @@ def _run_dse(
         else:
             res = global_search(
                 layer_paths, hw_cfg, table=obj_table,
-                calibration=None,
+                # throughput tables arrive pre-calibrated per phase
+                calibration=(None if objective == "throughput"
+                             else calibration),
                 objective="throughput" if objective == "throughput"
                 else "latency")
         argmin_s = time.perf_counter() - t0
@@ -899,7 +1119,7 @@ def _run_dse(
         # winner under --hw-search, else the --hw target itself
         "hw_chosen": res.hw.name if res.hw is not None else hw,
         "hw_search": hw_search_report,
-        "tune": None,
+        "tune": tune_report,
         "fused_cost": fused_report,
         "mode": mode,
         "objective": "train-latency" if mode == "train" else objective,
@@ -950,15 +1170,16 @@ def _run_dse(
             "gen_tokens": serve_gen,
             "n_slots": serve_slots,
             "decode_weight": serve_gen / serve_slots,
-            # True in the reference when --tune calibrated the combined
-            # table per phase; the port has no tuner yet
-            "calibrated": False,
+            # True when the combined table was measured-calibrated per
+            # phase (--tune with --objective throughput); the analytic
+            # phase split below stays in analytic seconds either way
+            "calibrated": calibration is not None,
             "total_prefill_s": sum(seconds_table[k] for k in keys),
             "total_decode_step_s": sum(decode_seconds[k] for k in keys),
             "total_combined_s": res.total_latency_s,
         }
     return (report, named, res,
-            (res.hw if res.hw is not None else hw_cfg))
+            (res.hw if res.hw is not None else hw_cfg), tuner, calibration)
 
 
 def _run_rank_dse(
@@ -1127,7 +1348,7 @@ def _run_rank_dse(
         },
         "layers": layers,
     }
-    return report, named, res, plan_hw
+    return report, named, res, plan_hw, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -1240,11 +1461,15 @@ def _build_parser() -> argparse.ArgumentParser:
                         "re-measure), rescale the analytic table by the "
                         "measured calibration before the argmin, and give "
                         "--emit-plan measured kernel tilings "
-                        "(repro.tune; not ported yet, ROADMAP.md Queue A "
-                        "item 10)")
+                        "(repro_torch.tune; warm the cache with "
+                        "python -m repro_torch.tune)")
     p.add_argument("--tune-cache", default=None, metavar="PATH",
                    help="tuning-cache file for --tune "
                         "(default results/tuning_cache.json)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the --tune measurements run on "
+                        "(default cuda; cpu times the plain versions of "
+                        "the kernels)")
     p.add_argument("--out", default="-", metavar="PATH",
                    help="report destination ('-' = stdout, default)")
     p.add_argument("--emit-plan", default=None, metavar="PATH",
@@ -1330,7 +1555,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 mode="infer", tune=args.tune, tune_cache=args.tune_cache,
                 search=args.search, search_budget=args.search_budget,
                 search_seed=args.search_seed, shards=args.shards,
-                fused_cost=args.fused_cost,
+                fused_cost=args.fused_cost, device=args.device,
             )
             dec_tokens = (args.decode_tokens if args.decode_tokens is not None
                           else args.serve_slots)
@@ -1376,6 +1601,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 accuracy_budget=args.accuracy_budget,
                 shards=args.shards,
                 fused_cost=args.fused_cost,
+                device=args.device,
             )
             plan.save(args.emit_plan)
             backends = sorted({lp.backend for lp in plan.layers})
@@ -1409,6 +1635,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 accuracy_budget=args.accuracy_budget,
                 shards=args.shards,
                 fused_cost=args.fused_cost,
+                device=args.device,
             )
     except (KeyError, ValueError) as e:
         msg = e.args[0] if e.args else e

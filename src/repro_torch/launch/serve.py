@@ -65,7 +65,9 @@ def _load_and_describe(path: str, label: str):
     print(f"installed {label}: arch={plan.arch} hw={plan.hw} "
           f"strategy={plan.strategy} ({len(plan.layers)} layer plans)"
           + (f" [phase {plan.phase}]" if plan.phase else ""))
-    print(f"plan tilings: {plan.tilings}")
+    print(f"plan tilings: {plan.tilings}"
+          + (" (autotuned — repro_torch.tune)" if plan.tilings == "measured"
+             else ""))
     if plan.hardware is not None:
         h = plan.hardware
         print(f"plan hardware: {h.name} ({h.pe_rows}x{h.pe_cols} PEs, "

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 
 import numpy as np
@@ -900,3 +901,195 @@ def test_activation_calibration_cuda_matches_cpu(cuda_device):
     assert sorted(got) == sorted(want) and got
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the autotuner (repro_torch.tune) on the card
+# ---------------------------------------------------------------------------
+
+def _tune_unit_network(tokens):
+    tn = tt_linear_network(tokens, (8, 16), (16, 16), (1, 8, 1))
+    return tn, find_topk_paths(tn, k=1)[0].steps
+
+
+@pytest.mark.cuda
+def test_measure_functions_time_by_graph_replay_on_the_card(cuda_device,
+                                                           monkeypatch):
+    """Each measure function times CUDA-graph replays (the harness's
+    ``_graph_seconds``, once per measurement) of calls that launch its
+    kernel, and returns seconds."""
+    import math
+
+    from repro_torch.core import fusion
+    from repro_torch.plan.compiler import rebatch
+    from repro_torch.tune import measure
+
+    graphs = []
+    real = measure._graph_seconds
+    monkeypatch.setattr(measure, "_graph_seconds",
+                        lambda *a: graphs.append(a) or real(*a))
+    tn, steps = _tune_unit_network(64)
+    segs = fusion.segment_path(tn, steps, block_tokens=64,
+                               budget_bytes=8 * 2**20)
+    assert fusion.has_fused(segs)
+    launches.reset()
+    secs = [measure.measure_gemm(64, 128, 16, df, (64, 128, 16),
+                                 device=cuda_device) for df in DATAFLOWS]
+    secs.append(measure.measure_streaming(rebatch(tn, 16), steps, 64, 16,
+                                          device=cuda_device))
+    secs.append(measure.measure_fused(tn, steps, segs, 64, device=cuda_device))
+    secs.append(measure.measure_per_step(tn, steps, device=cuda_device))
+    assert len(graphs) == len(secs)
+    assert all(math.isfinite(s) and 0 < s < 0.1 for s in secs), secs
+    assert all(v > 0 for v in launches.snapshot().values()), launches.snapshot()
+
+
+@pytest.mark.cuda
+def test_measure_capture_failure_raises(cuda_device):
+    """A call the card cannot capture (a read back to the host) raises; it
+    is never timed on the wall clock instead.  The card works after it."""
+    from repro_torch.tune import measure
+
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        measure.measure_callable(lambda: x.sum().item(), device=cuda_device)
+    assert measure.measure_gemm(32, 32, 32, "OS", (32, 32, 32),
+                                device=cuda_device) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_autotuner_writes_the_cards_device_kind(cuda_device):
+    from repro_torch.tune import Autotuner, TuningCache
+
+    tuner = Autotuner(TuningCache(), "cache", device=cuda_device)
+    kind = torch.cuda.get_device_name(cuda_device).replace(" ", "_")
+    assert (tuner.device_kind, tuner.interpret) == (kind, False)
+    tn, steps = _tune_unit_network(32)
+    tuner.tune_gemm(64, 128, 16, "IS")
+    assert tuner.tune_streaming(tn, steps, 32, include=[32]) is not None
+    assert tuner.n_measured == sum(len(e.measured_s)
+                                   for e in tuner.cache.entries.values()) > 0
+    for e in tuner.cache.entries.values():
+        assert e.device_kind == kind and e.interpret is False
+        assert f":{kind}:native:s1:" in e.key
+
+
+@pytest.mark.cuda
+def test_cuda_measured_plan_replays_from_a_warm_cache(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """``repro_torch.dse --tune cache`` on the card measures and emits a
+    measured plan; a second call over the warm cache, with measure
+    functions that raise, emits the same bytes."""
+    import os
+
+    from repro_torch.tune import measure
+
+    def argv(name):
+        return ["--arch", "tt-lm-100m", "--smoke", "--top-k", "2", "--tokens",
+                "32", "--tune", "cache", "--tune-cache",
+                str(tmp_path / "cache.json"), "--emit-plan",
+                str(tmp_path / name), "--out", os.devnull]
+
+    assert dse_cli.main(argv("a.json")) == 0
+    text = (tmp_path / "a.json").read_text()
+    assert json.loads(text)["tilings"] == "measured"
+
+    def fail(*a, **kw):
+        raise AssertionError("measurement requested on a warm cache")
+
+    for name in ("measure_gemm", "measure_streaming", "measure_fused",
+                 "measure_per_step"):
+        monkeypatch.setattr(measure, name, fail)
+    assert dse_cli.main(argv("b.json")) == 0
+    assert (tmp_path / "b.json").read_text() == text
+
+
+def _scaled_close(got, want, tol):
+    scale = max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_tt_gemm_cuda_at_every_swept_variant(cuda_device, dataflow):
+    """K2-K4 at every (shape, tiling) the full-width tune sweeps measure,
+    against the plain version at 1e-5 of the output's scale."""
+    from test_torch_tune_kernels import sweep_variants
+
+    n = 0
+    for m, k, nn, df, (bm, bk, bn) in sorted(sweep_variants()["gemm"]):
+        if df != dataflow:
+            continue
+        a = torch.from_numpy(_np((m, k), 170)).to(cuda_device)
+        b = torch.from_numpy(_np((k, nn), 171)).to(cuda_device)
+        blk = dict(block_m=bm, block_k=bk, block_n=bn)
+        got = tt_gemm.tt_gemm(a, b, dataflow=df, **blk)
+        _scaled_close(got, tt_gemm.tt_gemm_plain(a, b, **blk), 1e-5)
+        n += 1
+    assert n > 0
+
+
+@pytest.mark.cuda
+def test_streaming_tt_cuda_at_every_swept_variant(cuda_device):
+    """K1 at every (network, tokens, block_tokens) the full-width sweeps
+    measure, against the plain version (on the card) at 1e-4; the variants
+    of one problem agree bit for bit (K1 builds one program whatever the
+    plan's block)."""
+    from repro_torch.tune.measure import synthesize_tensors
+    from test_torch_tune_kernels import sweep_variants
+
+    by_problem: dict = {}
+    for key, (tn_block, steps) in sorted(sweep_variants()["streaming"].items(),
+                                         key=lambda kv: repr(kv[0])):
+        sig = tuple((n.name, n.edges, n.dims, n.kind)
+                    for n in streaming_tt._rebatch(tn_block, 1).nodes)
+        by_problem.setdefault((sig, key[1], key[2]), []).append(
+            (tn_block, steps, key[3]))
+    for (_, _, tokens), variants in by_problem.items():
+        tn0, steps0, _ = variants[0]
+        path0 = as_candidate_path(tn0, steps0)
+        _, cores = synthesize_tensors(tn0, cuda_device)
+        x = torch.from_numpy(_np((tokens, math.prod(
+            next(n for n in tn0.nodes if n.kind == "input").dims[1:])),
+            172)).to(cuda_device)
+        want = streaming_tt.streaming_tt_linear_plain(x, cores, tn0, path0)
+        outs = [streaming_tt.streaming_tt_linear(
+                    x, cores, tn_block, as_candidate_path(tn_block, steps),
+                    block_tokens=bt) for tn_block, steps, bt in variants]
+        _scaled_close(outs[0], want, 1e-4)
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_fused_path_cuda_at_every_swept_variant(cuda_device):
+    """K5 at every fused variant (segments and token block) of the
+    full-width ``--fused-cost`` sweeps, the segment's inputs from the
+    per-step route, against the plain version (on the card) at 1e-4."""
+    from repro_torch.tune.measure import synthesize_network_tensors
+    from test_torch_tune_kernels import sweep_variants
+
+    contract = ops.gemm_contract()
+    n = 0
+    for tn, steps, segments, bt, block_k in sweep_variants()["fused"].values():
+        steps = [tuple(s) for s in steps]
+        ts = synthesize_network_tensors(tn, cuda_device)
+        work = [(node.edges, ts[node.name]) for node in tn.nodes]
+        for s, e in segments:
+            if e - s >= 2:
+                ec, got = fused_path.fused_segment_contract(
+                    work, steps[s:e], block_tokens=bt, block_k=block_k)
+                wec, want = fused_path.fused_segment_contract_plain(
+                    work, steps[s:e], block_k=block_k)
+                assert ec == wec
+                _scaled_close(got, want, 1e-4)
+                n += 1
+            for i, j in steps[s:e]:
+                (ea, ta), (eb, tb) = work[i], work[j]
+                shared = [x for x in ea if x in eb]
+                val = contract(ta, tb, ([ea.index(x) for x in shared],
+                                        [eb.index(x) for x in shared]))
+                work = [w for q, w in enumerate(work) if q not in (i, j)]
+                work.append((tuple(x for x in ea if x not in shared)
+                             + tuple(x for x in eb if x not in shared), val))
+    assert n >= len(sweep_variants()["fused"])

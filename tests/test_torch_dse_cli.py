@@ -5,8 +5,10 @@ defaults, report keys and exit codes.  Reports compare equal once their
 wall-clock keys are dropped; emitted plans hold no wall times and compare
 byte for byte, with the committed files (which ``tests/test_torch_plan.py``
 holds equal to fresh reference emissions) and with the reference's own
-emission.  Options whose subsystems the port lacks exit 2 and name their
-ROADMAP.md item (``--tune``, ``--shards``).  The plan-install API of ``nn/linear.py`` follows
+emission.  ``--tune cache|measure`` runs (measurements stubbed in both
+packages, ``--device cpu``; ``tests/test_torch_tune.py`` holds the tuner
+itself); ``--shards``, whose subsystem the port lacks, exits 2 and names
+its ROADMAP.md item.  The plan-install API of ``nn/linear.py`` follows
 ``tests/test_plan.py:266-283`` and ``tests/test_nn.py:66-77``.
 """
 
@@ -183,8 +185,6 @@ def test_listings_and_errors_match_reference(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tune", "cache"], "item 10"),
-    (["--tune", "measure"], "item 10"),
     (["--shards", "2"], "item 11"),
     (["--emit-plan-pair", os.devnull, "--shards", "1"], "item 11"),
 ])
@@ -194,8 +194,49 @@ def test_unported_options_exit_2_and_name_their_item(argv, item):
     assert err.startswith("error: ") and "ROADMAP.md" in err and item in err, err
 
 
+@pytest.mark.parametrize("tune", ["cache", "measure"])
+def test_tune_options_run_and_match_reference(tune, tmp_path, monkeypatch):
+    """``--tune cache|measure`` run in both packages over the same stubbed
+    measurements (the port with ``--device cpu``): reports equal minus
+    wall-clock keys and the cache path, plans and caches byte for byte."""
+    import repro.tune.autotune as ref_autotune
+    import repro.tune.measure as ref_measure
+    from repro_torch.tune import autotune as port_autotune
+    from repro_torch.tune import measure as port_measure
+
+    def gemm(M, K, N, dataflow, blocks, **kw):
+        return 1e-9 * M * K * N / (blocks[0] * blocks[1] * blocks[2]) ** 0.5
+
+    def streaming(tn_block, steps, tokens, block_tokens, **kw):
+        return 1e-6 * tokens / block_tokens
+
+    for mod in (ref_measure, port_measure):
+        monkeypatch.setattr(mod, "measure_gemm", gemm)
+        monkeypatch.setattr(mod, "measure_streaming", streaming)
+    for mod in (ref_autotune, port_autotune):
+        monkeypatch.setattr(mod, "kernel_fingerprint", lambda paths=None: "f" * 12)
+    outs = []
+    for main, tag, extra in ((dse_cli.main, "mine", ["--device", "cpu"]),
+                             (ref_dse_cli.main, "theirs", [])):
+        rc, out, err = _main(main, SMOKE + [
+            "--tune", tune, "--tune-cache", str(tmp_path / f"{tag}.cache"),
+            "--emit-plan", str(tmp_path / f"{tag}.plan")] + extra)
+        assert rc == 0, err
+        report = json.loads(out)
+        assert report["tune"]["mode"] == tune and report["tune"]["n_measured"] > 0
+        report["tune"].pop("cache")
+        outs.append(_strip(report))
+    assert outs[0] == outs[1]
+    for suffix in ("cache", "plan"):
+        assert (tmp_path / f"mine.{suffix}").read_text() == \
+            (tmp_path / f"theirs.{suffix}").read_text()
+
+
 @pytest.mark.parametrize("kw", [dict(search="nope"), dict(rank_search="nope"),
                                 dict(tune="nope"), dict(search_budget=8),
+                                dict(tune="cache", mode="both"),
+                                dict(tune="cache", objective="edp"),
+                                dict(tune="cache", rank_search="budget"),
                                 dict(accuracy_budget=0.1),
                                 dict(rank_search="budget", mode="train"),
                                 dict(rank_search="budget", mode="both"),
