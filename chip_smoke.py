@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of tt-lm-100m serving and training on one
+"""Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
+full-width qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b serving, on one
 NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root, one card
@@ -59,6 +60,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    are zeroed just before and read just after, and read again around the
    rank plan's runs, which must launch K1 and each of its layers' dataflow
    kernels.
+4b. families (after the serve phase): full-width, full-depth
+   qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16 as
+   configured) served through ``python -m repro_torch.launch.serve``'s code
+   path under their plan pairs (emitted in the dse phase) with
+   ``--strict-plan``, continuous then oneshot (the tokens must match);
+   fp32 prefill logits through the kernels against the plain executor on
+   the card (1e-4 x max |logit|; rwkv6-7b at 4 of its 32 layers, see
+   :data:`FAMILY_CHECK_LAYERS`) and in bf16 (reported); launches of one
+   prefill (K1, and K3 for zamba2 and rwkv6, required) and one decode step
+   (K1 required); a profiled decode step and the peak device memory per
+   arch; K1 and K3 at every new main-path shape against their plain
+   versions, timed beside one ``torch.einsum`` / ``torch.matmul`` and the
+   bound.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -89,12 +103,13 @@ The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
-"serve_tuned": v}`` (``r`` is the part of ``n`` from the rank plan's runs;
-``u`` the tune phase's measurements, ``v`` its serving under the measured
-plans), each path's counts zeroed just before it and read just after,
-its times at the rank plan's shapes (``rank_plan``) and the K1 refusals
-over the rank space; the run fails unless every kernel of
-:data:`SERVE_KERNELS` launched on the serve path, every kernel of
+"serve_tuned": v, "serve_families": f}`` (``r`` is the part of ``n`` from
+the rank plan's runs; ``u`` the tune phase's measurements, ``v`` its
+serving under the measured plans, ``f`` the families' serve runs), each
+path's counts zeroed just before it and read just after, its times at
+the rank plan's shapes (``rank_plan``) and at the family shapes
+(``families``, K1 and K3) and the K1 refusals over the rank space; the
+run fails unless every kernel of :data:`SERVE_KERNELS` launched on the serve path, every kernel of
 :data:`TRAIN_KERNELS` on the train path and every kernel of
 :data:`TUNE_KERNELS` on the tune path.  Nothing of JAX or of the JAX
 package is imported.
@@ -146,6 +161,14 @@ EMIT = {
     "tt-lm-smoke.rank.json": ["--arch", "tt-lm-100m", "--smoke", "--top-k", "2",
                               "--tokens", "64", "--rank-search", "budget",
                               "--search", "guided"],
+    "qwen2-moe-a2.7b.pair.prefill.json": ["--arch", "qwen2-moe-a2.7b",
+                                          "--serve-slots", "4"],
+    "qwen2-moe-a2.7b.pair.decode.json": ["--arch", "qwen2-moe-a2.7b",
+                                         "--serve-slots", "4"],
+    "zamba2-1.2b.pair.prefill.json": ["--arch", "zamba2-1.2b", "--serve-slots", "4"],
+    "zamba2-1.2b.pair.decode.json": ["--arch", "zamba2-1.2b", "--serve-slots", "4"],
+    "rwkv6-7b.pair.prefill.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
+    "rwkv6-7b.pair.decode.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
 }
 #: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
 BF16_TOL = 8e-2
@@ -1429,10 +1452,6 @@ def decode_profile(device) -> list[str]:
     device time of the setting's own kernels.  A measurement only: when
     the profiler records no device time the lines say "not measured" and
     the run goes on."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.plan import load_plan
     from repro_torch.serve import ServeEngine
@@ -1449,45 +1468,57 @@ def decode_profile(device) -> list[str]:
         for lane in range(4):
             _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
             caches = eng.admit(caches, small, lane)
-        tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
-
-        def steps(n):
-            nonlocal caches
-            for i in range(n):
-                _, caches = eng.decode(tok, pos + i, caches)
-
-        steps(3)
-        torch.cuda.synchronize()
-        n = 5
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                steps(n)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / n
-            avgs = prof.key_averages()
-        except Exception as e:  # the profiler is optional instrumentation here
-            notes.append(f"decode step profile ({label}): not measured "
-                         f"({type(e).__name__}: {e})")
-            continue
-
-        busy, every, top = device_time(avgs)
-        busy, every = busy / n, every / n
-        if busy <= 0:
-            notes.append(f"decode step ({label}, 4 lanes): {wall:.2f} ms wall; card "
-                         "busy time not measured (the profiler saw no device time)")
-            continue
-        notes += [f"decode step ({label}, 4 lanes, torch.profiler over {n} steps): "
-                  f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
-                  f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
-                  f"(device events only; every event's device time summed: "
-                  f"{every:.2f} ms)",
-                  "  top device time per step: " + "; ".join(
-                      f"{e.key[:48]} {_dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
-                      for e in top[:6])]
-        notes += kernel_split(top, busy, n, kernels)
+        notes += profile_decode(eng, caches, label, kernels)
     return notes
+
+
+def profile_decode(eng, caches, label: str, kernels) -> list[str]:
+    """Profile 5 decode steps of ``eng`` (4 busy lanes at position 32,
+    after 3 unprofiled steps): host wall per step, the card's busy time
+    per step (``torch.profiler``, device events only), the kernels that
+    take the most of it and the device time of ``kernels``.  A measurement
+    only: when the profiler records no device time the lines say "not
+    measured" and the run goes on."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
+
+    def steps(n):
+        nonlocal caches
+        for i in range(n):
+            _, caches = eng.decode(tok, pos + i, caches)
+
+    steps(3)
+    torch.cuda.synchronize()
+    n = 5
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        avgs = prof.key_averages()
+    except Exception as e:  # the profiler is optional instrumentation here
+        return [f"decode step profile ({label}): not measured "
+                f"({type(e).__name__}: {e})"]
+
+    busy, every, top = device_time(avgs)
+    busy, every = busy / n, every / n
+    if busy <= 0:
+        return [f"decode step ({label}, 4 lanes): {wall:.2f} ms wall; card "
+                "busy time not measured (the profiler saw no device time)"]
+    return ([f"decode step ({label}, 4 lanes, torch.profiler over {n} steps): "
+             f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
+             f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
+             f"(device events only; every event's device time summed: "
+             f"{every:.2f} ms)",
+             "  top device time per step: " + "; ".join(
+                 f"{e.key[:48]} {_dev_us(e) / 1e3 / n:.3f} ms x{e.count // n}"
+                 for e in top[:6])]
+            + kernel_split(top, busy, n, kernels))
 
 
 def output_check(device) -> list[str]:
@@ -1776,6 +1807,291 @@ def train_profile(device) -> list[str]:
     return notes
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the MoE, hybrid (Mamba2) and RWKV6 families at full width
+# ---------------------------------------------------------------------------
+
+#: full-width archs served under their committed plan pairs, and the
+#: kernels each one's prefill must launch (K1 everywhere; K3, tt_gemm WS,
+#: at zamba2's ssm.win and rwkv6's cmk/cmr); every decode step launches K1
+FAMILIES = {"qwen2-moe-a2.7b": ("streaming_tt",),
+            "zamba2-1.2b": ("streaming_tt", "tt_gemm_ws"),
+            "rwkv6-7b": ("streaming_tt", "tt_gemm_ws")}
+
+
+def family_pair(arch: str) -> tuple[str, str]:
+    return tuple(os.path.join(PLANS, f"{arch}.pair.{p}.json")
+                 for p in ("prefill", "decode"))
+
+
+def family_serve(arch: str) -> tuple[dict, list[str]]:
+    """``python -m repro_torch.launch.serve --arch ARCH --plan-prefill ..
+    --plan-decode .. --strict-plan`` at full width and depth (seed-0
+    weights, the config's dtype), continuous then oneshot; per-request
+    tokens must agree.  Returns the two runs' launches and report lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import run
+
+    pre, dec = family_pair(arch)
+    vocab = get_config(arch).vocab
+    notes, tokens, start = [], {}, launches.snapshot()
+    for sched in ("continuous", "oneshot"):
+        before = launches.snapshot()
+        log(f"--- families: {arch}, {sched}")
+        out = run(["--arch", arch, "--plan-prefill", pre, "--plan-decode", dec,
+                   "--schedule", sched] + SERVE)
+        if out.code != 0:
+            raise AssertionError(f"serve {arch} ({sched}) exited {out.code}")
+        delta = {k: out.launches[k] - before[k] for k in before}
+        s = out.summary
+        notes.append(f"{arch} {sched}: {s['gen_tok_s']:.2f} gen tok/s, "
+                     f"{s['total_tok_s']:.2f} total tok/s, ttft p50 "
+                     f"{s['ttft_p50_ms']:.1f} ms, wall {s['wall_s']:.2f} s, "
+                     f"launches {delta}")
+        tokens[sched] = out.result.tokens_by_rid()
+        for rid, toks in tokens[sched].items():
+            if len(toks) != 16 or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"{arch} {sched}: request {rid} tokens {toks}")
+    if tokens["continuous"] != tokens["oneshot"]:
+        raise AssertionError(f"{arch}: continuous and oneshot serving disagree")
+    notes.append(f"{arch}: continuous == oneshot per request: yes")
+    end = launches.snapshot()
+    return {k: end[k] - start[k] for k in end}, notes
+
+
+#: depth at which each arch's fp32 prefill logits are held to 1e-4 x max
+#: |logit| of the plain executor: full depth, except rwkv6-7b.  Under its
+#: seed-0 random weights every layer about doubles a rounding difference
+#: (two plain fp32 contraction orders on the CPU differ by 1.8e-5, 1.8e-4,
+#: 9.0e-3 and 1.19 of ~7 at 1, 4, 8 and 32 layers), so past ~5 layers fp32
+#: itself cannot meet the tolerance; its full depth is reported beside the
+#: plain executor's own spread between two orders
+FAMILY_CHECK_LAYERS = {"rwkv6-7b": 4}
+
+
+def family_logits(arch: str, device) -> list[str]:
+    """Full-width prefill logits (seed-0 weights, a 32-token prompt) under
+    the prefill plan's kernels against the plain executor along the same
+    paths (``plan_backend="jnp"``) on the card.  In fp32 at full depth,
+    beside the plain executor's spread between two contraction orders
+    (the plan's paths against the MAC-optimal ones): held to 1e-4 x max
+    |logit| at the depth of :data:`FAMILY_CHECK_LAYERS` (the run fails
+    otherwise); in the config's bf16, reported."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+
+    plan = load_plan(family_pair(arch)[0])
+    full = get_config(arch)
+    depth = FAMILY_CHECK_LAYERS.get(arch, full.n_layers)
+    cases = [(full.with_(dtype="float32"), depth == full.n_layers), (full, False)]
+    if depth != full.n_layers:
+        cases.insert(1, (full.with_(dtype="float32", n_layers=depth), True))
+    notes = []
+    try:
+        for cfg, gate in cases:
+            toks = torch.randint(0, cfg.vocab, (1, 32),
+                                 generator=torch.Generator().manual_seed(5)).to(device)
+            batch = {"tokens": toks}
+            m = api(cfg, plan=plan, device=device)
+            params = m.init_params(0)
+            planned, _ = m.prefill_full(params, batch, 48)
+            plain, _ = api(cfg, plan=plan, plan_backend="jnp",
+                           device=device).prefill_full(params, batch, 48)
+            other, _ = api(cfg, plan=None, device=device).prefill_full(params, batch, 48)
+            torch.cuda.synchronize()
+            planned, plain, other = planned.float(), plain.float(), other.float()
+            if planned.shape != (1, 32, cfg.vocab) or not torch.isfinite(planned).all():
+                raise AssertionError(f"{arch}: bad logits {tuple(planned.shape)}")
+            e = (planned - plain).abs().max().item()
+            spread = (other - plain).abs().max().item()
+            scale = plain.abs().max().item()
+            same = (planned.argmax(-1) == plain.argmax(-1)).float().mean().item()
+            notes.append(f"{arch} prefill logits ({cfg.dtype}, {cfg.n_layers} layers), "
+                         f"kernels vs plain executor on the card: max abs diff "
+                         f"{e:.3e}, max |logit| {scale:.3e} (ratio {e / scale:.2e}); "
+                         f"plain executor, plan paths vs MAC-optimal paths: "
+                         f"{spread:.3e}; argmax agrees at {100 * same:.1f}% of "
+                         f"positions{'; held to 1e-4' if gate else ''}")
+            if gate and e > 1e-4 * max(scale, 1e-3) + 1e-6:
+                raise AssertionError(f"{arch}: planned vs plain logits differ by "
+                                     f"{e} (scale {scale})")
+            del params, m
+    finally:
+        install_plan(None)
+    return notes
+
+
+def family_kernel_shapes(device) -> tuple[dict, list[str]]:
+    """K1 at every streaming layer of the family pairs (prefill at 32 tokens,
+    the MoE experts at their 4 capacity slots; decode at 4 lanes) and K3
+    at every GEMM of their tt_gemm layers (prefill, 32 tokens), against the
+    plain versions; each timed (CUDA events and CUDA-graph replay) beside
+    one ``torch.einsum`` / ``torch.matmul`` and the bound.  Returns the
+    worst error and the slowest case per kernel, and the report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dse_cli import model_dse_layers
+    from repro_torch.kernels import ops, streaming_tt, tt_gemm
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.executor import as_candidate_path
+
+    gen = torch.Generator().manual_seed(9)
+    notes, seen = [], set()
+    k1 = {"err": 0.0, "rows": []}
+    k3 = {"err": 0.0, "rows": []}
+    for arch in FAMILIES:
+        nets = {n.split("[")[0]: tn for n, tn in
+                model_dse_layers(get_config(arch), tokens=8)}
+        for phase, path in zip(("prefill", "decode"), family_pair(arch)):
+            for lp in load_plan(path).layers:
+                if lp.name == "head":
+                    continue
+                tn = nets[lp.name]
+                tokens = 4 if phase == "decode" or lp.name.startswith("moe.e") else 32
+                key = (tuple(n.dims for n in tn.nodes), lp.path_steps, tokens,
+                       lp.backend, lp.dataflow)
+                if key in seen or lp.backend == "jnp":
+                    continue
+                seen.add(key)
+                label = f"{arch} {lp.name} ({phase})"
+                cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
+                         for n in tn.nodes if n.kind != "input"]
+                if lp.backend == "streaming_tt":
+                    bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
+                    tn_b = streaming_tt._rebatch(tn, bt)
+                    cp = as_candidate_path(tn_b, lp.path_steps)
+                    n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
+                    x = torch.randn(tokens, n_in, generator=gen).to(device)
+                    got = streaming_tt.streaming_tt_linear(x, cores, tn_b, cp,
+                                                           block_tokens=bt)
+                    want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, cp)
+                    torch.cuda.synchronize()
+                    e = (got - want).abs().max().item()
+                    if not torch.isfinite(got).all() or \
+                            e > 1e-4 * max(1.0, want.abs().max().item()):
+                        raise AssertionError(f"K1 {label}, {tokens} tokens: err {e}")
+                    k1["err"] = max(k1["err"], e)
+                    t = k1_timing(label, tn, lp.path_steps, tn_b, cp, x, cores, bt,
+                                  want, device)
+                    k1["rows"].append(t)
+                    log_timing("streaming_tt", t)
+                    continue
+                full = streaming_tt._rebatch(tn, tokens)
+                for g in full.gemm_sequence(lp.path_steps):
+                    blocks = dict(block_m=ops.clamp_block(lp.tiling.block_m, g.M),
+                                  block_k=ops.clamp_block(lp.tiling.block_k, g.K),
+                                  block_n=ops.clamp_block(lp.tiling.block_n, g.N))
+                    a = torch.randn(g.M, g.K, generator=gen).to(device)
+                    b = torch.randn(g.K, g.N, generator=gen).to(device)
+
+                    def kernel(a=a, b=b, blocks=blocks):
+                        return tt_gemm.tt_gemm(a, b, dataflow=lp.dataflow, **blocks)
+
+                    want = tt_gemm.tt_gemm_plain(a, b, dataflow=lp.dataflow, **blocks)
+                    e = (kernel() - want).abs().max().item()
+                    if e > 1e-5 * max(1.0, want.abs().max().item()):
+                        raise AssertionError(f"K3 {label} {(g.M, g.K, g.N)}: err {e}")
+                    k3["err"] = max(k3["err"], e)
+                    b_ms, b_by = bound(4 * (g.M * g.K + g.K * g.N + g.M * g.N),
+                                       2 * g.M * g.K * g.N)
+                    ms, host_ms = timed(kernel)
+                    t = dict(
+                        at=f"{label}, M,K,N={g.M},{g.K},{g.N} blocks "
+                           f"{','.join(str(v) for v in blocks.values())}",
+                        ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+                        plain_ms=timed(lambda a=a, b=b, blocks=blocks:
+                                       tt_gemm.tt_gemm_plain(
+                                           a, b, dataflow=lp.dataflow,
+                                           **blocks))[0],
+                        library_ms=timed(lambda a=a, b=b: torch.matmul(a, b))[0],
+                        library_graph_ms=graph_ms(lambda a=a, b=b: torch.matmul(a, b)),
+                        bound_ms=b_ms, bound_by=b_by)
+                    k3["rows"].append(t)
+                    log_timing(f"tt_gemm_{lp.dataflow.lower()}", t)
+    for name, rec in (("streaming_tt", k1), ("tt_gemm_ws", k3)):
+        rows = [r for r in rec["rows"] if r["graph_ms"] is not None]
+        kernel_ms = sum(r["graph_ms"] for r in rows)
+        library_ms = sum(r["library_graph_ms"] or 0 for r in rows)
+        notes.append(f"{name} at the family shapes: {len(rec['rows'])} cases, max "
+                     f"abs err {rec['err']:.3e}; graph ms summed {kernel_ms:.4f} "
+                     f"vs library {library_ms:.4f}")
+    return {"streaming_tt": k1, "tt_gemm_ws": k3}, notes
+
+
+def family_engine(arch: str, device) -> list[str]:
+    """Per arch: launches of one prefill (32-token prompt) and one decode
+    step (4 lanes), the prefill kernels of :data:`FAMILIES` required; a
+    profiled decode step; the peak device memory of the arch's runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import api
+    from repro_torch.plan import load_plan
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch)
+    pre, dec = (load_plan(p) for p in family_pair(arch))
+    eng = ServeEngine(cfg, api(cfg, device=device).init_params(0), n_slots=4,
+                      max_seq=64, prefill_plan=pre, decode_plan=dec, arch=arch)
+    caches = eng.fresh_caches()
+    launches.reset()
+    _, small = eng.prefill_request(list(range(1, 33)))
+    per_prefill = {k: v for k, v in launches.snapshot().items() if v}
+    for k in FAMILIES[arch]:
+        if not per_prefill.get(k):
+            raise AssertionError(f"{arch}: a prefill launched no {k}")
+    caches = eng.admit(caches, small, 0)
+    for lane in range(1, 4):
+        _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
+        caches = eng.admit(caches, small, lane)
+    launches.reset()
+    eng.decode(np.array([5, 6, 7, 8]), np.array([32, 32, 32, 32]), caches)
+    per_decode = {k: v for k, v in launches.snapshot().items() if v}
+    if not per_decode.get("streaming_tt"):
+        raise AssertionError(f"{arch}: a decode step launched no streaming_tt")
+    notes = [f"{arch}: launches per prefill {per_prefill}, per decode step "
+             f"(4 lanes) {per_decode}"]
+    notes += profile_decode(eng, caches, arch, ("K1 streaming_tt",))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    notes.append(f"{arch}: peak device memory {peak:.2f} GiB "
+                 "(torch.cuda.max_memory_allocated since the arch's first run)")
+    return notes
+
+
+def families_phase(device) -> tuple[dict, dict, list[str]]:
+    """Phase 4b: serve, check, time and profile each arch of
+    :data:`FAMILIES`.  Returns the launches of the serve runs (counts
+    zeroed just before them, read just after), the kernel rows at the
+    family shapes and the report lines."""
+    import torch
+
+    from repro_torch.kernels import launches
+
+    notes, counts = [], {}
+    torch.cuda.init()
+    launches.reset()
+    for arch in FAMILIES:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        c, n = family_serve(arch)
+        counts[arch] = c
+        notes += n + family_logits(arch, device) + family_engine(arch, device)
+        notes.append(f"{arch}: families phase {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in counts.values()) for k in launches.snapshot()}
+    notes.append(f"families serve-path launches per arch: {counts}")
+    rows, more = family_kernel_shapes(device)
+    return total, rows, notes + more
+
+
 def main() -> int:
     global PLANS
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1859,6 +2175,14 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} never launched by the rank "
                                      "plan's runs")
 
+        log("--- families: full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b")
+        t0 = time.perf_counter()
+        family_counts, family_rows, notes = families_phase(device)
+        for n in notes:
+            log(f"  {n}")
+        log(f"families: {time.perf_counter() - t0:.1f} s; serve-path launches "
+            f"{family_counts}")
+
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device) + calibration_check(device)):
             log(f"  {n}")
@@ -1904,7 +2228,8 @@ def main() -> int:
                       "serve_rank_plan": rank_counts[k["name"]],
                       "train": train_counts[k["name"]],
                       "tune": tune_counts[k["name"]],
-                      "serve_tuned": tuned_counts[k["name"]]},
+                      "serve_tuned": tuned_counts[k["name"]],
+                      "serve_families": family_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],
@@ -1913,7 +2238,13 @@ def main() -> int:
          "library_ms": k["library_ms"], "at": k["at"],
          **({"rank_plan": {key: rank_rows[k["name"]][key] for key in (
              "at", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
-             "bound_ms", "bound_by")}} if k["name"] in rank_rows else {})}
+             "bound_ms", "bound_by")}} if k["name"] in rank_rows else {}),
+         **({"families": {"max_abs_err": family_rows[k["name"]]["err"], "shapes": [
+             {key: r[key] for key in ("at", "ms", "graph_ms", "plain_ms",
+                                      "library_ms", "library_graph_ms",
+                                      "bound_ms", "bound_by")}
+             for r in family_rows[k["name"]]["rows"]]}}
+            if k["name"] in family_rows else {})}
         for k in kernels],
         "k1_rank_space_refusals": refusals}
     log(f"total {time.perf_counter() - t_start:.1f} s")

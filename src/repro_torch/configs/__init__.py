@@ -7,8 +7,9 @@ same-family variant for CPU tests).  ``get_config(name, tt=...,
 smoke=...)`` is the single entry point; the default is the TT-enabled
 deployment configuration (the paper's technique); ``tt=False`` gives the
 dense baseline.  The DSE plans every architecture; the port's model code
-runs the dense family so far (``repro_torch.models.api`` names the
-ROADMAP.md item of the others).
+serves every causal-LM family (dense, moe, hybrid, rwkv, vlm) and trains
+the dense one (``repro_torch.models.api`` names the ROADMAP.md item of
+the rest).
 """
 
 from __future__ import annotations

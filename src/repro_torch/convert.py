@@ -23,10 +23,14 @@ def _to_torch(tree, device) -> Any:
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """The port's parameters from the reference's ``init_params`` tree.
 
-    ``tree`` holds numpy leaves.  Key names (``core{k}``, ``w``, ``b``,
-    ``table``, ``scale``) stay as they are; the blocks, stacked on a
-    leading layer axis in the reference (``models/lm.py:88``), become a
-    list of per-layer dicts.
+    ``tree`` holds numpy leaves.  Key names stay the reference's
+    (``core{k}``, ``w``, ``b``, ``table``, ``scale``; the MoE's ``router``,
+    ``eu``/``eg``/``ed`` and ``shared``; the SSM's ``A_log``, ``D``,
+    ``dt_bias``, ``conv_w``/``conv_b``; RWKV's mixers, LoRA and channel-mix
+    leaves; the hybrid's top-level ``shared_attn``).  The blocks, stacked
+    on a leading layer axis in the reference (``models/lm.py:88``), become
+    a list of per-layer dicts; inside a layer the experts' leaves keep
+    their leading expert axis (``nn/moe.py:80``).
     """
     out = {k: _to_torch(v, device) for k, v in tree.items() if k != "blocks"}
     stacked = tree["blocks"]

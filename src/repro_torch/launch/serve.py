@@ -138,6 +138,10 @@ def run(argv=None) -> ServeRun:
         return ServeRun(2)
 
     cfg = get_config(args.arch, tt=not args.dense, smoke=args.smoke)
+    if cfg.family == "encdec":
+        print("error: the serve scheduler is causal-LM only; encdec runs "
+              "its own scalar-position decoder", file=sys.stderr)
+        return ServeRun(2)
     any_plan = bool(args.plan or args.plan_prefill or args.plan_decode)
     if args.plan:
         prefill_plan = decode_plan = _load_and_describe(args.plan, "plan")

@@ -1,4 +1,5 @@
-"""Model API (port of ``models/__init__.py::api`` for the dense family).
+"""Model API (port of ``models/__init__.py::api``): the causal-LM
+families dense, moe, hybrid, rwkv and vlm; encdec is not ported yet.
 
 ``api(cfg)`` returns uniform callables.  ``init_params`` takes a
 ``torch.Generator`` or an int seed; parameters and caches live on
@@ -19,13 +20,15 @@ from .config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable
-    #: (params, {"tokens", "labels"}) -> scalar loss, differentiable
+    #: (params, {"tokens", "labels"}) -> scalar loss, differentiable (the
+    #: dense family; the others raise)
     train_loss: Callable
     #: last-token prefill: (params, batch, max_seq) -> ((B, V), caches)
     prefill: Callable
     decode_step: Callable
     init_caches: Callable
-    #: full-logits prefill: (params, batch, max_seq) -> ((B, S, V), caches)
+    #: full-logits prefill: (params, batch, max_seq) -> ((B, S, V), caches);
+    #: a VLM batch may carry its ``frontend`` prefix
     prefill_full: Callable
 
 
@@ -41,10 +44,10 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
     ``plan=None`` clears it.  ``plan_backend`` forces one executor for all
     layers, with the reference's checks (``models/__init__.py:57-75``).
     """
-    if cfg.family != "dense":
+    if cfg.family == "encdec":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A item 12)")
+            "(ROADMAP.md, Queue A item 12b)")
     if plan_backend is not None:
         from repro_torch.plan.schema import BACKENDS
 

@@ -1,9 +1,17 @@
-"""Decoder-only LM, dense family (port of ``models/lm.py``).
+"""Decoder-only LM: dense / MoE / hybrid (Zamba2) / RWKV6 / VLM (port of
+``models/lm.py``).
 
 The reference stacks layer parameters on a leading axis and runs them
 under ``lax.scan``; here ``params["blocks"]`` is a list of per-layer dicts
-and the layers run in a Python loop.  Caches are a list of per-layer
-:class:`KVCache` updated in place.
+and the layers run in a Python loop.  Caches: attention families hold a
+list of per-layer :class:`KVCache` updated in place; RWKV a list of
+per-layer :class:`RWKVState`; the hybrid ``{"ssm": [SSMState per layer],
+"attn": [KVCache per group]}``.  Forward returns the new cache tree (new
+recurrent states, the same KV tensors).
+
+The hybrid family runs groups of ``attn_every`` Mamba layers with the one
+shared attention block applied after each group, then the tail of
+``n_layers % attn_every`` Mamba layers: Zamba2's parameter sharing.
 """
 
 from __future__ import annotations
@@ -19,12 +27,22 @@ from repro_torch.nn import (
     embedding_init,
     head_apply,
     init_kv_cache,
+    init_rwkv_state,
+    init_ssm_state,
     linear_apply,
     linear_init,
     rmsnorm,
     rmsnorm_init,
 )
-from .blocks import attn_spec, block_apply, block_init
+from .blocks import (
+    attn_spec,
+    block_apply,
+    block_init,
+    rwkv_spec,
+    shared_attn_apply,
+    shared_attn_init,
+    ssm_spec,
+)
 from .config import ModelConfig
 
 
@@ -38,6 +56,12 @@ def head_spec(cfg: ModelConfig) -> LinearSpec:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, remainder_layers) for the hybrid family."""
+    g = cfg.attn_every if cfg.attn_every else cfg.n_layers
+    return cfg.n_layers // g, cfg.n_layers % g
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -56,6 +80,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["head"] = linear_init(head_spec(cfg), generator, dtype, device)
     params["blocks"] = [block_init(cfg, generator, dtype, device)
                         for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = shared_attn_init(cfg, generator, dtype, device)
     return params
 
 
@@ -63,30 +89,99 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype: Optional[torch.dtype] = None, device="cuda"):
     """Per-layer decode caches in ``cfg.dtype`` unless told otherwise."""
     dtype = dtype or _dtype(cfg)
-    return [init_kv_cache(attn_spec(cfg), batch, max_seq, dtype, device)
-            for _ in range(cfg.n_layers)]
+
+    def kv():
+        return init_kv_cache(attn_spec(cfg), batch, max_seq, dtype, device)
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        return [kv() for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        n_groups, _ = _hybrid_groups(cfg)
+        return {"ssm": [init_ssm_state(ssm_spec(cfg), batch, dtype, device)
+                        for _ in range(cfg.n_layers)],
+                "attn": [kv() for _ in range(n_groups)]}
+    if cfg.family == "rwkv":
+        return [init_rwkv_state(rwkv_spec(cfg), batch, dtype, device)
+                for _ in range(cfg.n_layers)]
+    raise ValueError(cfg.family)
 
 
 def _device(params: dict) -> torch.device:
     return params["ln_f"]["scale"].device
 
 
+def _run_layers(cfg, blocks, layers, x, positions, caches, cache_pos, aux):
+    """Run ``blocks[l]`` for ``l`` in ``layers``; returns (x, new caches of
+    those layers or None, aux)."""
+    new = [] if caches is not None else None
+    for layer in layers:
+        c_l = caches[layer] if caches is not None else None
+        x, nc, a = block_apply(cfg, blocks[layer], x, positions, c_l, cache_pos)
+        aux = aux + a
+        if new is not None:
+            new.append(nc)
+    return x, new, aux
+
+
+def _run_blocks(cfg, params, x, positions, caches, cache_pos):
+    """Run every layer.  Returns (x, new_caches, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        return _run_hybrid(cfg, params, x, positions, caches, cache_pos, aux)
+    return _run_layers(cfg, params["blocks"], range(cfg.n_layers), x, positions,
+                       caches, cache_pos, aux)
+
+
+def _run_hybrid(cfg, params, x, positions, caches, cache_pos, aux):
+    """Groups of ``attn_every`` Mamba layers + shared attention per group,
+    then the remainder layers."""
+    n_groups, _ = _hybrid_groups(cfg)
+    g = cfg.attn_every if cfg.attn_every else cfg.n_layers
+    has_cache = caches is not None
+    ssm_c = caches["ssm"] if has_cache else None
+    new_ssm: list = []
+    new_attn: list = []
+    for gi in range(n_groups):
+        x, ns, aux = _run_layers(cfg, params["blocks"], range(gi * g, (gi + 1) * g),
+                                 x, positions, ssm_c, cache_pos, aux)
+        x, na = shared_attn_apply(cfg, params["shared_attn"], x, positions,
+                                  caches["attn"][gi] if has_cache else None,
+                                  cache_pos)
+        if has_cache:
+            new_ssm += ns
+            new_attn.append(na)
+    x, ns, aux = _run_layers(cfg, params["blocks"], range(n_groups * g, cfg.n_layers),
+                             x, positions, ssm_c, cache_pos, aux)
+    new_caches = {"ssm": new_ssm + ns, "attn": new_attn} if has_cache else None
+    return x, new_caches, aux
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            caches=None, cache_pos=None):
-    """Returns (logits, caches).  Prefill: full sequence; decode: S == 1
-    with a scalar or per-lane ``(B,)`` ``cache_pos``."""
+            frontend: Optional[torch.Tensor] = None, caches=None,
+            cache_pos=None):
+    """Returns (logits, caches, aux_loss).
+
+    Prefill: the full sequence; decode: S == 1 with a scalar or per-lane
+    ``(B,)`` ``cache_pos``.  VLM: the ``frontend`` prefix (B, P, D) is
+    prepended to the token embeddings (prefill only) and its positions are
+    cut from the logits.
+    """
     x = embedding_apply(embed_spec(cfg), params["embed"], tokens)
+    n_prefix = 0
+    if cfg.family == "vlm" and frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+        n_prefix = frontend.shape[1]
     b, s, _ = x.shape
     base = torch.as_tensor(cache_pos if cache_pos is not None else 0,
                            device=x.device)
     ar = torch.arange(s, device=x.device)
     positions = base[:, None] + ar[None, :] if base.dim() == 1 else base + ar[None, :]
     positions = torch.broadcast_to(positions, (b, s))
-    for layer, p_l in enumerate(params["blocks"]):
-        c_l = caches[layer] if caches is not None else None
-        x, _ = block_apply(cfg, p_l, x, positions, c_l, cache_pos)
+    x, caches, aux = _run_blocks(cfg, params, x, positions, caches, cache_pos)
     x = rmsnorm(params["ln_f"], x)
-    return apply_head(cfg, params, x), caches
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return apply_head(cfg, params, x), caches, aux
 
 
 def apply_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -106,26 +201,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Next-token loss of ``batch = {"tokens", "labels"}`` (both (B, S)).
 
-    The dense family has no auxiliary loss, so this is the cross-entropy
-    alone.  The reference's sequence-chunked head + loss
-    (``cfg.loss_chunk``) and rematerialisation (``cfg.remat``) are not
-    ported (ROADMAP.md, Queue A item 12): a config that chunks its loss
-    raises, and the port keeps every activation for the backward pass.
+    Dense family only: it has no auxiliary loss, so this is the
+    cross-entropy alone.  Training the other families (their aux loss), the
+    reference's sequence-chunked head + loss (``cfg.loss_chunk``) and
+    rematerialisation (``cfg.remat``) are not ported (ROADMAP.md, Queue A
+    item 12b): they raise, and the port keeps every activation for the
+    backward pass.
     """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            "yet (ROADMAP.md, Queue A item 12b)")
     if cfg.loss_chunk:
         raise NotImplementedError(
             f"{cfg.name}: loss_chunk={cfg.loss_chunk} (chunked cross-entropy) "
-            "is not ported yet (ROADMAP.md, Queue A item 12)")
-    logits, _ = forward(cfg, params, batch["tokens"])
+            "is not ported yet (ROADMAP.md, Queue A item 12b)")
+    logits, _, _ = forward(cfg, params, batch["tokens"])
     return cross_entropy(logits, batch["labels"])
 
 
 def prefill_full(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
-    """Run the prompt, returning the full (B, S, V) logits and primed caches."""
+    """Run the prompt (after ``batch["frontend"]`` for a VLM), returning the
+    full (B, S, V) logits and primed caches."""
     tokens = batch["tokens"]
     caches = init_caches(cfg, tokens.shape[0], max_seq, device=_device(params))
-    return forward(cfg, params, tokens, caches=caches,
-                   cache_pos=torch.zeros((), dtype=torch.long))
+    logits, caches, _ = forward(cfg, params, tokens, frontend=batch.get("frontend"),
+                                caches=caches,
+                                cache_pos=torch.zeros((), dtype=torch.long))
+    return logits, caches
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
@@ -137,7 +240,6 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,
                 cache_pos):
     """One decode step: returns (logits (B, V), caches)."""
-    logits, caches = forward(cfg, params, token, caches=caches,
-                             cache_pos=cache_pos)
+    logits, caches, _ = forward(cfg, params, token, caches=caches,
+                                cache_pos=cache_pos)
     return logits[:, -1], caches
-

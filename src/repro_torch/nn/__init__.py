@@ -1,7 +1,6 @@
-"""Layers of the dense family: TT/dense linear, norms, RoPE, embedding,
-MLP and GQA attention (ports of ``src/repro/nn/``), and the specs of the
-MoE, SSM and RWKV layers (their forward passes wait for ROADMAP.md Queue
-A item 12)."""
+"""Layers (ports of ``src/repro/nn/``): TT/dense linear, norms, RoPE,
+embedding, MLP, GQA attention, the capacity-routed MoE FFN, the Mamba2
+(SSD) block and the RWKV6 time/channel mix."""
 
 from .linear import (
     LinearSpec,
@@ -27,9 +26,16 @@ from .attention import (
     attention_init,
     init_kv_cache,
 )
-from .moe import MoESpec
-from .ssm import SSMSpec
-from .rwkv import RWKVSpec
+from .moe import MoESpec, moe_apply, moe_init
+from .ssm import SSMSpec, SSMState, init_ssm_state, ssm_apply, ssm_init
+from .rwkv import (
+    RWKVSpec,
+    RWKVState,
+    init_rwkv_state,
+    rwkv_channel_mix,
+    rwkv_init,
+    rwkv_time_mix,
+)
 
 __all__ = [
     "LinearSpec", "TTConfig", "capture_activation_rms", "install_plan",
@@ -40,5 +46,8 @@ __all__ = [
     "EmbeddingSpec", "embedding_apply", "embedding_init", "head_apply",
     "MLPSpec", "mlp_apply", "mlp_init",
     "AttentionSpec", "KVCache", "attention_apply", "attention_init",
-    "init_kv_cache", "MoESpec", "SSMSpec", "RWKVSpec",
+    "init_kv_cache", "MoESpec", "moe_apply", "moe_init",
+    "SSMSpec", "SSMState", "init_ssm_state", "ssm_apply", "ssm_init",
+    "RWKVSpec", "RWKVState", "init_rwkv_state", "rwkv_channel_mix",
+    "rwkv_init", "rwkv_time_mix",
 ]

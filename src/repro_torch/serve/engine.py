@@ -19,10 +19,11 @@ own plan and inside :func:`repro_torch.plan.execution_stream`.  Plans are
 validated against the model config (and their ``phase`` stamp) at
 construction.
 
-Caches are updated in place: where the JAX engine donated its cache
-buffers to each jitted step, this engine writes new K/V rows into the
-cache tensors it holds and admits a prefilled request by copying its
-batch-1 caches into a decode lane.
+Caches: where the JAX engine donated its cache buffers to each jitted
+step, attention layers here write new K/V rows into the cache tensors in
+place, recurrent layers (Mamba2, RWKV6) return new state tensors, and a
+prefilled request is admitted by copying every leaf of its batch-1 cache
+tree into a decode lane.
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ class ServeEngine:
 
     ``n_slots`` is the fixed decode width; ``prompt_bucket`` rounds prompt
     lengths up to a multiple (token 0 padding: the padded K/V sits beyond
-    each lane's valid horizon and is overwritten as decoding proceeds).
-    The device is the one the parameters live on.
+    each lane's valid horizon and is overwritten as decoding proceeds;
+    recurrent-state families force a bucket of 1, since padding tokens
+    would advance their state).  The device is the one the parameters live
+    on.
     """
 
     def __init__(
@@ -60,10 +63,11 @@ class ServeEngine:
         arch: str = "",
         plan_backend: Optional[str] = None,
     ) -> None:
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet "
-                "(ROADMAP.md, Queue A item 12)")
+        if cfg.family == "encdec":
+            raise ValueError(
+                "serve scheduler is causal-LM only: encdec runs its own "
+                "scalar-position decoder (not ported yet: ROADMAP.md, Queue "
+                "A item 12b)")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1 (got {n_slots})")
         if prompt_bucket < 1:
@@ -107,7 +111,8 @@ class ServeEngine:
         self.device = params["ln_f"]["scale"].device
         self.n_slots = int(n_slots)
         self.max_seq = int(max_seq)
-        self.prompt_bucket = int(prompt_bucket)
+        # padding would advance recurrent state: exact lengths only
+        self.prompt_bucket = 1 if cfg.supports_long_context else int(prompt_bucket)
         self.prefill_plan = prefill_plan
         self.decode_plan = decode_plan
         self._plan_backend = plan_backend
@@ -121,7 +126,8 @@ class ServeEngine:
         """Prefill one prompt at batch 1 under the prefill plan.
 
         Returns ``(last_logits (V,) np.ndarray, batch-1 caches)``, the
-        logits taken at the last real token of the bucket-padded prompt.
+        logits taken at the last real token of the bucket-padded prompt
+        (in fp32: a bf16 model's logits widen exactly).
         """
         p = len(prompt)
         pp = self.padded_len(p)
@@ -135,25 +141,25 @@ class ServeEngine:
                 logits, caches = self._m.prefill_full(
                     self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
                     self.max_seq)
-        return logits[0, p - 1].cpu().numpy(), caches
+        return logits[0, p - 1].float().cpu().numpy(), caches
 
     def fresh_caches(self):
         """Zeroed width-``n_slots`` decode caches."""
         return self._m.init_caches(self.n_slots, self.max_seq)
 
     def admit(self, caches, small, slot: int):
-        """Copy prefilled batch-1 caches into decode lane ``slot`` (in place)."""
-        for big_l, small_l in zip(caches, small):
-            big_l.k[slot].copy_(small_l.k[0])
-            big_l.v[slot].copy_(small_l.v[0])
+        """Copy a prefilled batch-1 cache tree into decode lane ``slot``:
+        every leaf (K/V rows, SSM and RWKV states), in place."""
+        _copy_lane(caches, small, slot)
         return caches
 
     def decode(self, tok: np.ndarray, pos: np.ndarray, caches):
         """One fixed-width decode step under the decode plan.
 
         ``tok``/``pos`` are ``(n_slots,)`` host arrays (free lanes pass 0).
-        Returns ``(logits (n_slots, V) np.ndarray, caches)``; the caches are
-        updated in place.
+        Returns ``(logits (n_slots, V) np.ndarray, caches)``: K/V rows are
+        written in place, recurrent states are new, so the caller uses the
+        returned tree.
         """
         with plan_context(self.decode_plan, force_backend=self._plan_backend):
             with execution_stream("decode"):
@@ -163,4 +169,17 @@ class ServeEngine:
                                     device=self.device),
                     caches,
                     torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
-        return logits.cpu().numpy(), caches
+        return logits.float().cpu().numpy(), caches
+
+
+def _copy_lane(big, small, slot: int) -> None:
+    """``big_leaf[slot] = small_leaf[0]`` over two cache trees of one
+    structure (lists, dicts and named tuples of tensors; batch on axis 0)."""
+    if isinstance(big, torch.Tensor):
+        big[slot].copy_(small[0])
+    elif isinstance(big, dict):
+        for k in big:
+            _copy_lane(big[k], small[k], slot)
+    else:
+        for b, s in zip(big, small, strict=True):
+            _copy_lane(b, s, slot)

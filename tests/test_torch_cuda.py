@@ -60,11 +60,13 @@ def _np(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
 
 
-def streaming_cases():
+def streaming_cases(pattern: str = "tt-lm-*.json"):
     """(plan file, layer) for every distinct streaming_tt layer of the
-    committed plans: each is a path geometry the CUDA kernel must run."""
+    committed plans matching ``pattern`` (the tt-lm plans by default; the
+    family pairs' layers have their own tests): each is a path geometry
+    the CUDA kernel must run."""
     cases, seen = [], set()
-    for f in sorted(PLANS.glob("*.json")):
+    for f in sorted(PLANS.glob(pattern)):
         plan = json.loads(f.read_text())
         for lp in plan["layers"]:
             key = (plan["arch"], "smoke" in f.name, lp["name"],
@@ -77,16 +79,17 @@ def streaming_cases():
 
 
 def plan_layer(plan_file: str, name: str):
-    """(layer plan JSON, the model's network for that projection, under the
-    plan's searched factorizations where it has them)."""
+    """(layer plan JSON, the network of that projection in the plan's arch,
+    under the plan's searched factorizations where it has them)."""
     smoke = "smoke" in plan_file
-    layers = json.loads((PLANS / plan_file).read_text())["layers"]
+    plan = json.loads((PLANS / plan_file).read_text())
+    layers = plan["layers"]
     lp = next(l for l in layers if l["name"] == name)
     facts = {l["name"]: (tuple(l["factorization"]["out_modes"]),
                          tuple(l["factorization"]["in_modes"]),
                          tuple(l["factorization"]["ranks"]))
              for l in layers if l.get("factorization")}
-    families = dict(model_dse_layers(get_config("tt-lm-100m", smoke=smoke), tokens=8,
+    families = dict(model_dse_layers(get_config(plan["arch"], smoke=smoke), tokens=8,
                                      factorizations=facts or None))
     tn = families.get(name) or families[f"{name}[0]"]
     return lp, tn
@@ -1093,3 +1096,141 @@ def test_fused_path_cuda_at_every_swept_variant(cuda_device):
                 work.append((tuple(x for x in ea if x not in shared)
                              + tuple(x for x in eb if x not in shared), val))
     assert n >= len(sweep_variants()["fused"])
+
+
+# ---------------------------------------------------------------------------
+# the MoE, hybrid (Mamba2), RWKV6 and VLM families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "rwkv6-7b", "internvl2-2b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["streaming_tt", "tt_gemm"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_forward_cuda_matches_plain(cuda_device, arch, backend, tmp_path):
+    """Each family's smoke model on the card under a plan pair forced to
+    one kernel backend (emitted by the port's DSE): prefill logits (a VLM
+    with its frontend prefix) and two decode steps with per-lane positions
+    against the plain executor on the card, within 1e-4 of the logits'
+    scale; the backend's kernels launched."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan, plan_context
+
+    prefix = str(tmp_path / "pair")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert dse_cli.main(["--arch", arch, "--smoke", "--top-k", "2", "--tokens",
+                             "16", "--serve-slots", "2", "--plan-backend", backend,
+                             "--emit-plan-pair", prefix, "--out", os.devnull]) == 0
+    pre, dec = (load_plan(f"{prefix}.{p}.json") for p in ("prefill", "decode"))
+    cfg = get_config(arch, smoke=True)
+    m = api(cfg, plan=None, device=cuda_device)
+    params = m.init_params(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12))).to(
+        cuda_device)}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.from_numpy(
+            _np((2, cfg.n_frontend_tokens, cfg.d_model), 3)).to(cuda_device)
+    n_prefix = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    outs = {}
+    try:
+        for label, force in (("kernels", None), ("plain", "jnp")):
+            launches.reset()
+            with plan_context(pre, force_backend=force):
+                logits, caches = m.prefill_full(params, batch, 16 + n_prefix)
+            got = [logits]
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            pos = torch.tensor([12 + n_prefix, 7], device=cuda_device)
+            for step in range(2):
+                with plan_context(dec, force_backend=force):
+                    step_logits, caches = m.decode_step(params, tok, caches, pos + step)
+                got.append(step_logits)
+                tok = torch.argmax(step_logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            outs[label] = (got, dict(launches.COUNTS))
+    finally:
+        install_plan(None)
+    kernels = ("streaming_tt",) if backend == "streaming_tt" else (
+        "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is", "fused_path")
+    assert sum(outs["kernels"][1][k] for k in kernels) > 0
+    assert sum(outs["plain"][1].values()) == 0
+    for got, want in zip(outs["kernels"][0], outs["plain"][0]):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+#: (plan file, layer) of every distinct streaming_tt layer of the committed
+#: full-width family pairs (qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b)
+FAMILY_STREAMING = streaming_cases("*.pair.*.json")
+FAMILY_STREAMING = [c for c in FAMILY_STREAMING if not c[0].startswith("tt-lm")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name", FAMILY_STREAMING)
+def test_streaming_tt_cuda_family_layers_match_plain(cuda_device, plan_file, name):
+    """K1 at every streaming layer of the family pairs (the experts' out
+    mode of 11, rwkv6's 16 x 16 x 16 inputs and 14336-wide channel mix):
+    at 1, 4, 32, 37 and 2048 tokens within 1e-4 of the output's scale (the
+    outputs of these fan-ins reach ~10); row 0 bit for bit against a
+    one-row call, the first 5 rows of 2048 against a 5-token call; in bf16
+    at 4 tokens against the plain version at 8e-2 of the output's scale."""
+    lp, tn = plan_layer(plan_file, name)
+    launches.reset()
+    for tokens in (1, 4, 32, 37, 2048):
+        bt = ops.clamp_block(lp["tiling"]["block_tokens"], tokens)
+        net = streaming_tt._rebatch(tn, bt)
+        path = as_candidate_path(net, lp["path_steps"])
+        x, cores = k1_inputs(net, tokens, cuda_device, 180)
+        got = streaming_tt.streaming_tt_linear(x, cores, net, path, block_tokens=bt)
+        want = streaming_tt.streaming_tt_linear_plain(x, cores, net, path)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+        for rows in (1, 5):
+            part = streaming_tt.streaming_tt_linear(x[:rows].contiguous(), cores, net,
+                                                    path, block_tokens=bt)
+            assert torch.equal(part, got[:rows])
+        if tokens == 4:
+            xb, cb = x.to(torch.bfloat16), [c.to(torch.bfloat16) for c in cores]
+            got = streaming_tt.streaming_tt_linear(xb, cb, net, path, block_tokens=bt)
+            want = streaming_tt.streaming_tt_linear_plain(xb, cb, net, path).float()
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.cpu().numpy(), rtol=BF16["rtol"],
+                atol=BF16["atol"] * max(1.0, want.abs().max().item()))
+    assert launches.COUNTS["streaming_tt"] == 5 * 3 + 1
+
+
+def family_gemm_shapes():
+    """(M, K, N) and clamped blocks of every GEMM the committed family
+    prefill plans run on tt_gemm (``test_torch_family_kernels.GEMMS``)."""
+    from test_torch_family_kernels import GEMMS
+
+    return sorted({case[2:] for case in GEMMS})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", family_gemm_shapes())
+def test_tt_gemm_cuda_family_shapes_match_plain_dataflows_bit_identical(cuda_device,
+                                                                      case):
+    """K2-K4 at the full-width family plans' GEMMs (zamba2's 8384 = 131 x 64
+    rows, rwkv6's 14336 channel mix) with the plan's clamped blocks: the
+    plain version within 1e-5, WS == OS == IS bit for bit, and row 0 bit
+    for bit against a one-row call."""
+    m, k, n, bm, bk, bn = case
+    a = torch.from_numpy(_np((m, k), 170)).to(cuda_device)
+    b = torch.from_numpy(_np((k, n), 171)).to(cuda_device)
+    blk = dict(block_m=bm, block_k=bk, block_n=bn)
+    outs = [tt_gemm.tt_gemm(a, b, dataflow=df, **blk) for df in DATAFLOWS]
+    want = tt_gemm.tt_gemm_plain(a, b, **blk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(outs[0].cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * max(1.0, want.abs().max().item()))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    row = tt_gemm.tt_gemm(a[:1].contiguous(), b, dataflow="WS", **blk)
+    assert torch.equal(row[0], outs[1][0])
