@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
-full-width qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b serving, on one
-NVIDIA card.
+full-width qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b serving and
+training, on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -73,6 +73,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    arch; K1 and K3 at every new main-path shape against their plain
    versions, timed beside one ``torch.einsum`` / ``torch.matmul`` and the
    bound.
+4c. families train (after the families phase): full-width, full-depth
+   qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16,
+   ``remat="full"``, ``loss_chunk=256``) through ``python -m
+   repro_torch.launch.train``'s code path under their train plans
+   (emitted in the dse phase), batch 4 x seq 512: AdamW steps
+   (:data:`FAMILY_TRAIN_RUNS`: 3 each, qwen2-moe 2), zamba2 also under
+   ``zamba2-1.2b.train.tt_gemm.json`` (K5 fused segments) and for 2 steps
+   with ``--grad-compress`` (its checkpoint must restore).  Every loss and
+   gradient norm finite, every step launches K1 forward and dx and K3
+   (the tt_gemm run: K3 and K5), or the run fails.  Step 0 in fp32
+   through the kernels against the plain executor on the card: the loss
+   and the gradient norm at rel 1e-4, every gradient leaf at ``||g -
+   g_plain|| / ||g_plain||`` <= 1e-4 or 10x the plain executor's own
+   fp32-vs-float64 gap of that leaf (rwkv6-7b at 4 layers; 4, 8, 16 and
+   32 layers reported); per arch the step
+   ms, train tokens/s, launches per step (the remat recompute
+   included), peak device memory and one profiled step (busy share, top
+   device ops).
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -103,9 +121,10 @@ The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
-"serve_tuned": v, "serve_families": f}`` (``r`` is the part of ``n`` from
-the rank plan's runs; ``u`` the tune phase's measurements, ``v`` its
-serving under the measured plans, ``f`` the families' serve runs), each
+"serve_tuned": v, "serve_families": f, "train_families": t}`` (``r`` is
+the part of ``n`` from the rank plan's runs; ``u`` the tune phase's
+measurements, ``v`` its serving under the measured plans, ``f`` the
+families' serve runs, ``t`` the families' train runs), each
 path's counts zeroed just before it and read just after, its times at
 the rank plan's shapes (``rank_plan``) and at the family shapes
 (``families``, K1 and K3) and the K1 refusals over the rank space; the
@@ -117,6 +136,7 @@ package is imported.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -169,6 +189,15 @@ EMIT = {
     "zamba2-1.2b.pair.decode.json": ["--arch", "zamba2-1.2b", "--serve-slots", "4"],
     "rwkv6-7b.pair.prefill.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
     "rwkv6-7b.pair.decode.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
+    "qwen2-moe-a2.7b.train.json": ["--arch", "qwen2-moe-a2.7b", "--mode", "train",
+                                   "--tokens", "2048"],
+    "zamba2-1.2b.train.json": ["--arch", "zamba2-1.2b", "--mode", "train",
+                               "--tokens", "2048"],
+    "zamba2-1.2b.train.tt_gemm.json": ["--arch", "zamba2-1.2b", "--mode", "train",
+                                       "--tokens", "2048", "--plan-backend",
+                                       "tt_gemm"],
+    "rwkv6-7b.train.json": ["--arch", "rwkv6-7b", "--mode", "train",
+                            "--tokens", "2048"],
 }
 #: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
 BF16_TOL = 8e-2
@@ -1408,18 +1437,57 @@ def _dev_us(e) -> float:
         e, "self_cuda_time_total", 0)
 
 
-def device_time(avgs) -> tuple[float, float, list]:
-    """(ms the card was busy, ms of every event's device time summed, the
-    device events by time).  Only events that ran on the card (kernels,
-    copies) count as busy time: a host-side op (an aten op, an autograd
-    Function) also carries the device time of the kernels it launched,
-    so summing every event counts those kernels twice."""
+#: one device function's totals (device time in us), in the fields
+#: :func:`kernel_split` and :func:`_dev_us` read
+_Kernel = collections.namedtuple("_Kernel", "key count self_device_time_total")
+
+
+def device_kernels(prof) -> tuple[float, list]:
+    """(ms the card was busy, device functions by time) from the profiler's
+    raw records of device activity (kernels, copies).  A host-side op (an
+    aten op, an autograd Function) also carries the device time of the
+    kernels it launched, so only device records count.  ``key_averages``
+    builds one Python event per record, minutes for the ~170 000 kernels of
+    a qwen2-moe train step; summing the raw records takes seconds."""
     from torch.autograd import DeviceType
 
-    on_card = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    return (sum(_dev_us(e) for e in on_card) / 1e3,
-            sum(_dev_us(e) for e in avgs) / 1e3,
-            sorted(on_card, key=_dev_us, reverse=True))
+    agg: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, n = agg.get(e.name(), (0, 0))
+            agg[e.name()] = (ns + e.duration_ns(), n + 1)
+    rows = sorted((_Kernel(k, n, ns / 1e3) for k, (ns, n) in agg.items()),
+                  key=_dev_us, reverse=True)
+    return sum(_dev_us(r) for r in rows) / 1e3, rows
+
+
+def profiled(run, host: bool = False) -> tuple | str:
+    """Run ``run()`` once under ``torch.profiler``: (host wall ms, ms the
+    card was busy, every event's device time summed in ms (with ``host``,
+    which records the host's ops too; else None), device functions by
+    time), or ``"not measured (...)"`` when the profiler fails to start or
+    to be read.  The profiler is optional instrumentation; an error raised
+    by ``run`` is not, and propagates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA]
+                   + ([ProfilerActivity.CPU] if host else []))
+    try:
+        prof.start()
+    except Exception as e:  # the profiler's own failure
+        return f"not measured ({type(e).__name__}: {e})"
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        prof.stop()
+        busy, top = device_kernels(prof)
+        every = sum(_dev_us(e) for e in prof.key_averages()) / 1e3 if host else None
+    except Exception as e:  # the profiler's own failure
+        return f"not measured ({type(e).__name__}: {e})"
+    return wall, busy, every, top
 
 
 def kernel_split(top, busy: float, n: int, kernels) -> list[str]:
@@ -1481,7 +1549,6 @@ def profile_decode(eng, caches, label: str, kernels) -> list[str]:
     measured" and the run goes on."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
 
@@ -1493,20 +1560,11 @@ def profile_decode(eng, caches, label: str, kernels) -> list[str]:
     steps(3)
     torch.cuda.synchronize()
     n = 5
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            steps(n)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / n
-        avgs = prof.key_averages()
-    except Exception as e:  # the profiler is optional instrumentation here
-        return [f"decode step profile ({label}): not measured "
-                f"({type(e).__name__}: {e})"]
-
-    busy, every, top = device_time(avgs)
-    busy, every = busy / n, every / n
+    res = profiled(lambda: steps(n), host=True)
+    if isinstance(res, str):
+        return [f"decode step profile ({label}): {res}"]
+    wall, busy, every, top = res
+    wall, busy, every = wall / n, busy / n, every / n
     if busy <= 0:
         return [f"decode step ({label}, 4 lanes): {wall:.2f} ms wall; card "
                 "busy time not measured (the profiler saw no device time)"]
@@ -1749,13 +1807,15 @@ def weight_grad_gemms(device) -> list[str]:
         lib_dev, e in rows]
 
 
-def train_profile(device) -> list[str]:
-    """Where one full-width train step goes, per train plan: host wall,
-    the card's busy time (``torch.profiler``) and the kernels that take
-    the most of it.  A measurement only: without device time the lines
-    say "not measured"."""
+def train_profile(arch, plan_file, seq, batch, kernels, device,
+                  warmup: bool = False) -> list[str]:
+    """Where one full-width train step of ``arch`` (seed-0 weights, the
+    config's dtype, remat and loss_chunk) under ``plan_file`` goes, after
+    one unprofiled step if ``warmup``: host wall, the card's busy share and
+    the device functions that take the most of it (``torch.profiler``,
+    device activity only), and the device time of ``kernels``.  A
+    measurement only: without device time the lines say "not measured"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
@@ -1766,45 +1826,39 @@ def train_profile(device) -> list[str]:
     from repro_torch.plan import load_plan
     from repro_torch.tree import leaves
 
-    cfg = get_config("tt-lm-100m")
-    notes = []
-    for name in TRAIN_PLANS:
-        install_plan(load_plan(os.path.join(PLANS, name)))
+    cfg = get_config(arch)
+    install_plan(load_plan(os.path.join(PLANS, plan_file)))
+    try:
         params = api(cfg, device=device).init_params(0)
         for p in leaves(params):
             p.requires_grad_(True)
-        opt = adamw_init(params)
+        state = [params, adamw_init(params)]
         step = make_train_step(cfg)
-        batch = {k: torch.from_numpy(v).long().to(device)
-                 for k, v in make_pipeline(cfg.vocab, 256, 8).batch(0).items()}
-        params, opt, _ = step(params, opt, batch)
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                params, opt, _ = step(params, opt, batch)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            avgs = prof.key_averages()
-        except Exception as e:  # the profiler is optional instrumentation here
-            notes.append(f"{name} train step profile: not measured "
-                         f"({type(e).__name__}: {e})")
-            continue
+        data = {k: torch.from_numpy(v).long().to(device)
+                for k, v in make_pipeline(cfg.vocab, seq, batch).batch(0).items()}
 
-        busy, _, top = device_time(avgs)
-        if busy <= 0:
-            notes.append(f"{name} train step: {wall:.1f} ms wall (profiled); card "
-                         "busy time not measured (no device time recorded)")
-            continue
-        notes.append(f"{name} train step (torch.profiler, 1 step): {wall:.1f} ms "
-                     f"wall, card busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
-                     f"idle {100 * (1 - busy / wall):.1f}%")
-        notes.append("  top device time: " + "; ".join(
-            f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8]))
-        notes += kernel_split(top, busy, 1, TRAIN_PROFILE)
-    install_plan(None)
-    return notes
+        def one_step():
+            state[0], state[1], _ = step(state[0], state[1], data)
+
+        if warmup:
+            one_step()
+        torch.cuda.synchronize()
+        res = profiled(one_step)
+    finally:
+        install_plan(None)
+    label = f"{arch} {plan_file} train step"
+    if isinstance(res, str):
+        return [f"{label} profile: {res}"]
+    wall, busy, _, top = res
+    if busy <= 0:
+        return [f"{label}: {wall:.1f} ms wall (profiled); card busy time not "
+                "measured (no device time recorded)"]
+    return [f"{label} (torch.profiler, 1 step): {wall:.1f} ms wall, card busy "
+            f"{busy:.1f} ms ({100 * busy / wall:.1f}%), idle "
+            f"{100 * (1 - busy / wall):.1f}%",
+            "  top device time: " + "; ".join(
+                f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}" for e in top[:8])
+            ] + kernel_split(top, busy, 1, kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -2092,6 +2146,269 @@ def families_phase(device) -> tuple[dict, dict, list[str]]:
     return total, rows, notes + more
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: training the MoE, hybrid (Mamba2) and RWKV6 families at full width
+# ---------------------------------------------------------------------------
+
+#: full-width train runs of the families-train phase: (arch, train plan,
+#: extra argv, steps); each runs ``python -m repro_torch.launch.train``'s
+#: code path at full width and depth, in the config's dtype, remat and
+#: loss_chunk, batch 4 x seq 512 (the plans' 2048 tokens; two interleaved
+#: loss chunks of 256).  qwen2-moe-a2.7b takes 2 steps, not 3: a step
+#: makes ~168 000 wrapper calls (28-41 s on an H100, host-bound), and the
+#: phase has to stay near 300 s
+FAMILY_TRAIN_RUNS = (
+    ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b.train.json", [], 2),
+    ("zamba2-1.2b", "zamba2-1.2b.train.json", [], 3),
+    ("zamba2-1.2b", "zamba2-1.2b.train.tt_gemm.json", [], 3),
+    ("rwkv6-7b", "rwkv6-7b.train.json", [], 3),
+    ("zamba2-1.2b", "zamba2-1.2b.train.json", ["--grad-compress"], 2),
+)
+FAMILY_TRAIN = ["--batch", "4", "--seq", "512", "--log-every", "1"]
+FAMILY_TRAIN_TOKENS = 4 * 512
+#: execution-log ring for the phase: a qwen2-moe step writes ~45 000
+#: records (one per planned call, forward, recompute and backward), more
+#: than the default 4096, and K1's forward and dx launches are told apart
+#: by their records
+FAMILY_TRAIN_LOG = 400_000
+
+
+def _family_train_run(arch, plan_file, extra, steps, ckpt) -> tuple[object, list[str]]:
+    """One train run; returns (its ``TrainRun``, report lines).  Fails
+    unless every loss and gradient norm is finite and each step launched
+    the kernels its plan names: K1 forward and dx and K3 under an auto
+    plan, K3 and K5 under the tt_gemm plan."""
+    from repro_torch.launch.train import run
+    from repro_torch.plan import execution_log
+
+    log(f"--- families train: {arch}, {plan_file} {' '.join(extra)}")
+    out = run(["--arch", arch, "--plan", os.path.join(PLANS, plan_file), "--steps",
+               str(steps), "--ckpt-dir", ckpt] + extra + FAMILY_TRAIN)
+    label = f"{plan_file}{' ' + ' '.join(extra) if extra else ''}"
+    if out.code != 0 or len(out.losses) != steps:
+        raise AssertionError(f"train {label} exited {out.code}")
+    if not all(math.isfinite(x) for x in out.losses + out.grad_norms):
+        raise AssertionError(f"train {label}: non-finite {out.losses} {out.grad_norms}")
+    recs = execution_log()
+    k1_fwd = sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt" for r in recs)
+    k1_dx = sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
+                and r["backend"] == "streaming_tt" for r in recs)
+    need = ("tt_gemm_ws", "fused_path") if "tt_gemm" in plan_file else \
+        ("streaming_tt", "tt_gemm_ws")
+    for i, per in enumerate(out.launches):
+        for k in need:
+            if per[k] <= 0:
+                raise AssertionError(f"train {label}: step {i} launched no {k}")
+    if "tt_gemm" not in plan_file and (k1_fwd <= 0 or k1_dx <= 0):
+        raise AssertionError(f"train {label}: K1 forward {k1_fwd}, dx {k1_dx} calls")
+    steady = out.step_s[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    per_step = {k: v for k, v in out.launches[-1].items() if v}
+    return out, [
+        f"{arch} {label}: {out.n_params} parameters; losses "
+        f"{[round(x, 6) for x in out.losses]}, grad norms "
+        f"{[round(x, 6) for x in out.grad_norms]}; step ms first "
+        f"{1e3 * out.step_s[0]:.1f}, then {[round(1e3 * t, 1) for t in steady]} "
+        f"(mean {ms:.1f}); {FAMILY_TRAIN_TOKENS / ms * 1e3:.1f} train tokens/s; "
+        f"launches per step {per_step} (the remat recompute included); K1 calls "
+        f"over the run: forward {k1_fwd // steps} a step (recompute included), "
+        f"dx {k1_dx // steps} a step; fwd backends {out.fwd_backends}, bwd "
+        f"backends {out.bwd_backends}, fused chain runs {out.fused_runs}"]
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """``{path: leaf}`` of a parameter tree (dict keys, list indices)."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _named_leaves(tree[key], f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _named_leaves(t, f"{prefix}[{i}]").items()}
+    return {prefix: tree}
+
+
+def _family_step0(cfg, plan, device, batch, backend) -> tuple[float, dict]:
+    """One step's loss and every gradient leaf (``{path: fp64 tensor}``;
+    zeros where a leaf got none) of ``cfg`` under ``plan``, its backends
+    forced to ``backend`` (None: as planned)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.tree import leaves
+
+    m = api(cfg, plan=plan, plan_backend=backend, device=device)
+    params = m.init_params(0)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss = m.train_loss(params, batch)
+    loss.backward()
+    return loss.item(), {k: (torch.zeros_like(p) if p.grad is None else p.grad).double()
+                         for k, p in _named_leaves(params).items()}
+
+
+def _norm_gap(got: dict, want: dict) -> float:
+    """Relative gap of the global gradient norms of two gradient trees."""
+    import torch
+
+    def norm(tensors):
+        return math.sqrt(sum(float(torch.sum(torch.square(t))) for t in tensors))
+
+    wn = norm(want.values())
+    return abs(norm(got.values()) - wn) / wn
+
+
+def _leaf_gaps(got: dict, want: dict) -> dict:
+    """``{path: ||got - want|| / ||want||}`` per gradient leaf; a leaf whose
+    ``want`` is exactly zero gets 0 if ``got``'s is too, else inf."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        d = float(torch.linalg.vector_norm(got[k] - w))
+        n = float(torch.linalg.vector_norm(w))
+        out[k] = d / n if n else (0.0 if d == 0 else math.inf)
+    return out
+
+
+#: depths at which rwkv6-7b's step 0 is reported (its gate is at
+#: :data:`FAMILY_CHECK_LAYERS`)
+FAMILY_DEPTHS = (4, 8, 16, 32)
+
+
+def family_train_check(arch, plan_file, device) -> list[str]:
+    """Step 0 through the kernels in fp32 against the plain executor along
+    the same paths (``--plan-backend jnp``) on the card, at the depth of
+    :data:`FAMILY_CHECK_LAYERS` (full depth for the others): the loss and
+    the global gradient norm within rel 1e-4, and every gradient leaf
+    within ``||g_kernels - g_plain|| / ||g_plain|| <= max(1e-4, 10 r)``,
+    where ``r`` is the same gap between the plain executor in fp32 and in
+    float64 (the norms, the WKV state and the loss still round to fp32
+    there, as in the model code): fp32's own rounding of that leaf.  A
+    wrong kernel (a transposed, permuted or sign-flipped weight gradient,
+    a lost expert) moves a leaf by O(1).  rwkv6-7b is also reported at
+    each depth of :data:`FAMILY_DEPTHS`: a gap the kernels share with a
+    change of rounding alone is the forward's chaos, one they do not share
+    is theirs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+
+    plan = load_plan(os.path.join(PLANS, plan_file))
+    full = get_config(arch).with_(dtype="float32")
+    batch = {k: torch.from_numpy(v).long().to(device)
+             for k, v in make_pipeline(full.vocab, 512, 4).batch(0).items()}
+    depth = FAMILY_CHECK_LAYERS.get(arch, full.n_layers)
+    depths = FAMILY_DEPTHS if arch in FAMILY_CHECK_LAYERS else (depth,)
+    notes = []
+    try:
+        for n_layers in depths:
+            cfg = full.with_(n_layers=n_layers)
+            got = _family_step0(cfg, plan, device, batch, None)
+            want = _family_step0(cfg, plan, device, batch, "jnp")
+            wide = _family_step0(cfg.with_(dtype="float64"), plan, device, batch, "jnp")
+            rel_loss = abs(got[0] - want[0]) / abs(want[0])
+            rel_norm = _norm_gap(got[1], want[1])
+            gaps, own = _leaf_gaps(got[1], want[1]), _leaf_gaps(want[1], wide[1])
+            share = {k: g / max(1e-4, 10 * own[k]) for k, g in gaps.items()}
+            top = sorted(gaps, key=gaps.get, reverse=True)[:3]
+            worst = max(share, key=share.get)
+            gate = n_layers == depth
+            notes.append(
+                f"{arch} {plan_file} step 0 (float32, {n_layers} layers), kernels vs "
+                f"plain executor on the card: loss {got[0]:.7f} vs {want[0]:.7f} (rel "
+                f"{rel_loss:.1e}), grad norm rel {rel_norm:.1e}; per leaf ||g - "
+                f"g_plain|| / ||g_plain||, {len(gaps)} leaves: "
+                + ", ".join(f"{k} {gaps[k]:.1e} (plain fp32 vs float64 {own[k]:.1e})"
+                            for k in top)
+                + f"; {sum(g > 1e-4 for g in gaps.values())} leaves over 1e-4; worst "
+                f"share of its bound {share[worst]:.2f} ({worst}); plain fp32 vs "
+                f"float64: loss rel {abs(want[0] - wide[0]) / abs(wide[0]):.1e}, grad "
+                f"norm rel {_norm_gap(want[1], wide[1]):.1e}, worst leaf "
+                f"{max(own.values()):.1e}; kernels vs float64: grad norm rel "
+                f"{_norm_gap(got[1], wide[1]):.1e}, worst leaf "
+                f"{max(_leaf_gaps(got[1], wide[1]).values()):.1e}"
+                + ("; held to its bound" if gate else "; reported only"))
+            if gate and not (rel_loss <= 1e-4 and rel_norm <= 1e-4
+                             and share[worst] <= 1.0):
+                raise AssertionError(
+                    f"{arch} {plan_file}: step-0 loss {got[0]} vs plain executor "
+                    f"{want[0]} (rel {rel_loss}), grad norm rel {rel_norm}, leaf "
+                    f"{worst} {gaps[worst]} (plain fp32 vs float64 {own[worst]})")
+            del got, want, wide
+            torch.cuda.empty_cache()
+    finally:
+        install_plan(None)
+    return notes
+
+
+def families_train_phase(device, ckpt_root: str) -> tuple[dict, list[str]]:
+    """Phase 4c: AdamW steps (:data:`FAMILY_TRAIN_RUNS`) of full-width,
+    full-depth qwen2-moe-a2.7b, zamba2-1.2b (also under its tt_gemm train plan, and two steps with
+    ``--grad-compress``, whose checkpoint must restore) and rwkv6-7b; the
+    step-0 check against the plain executor; a profiled step and the peak
+    device memory per arch.  Returns the launches of the train runs
+    (counts zeroed just before them, read just after) and report lines."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init, compress_init
+    from repro_torch.plan import executor
+    from repro_torch.tree import leaves
+
+    notes, counts = [], {k: 0 for k in launches.snapshot()}
+    ring = executor._EXEC_LOG_MAX
+    executor._EXEC_LOG_MAX = FAMILY_TRAIN_LOG
+    try:
+        for i, (arch, plan_file, extra, steps) in enumerate(FAMILY_TRAIN_RUNS):
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            ckpt = os.path.join(ckpt_root, f"family-{i}")
+            launches.reset()
+            out, more = _family_train_run(arch, plan_file, extra, steps, ckpt)
+            for k, v in launches.snapshot().items():
+                counts[k] += v
+            notes += more
+            if "--grad-compress" in extra:
+                params = api(get_config(arch), device=device).init_params(0)
+                step, state = CheckpointManager(ckpt).restore(
+                    {"params": params, "opt": (adamw_init(params),
+                                               compress_init(params))})
+                res = state["opt"][1].residual
+                if step != steps or int(state["opt"][0].step) != steps or not all(
+                        torch.isfinite(r).all() for r in leaves(res)):
+                    raise AssertionError(f"{arch} --grad-compress checkpoint: step "
+                                         f"{step}, optimizer step "
+                                         f"{int(state['opt'][0].step)}")
+                notes.append(f"{arch} --grad-compress: the step-{step} checkpoint "
+                             "(params, (AdamWState, CompressState)) restores")
+                del params, state, res
+            notes.append(f"{arch} {plan_file}: peak device memory "
+                         f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+                         f"(torch.cuda.max_memory_allocated over the run); "
+                         f"{time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        executor._EXEC_LOG_MAX = ring
+    for arch, plan_file, extra, _ in FAMILY_TRAIN_RUNS:
+        if extra:
+            continue
+        t0 = time.perf_counter()
+        notes += family_train_check(arch, plan_file, device)
+        if plan_file == f"{arch}.train.json":
+            notes += train_profile(arch, plan_file, 512, 4,
+                                   ("K1 streaming_tt", "K3 tt_gemm_ws"), device)
+        notes.append(f"{arch} {plan_file}: check and profile "
+                     f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return counts, notes
+
+
 def main() -> int:
     global PLANS
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2183,6 +2500,19 @@ def main() -> int:
         log(f"families: {time.perf_counter() - t0:.1f} s; serve-path launches "
             f"{family_counts}")
 
+        log("--- families train: full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt_root:
+            family_train_counts, notes = families_train_phase(device, ckpt_root)
+        for n in notes:
+            log(f"  {n}")
+        log(f"families train: {time.perf_counter() - t0:.1f} s; train-path "
+            f"launches {family_train_counts}")
+        for name in ("streaming_tt", "tt_gemm_ws", "fused_path"):
+            if family_train_counts[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the families' "
+                                     "train path")
+
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device) + calibration_check(device)):
             log(f"  {n}")
@@ -2196,7 +2526,9 @@ def main() -> int:
                 if train_counts[name] <= 0:
                     raise AssertionError(f"kernel {name} never launched on the "
                                          "train path")
-            for n in (train_check(device, first, ckpt_root) + train_profile(device)
+            profiles = [n for name in TRAIN_PLANS for n in train_profile(
+                "tt-lm-100m", name, 256, 8, TRAIN_PROFILE, device, warmup=True)]
+            for n in (train_check(device, first, ckpt_root) + profiles
                       + weight_grad_gemms(device)):
                 log(f"  {n}")
 
@@ -2229,7 +2561,8 @@ def main() -> int:
                       "train": train_counts[k["name"]],
                       "tune": tune_counts[k["name"]],
                       "serve_tuned": tuned_counts[k["name"]],
-                      "serve_families": family_counts[k["name"]]},
+                      "serve_families": family_counts[k["name"]],
+                      "train_families": family_train_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],

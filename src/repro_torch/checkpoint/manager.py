@@ -29,12 +29,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import is_layer_stack as _is_stack
 from repro_torch.tree import is_namedtuple
-
-
-def _is_stack(tree) -> bool:
-    return isinstance(tree, (list, tuple)) and not is_namedtuple(tree) \
-        and len(tree) > 0 and all(isinstance(t, dict) for t in tree)
 
 
 def _named(tree: Any, path: tuple[str, ...] = ()) -> list[tuple[str, Any]]:

@@ -11,7 +11,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models import ModelConfig, api
-from repro_torch.optim import adamw_update, clip_by_global_norm
+from repro_torch.optim import adamw_update, clip_by_global_norm, compress_decompress
 from repro_torch.tree import leaves, map_tree
 
 
@@ -20,13 +20,18 @@ def make_train_step(
     lr: Callable | float = 3e-4,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    grad_compress: bool = False,
 ):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     ``loss.backward()``, then clip by the global norm, then AdamW; the
     metrics are ``{"loss", "grad_norm"}`` (0-d tensors; the norm is the
     one before clipping).  ``params`` leaves must require grad; they and
-    the optimizer state are updated in place and returned.
+    the optimizer state are updated in place and returned.  With
+    ``grad_compress`` the optimizer state is ``(AdamWState,
+    CompressState)`` and the clipped gradients round-trip through int8
+    error feedback before AdamW.  A leaf that took no part in the loss (an
+    expert no token reached) gets a zero gradient, as ``jax.grad`` gives.
     """
     m = api(cfg)
 
@@ -41,8 +46,15 @@ def make_train_step(
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         for p in leaves(params):
             p.grad = None
-        params, opt_state = adamw_update(grads, opt_state, params, lr,
-                                         weight_decay=weight_decay)
+        if grad_compress:
+            adam_state, comp_state = opt_state
+            grads, comp_state = compress_decompress(grads, comp_state)
+            params, adam_state = adamw_update(grads, adam_state, params, lr,
+                                              weight_decay=weight_decay)
+            opt_state = (adam_state, comp_state)
+        else:
+            params, opt_state = adamw_update(grads, opt_state, params, lr,
+                                             weight_decay=weight_decay)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step

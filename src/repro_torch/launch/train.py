@@ -3,14 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --plan src/repro_torch/plans/tt-lm-100m.train.json --steps 3
 
-Port of ``src/repro/launch/train.py`` with the same flags minus the mesh
-and ``--grad-compress`` (int8 gradient compression is not ported yet),
+Port of ``src/repro/launch/train.py`` with the same flags minus the mesh,
 plus ``--device`` (default ``cuda``; the run fails when no card is
 present, ``--device cpu`` runs the plain versions of the kernels) and
 ``--seed`` (weights from a ``torch.Generator``, data from the reference's
 pipeline).  The loop composes deterministic resumable data, AdamW with a
 warmup-cosine schedule, async atomic checkpoints, straggler monitoring and
-preemption-safe shutdown.
+preemption-safe shutdown; ``--grad-compress`` round-trips the gradients
+through int8 error feedback before AdamW.  Every causal family trains
+(dense, moe, hybrid, rwkv, vlm).
 
 With ``--plan`` every TT projection contracts along the planned paths
 through the planned CUDA kernels, forward and backward, and the run ends
@@ -35,8 +36,9 @@ from repro_torch.data import make_pipeline
 from repro_torch.kernels import launches
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api
+from repro_torch.models.lm import count_params
 from repro_torch.nn import install_plan
-from repro_torch.optim import adamw_init, linear_warmup_cosine
+from repro_torch.optim import adamw_init, compress_init, linear_warmup_cosine
 from repro_torch.plan import (
     BACKENDS,
     check_plan_for_config,
@@ -50,10 +52,11 @@ from repro_torch.tree import leaves
 
 @dataclasses.dataclass
 class TrainRun:
-    """What :func:`run` returns: the exit code and, per step run, the
-    loss, the global gradient norm (before clipping), the wall seconds of
-    the train step (forward, backward, update; the synthetic batch is made
-    before the clock starts) and the kernel launches."""
+    """What :func:`run` returns: the exit code, the parameter count and,
+    per step run, the loss, the global gradient norm (before clipping),
+    the wall seconds of the train step (forward, backward, update; the
+    synthetic batch is made before the clock starts) and the kernel
+    launches (a rematerialised forward counts again)."""
 
     code: int
     losses: list = dataclasses.field(default_factory=list)
@@ -64,6 +67,7 @@ class TrainRun:
     bwd_backends: list = dataclasses.field(default_factory=list)
     fused_runs: int = 0
     done: int = 0
+    n_params: int = 0
 
 
 def parser() -> argparse.ArgumentParser:
@@ -85,6 +89,8 @@ def parser() -> argparse.ArgumentParser:
                     help="checkpoint directory (default: repro_torch_ckpt "
                          "under the system temporary directory)")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--plan", default=None, metavar="PATH",
@@ -134,10 +140,16 @@ def run(argv=None) -> TrainRun:
 
     m = api(cfg, device=device)
     params = m.init_params(torch.Generator().manual_seed(args.seed))
-    state = _trainable({"params": params, "opt": adamw_init(params)})
+    out = TrainRun(0, n_params=count_params(params))
+    print(f"{cfg.name}: {out.n_params} parameters ({cfg.family}, {cfg.dtype}, "
+          f"remat {cfg.remat}, loss_chunk {cfg.loss_chunk})")
+    opt = adamw_init(params)
+    if args.grad_compress:
+        opt = (opt, compress_init(params))
+    state = _trainable({"params": params, "opt": opt})
     pipe = make_pipeline(cfg.vocab, args.seq, args.batch, seed=args.seed)
     lr = linear_warmup_cosine(args.lr, args.warmup, args.steps)
-    step_fn = make_train_step(cfg, lr=lr)
+    step_fn = make_train_step(cfg, lr=lr, grad_compress=args.grad_compress)
 
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              "repro_torch_ckpt")
@@ -148,7 +160,6 @@ def run(argv=None) -> TrainRun:
         state = _trainable(state)
         print(f"resumed from step {start}")
 
-    out = TrainRun(0)
     monitor = StragglerMonitor()
     t_start = time.time()
 

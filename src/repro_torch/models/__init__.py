@@ -20,8 +20,8 @@ from .config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable
-    #: (params, {"tokens", "labels"}) -> scalar loss, differentiable (the
-    #: dense family; the others raise)
+    #: (params, {"tokens", "labels"[, "frontend"]}) -> scalar loss,
+    #: differentiable: the (chunked) cross-entropy plus the weighted aux loss
     train_loss: Callable
     #: last-token prefill: (params, batch, max_seq) -> ((B, V), caches)
     prefill: Callable

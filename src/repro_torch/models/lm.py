@@ -12,13 +12,24 @@ recurrent states, the same KV tensors).
 The hybrid family runs groups of ``attn_every`` Mamba layers with the one
 shared attention block applied after each group, then the tail of
 ``n_layers % attn_every`` Mamba layers: Zamba2's parameter sharing.
+
+``cfg.remat`` recomputes activations in the backward pass where the
+reference wraps its scan bodies in ``jax.checkpoint``: each block, and
+each hybrid group (its Mamba layers and the shared attention).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.nn import (
     EmbeddingSpec,
@@ -34,6 +45,7 @@ from repro_torch.nn import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.tree import leaves
 from .blocks import (
     attn_spec,
     block_apply,
@@ -56,6 +68,42 @@ def head_spec(cfg: ModelConfig) -> LinearSpec:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of
+    unbatched matrix products, recompute everything else (batched
+    products and the kernels' autograd Functions included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, *args, **kwargs):
+    """``fn(*args)``, recomputed in the backward pass when its first
+    argument (the hidden states) is part of an autograd graph.  The model
+    draws no random numbers, so the RNG state is not replayed."""
+    if not (torch.is_grad_enabled() and args[0].requires_grad):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` (the reference's ``_remat``).
+
+    ``"full"`` keeps only ``fn``'s inputs for the backward pass and runs
+    ``fn`` again there; ``"dots"`` also keeps the outputs of unbatched
+    matrix products.  Non-reentrant, so the parameters that reach ``fn``
+    through its closure get their gradients.  Outside autograd (serving)
+    there is nothing to recompute and ``fn`` runs as is.
+    """
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(_checkpointed, fn, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    return functools.partial(_checkpointed, fn)
 
 
 def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -111,12 +159,13 @@ def _device(params: dict) -> torch.device:
 
 
 def _run_layers(cfg, blocks, layers, x, positions, caches, cache_pos, aux):
-    """Run ``blocks[l]`` for ``l`` in ``layers``; returns (x, new caches of
-    those layers or None, aux)."""
+    """Run ``blocks[l]`` for ``l`` in ``layers``, each under ``cfg.remat``;
+    returns (x, new caches of those layers or None, aux)."""
     new = [] if caches is not None else None
     for layer in layers:
         c_l = caches[layer] if caches is not None else None
-        x, nc, a = block_apply(cfg, blocks[layer], x, positions, c_l, cache_pos)
+        body = _remat(cfg, functools.partial(block_apply, cfg, blocks[layer]))
+        x, nc, a = body(x, positions, c_l, cache_pos)
         aux = aux + a
         if new is not None:
             new.append(nc)
@@ -134,19 +183,26 @@ def _run_blocks(cfg, params, x, positions, caches, cache_pos):
 
 def _run_hybrid(cfg, params, x, positions, caches, cache_pos, aux):
     """Groups of ``attn_every`` Mamba layers + shared attention per group,
-    then the remainder layers."""
+    each group under ``cfg.remat`` (as are its layers, the reference's
+    nested ``jax.checkpoint``), then the remainder layers."""
     n_groups, _ = _hybrid_groups(cfg)
     g = cfg.attn_every if cfg.attn_every else cfg.n_layers
     has_cache = caches is not None
     ssm_c = caches["ssm"] if has_cache else None
     new_ssm: list = []
     new_attn: list = []
-    for gi in range(n_groups):
+
+    def group(x, aux, gi, attn_cache):
         x, ns, aux = _run_layers(cfg, params["blocks"], range(gi * g, (gi + 1) * g),
                                  x, positions, ssm_c, cache_pos, aux)
         x, na = shared_attn_apply(cfg, params["shared_attn"], x, positions,
-                                  caches["attn"][gi] if has_cache else None,
-                                  cache_pos)
+                                  attn_cache, cache_pos)
+        return x, aux, ns, na
+
+    group = _remat(cfg, group)
+    for gi in range(n_groups):
+        x, aux, ns, na = group(x, aux, gi,
+                               caches["attn"][gi] if has_cache else None)
         if has_cache:
             new_ssm += ns
             new_attn.append(na)
@@ -158,13 +214,14 @@ def _run_hybrid(cfg, params, x, positions, caches, cache_pos, aux):
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None, caches=None,
-            cache_pos=None):
+            cache_pos=None, return_hidden: bool = False):
     """Returns (logits, caches, aux_loss).
 
     Prefill: the full sequence; decode: S == 1 with a scalar or per-lane
     ``(B,)`` ``cache_pos``.  VLM: the ``frontend`` prefix (B, P, D) is
     prepended to the token embeddings (prefill only) and its positions are
-    cut from the logits.
+    cut from the logits.  ``return_hidden`` returns the final-norm hidden
+    states (B, S, D) in place of the logits (the chunked-loss path).
     """
     x = embedding_apply(embed_spec(cfg), params["embed"], tokens)
     n_prefix = 0
@@ -181,6 +238,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     x = rmsnorm(params["ln_f"], x)
     if n_prefix:
         x = x[:, n_prefix:]
+    if return_hidden:
+        return x, caches, aux
     return apply_head(cfg, params, x), caches, aux
 
 
@@ -198,26 +257,57 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - ll)
 
 
-def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Next-token loss of ``batch = {"tokens", "labels"}`` (both (B, S)).
+def chunked_cross_entropy(head_fn, hidden: torch.Tensor, labels: torch.Tensor,
+                          chunk: int) -> torch.Tensor:
+    """Fused head + cross-entropy over sequence chunks (the reference's
+    scan): the live logits are bounded at (B * chunk, V).
 
-    Dense family only: it has no auxiliary loss, so this is the
-    cross-entropy alone.  Training the other families (their aux loss), the
-    reference's sequence-chunked head + loss (``cfg.loss_chunk``) and
-    rematerialisation (``cfg.remat``) are not ported (ROADMAP.md, Queue A
-    item 12b): they raise, and the port keeps every activation for the
-    backward pass.
+    Chunks are interleaved as in the reference: token ``t`` of the
+    flattened (B * S) tokens goes to chunk ``t % n``.  Each chunk's head
+    and loss run under checkpoint (recomputed in the backward pass, the
+    reference's ``jax.checkpoint`` on its scan body), its ``lse - ll``
+    summed in fp32 and accumulated chunk by chunk, then divided by B * S.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            "yet (ROADMAP.md, Queue A item 12b)")
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    if s % c:
+        c = s
+    n = s // c
+    tokens = b * s
+    hs = hidden.reshape(tokens // n, n, d).transpose(0, 1)    # (n, T/n, D)
+    ls = labels.reshape(tokens // n, n).transpose(0, 1)
+
+    def body(h, lab):
+        logits = head_fn(h).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab.long().unsqueeze(-1)).squeeze(-1)
+        return torch.sum(lse - ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        total = total + _checkpointed(body, hs[i], ls[i])
+    return total / (b * s)
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Next-token loss of ``batch = {"tokens", "labels"[, "frontend"]}``
+    (tokens and labels (B, S); a VLM's ``frontend`` prefix (B, P, D)):
+    the cross-entropy, chunked when ``cfg.loss_chunk`` is set, plus
+    ``cfg.aux_loss_weight`` times the auxiliary (MoE load-balance) loss."""
     if cfg.loss_chunk:
-        raise NotImplementedError(
-            f"{cfg.name}: loss_chunk={cfg.loss_chunk} (chunked cross-entropy) "
-            "is not ported yet (ROADMAP.md, Queue A item 12b)")
-    logits, _, _ = forward(cfg, params, batch["tokens"])
-    return cross_entropy(logits, batch["labels"])
+        hidden, _, aux = forward(cfg, params, batch["tokens"],
+                                 frontend=batch.get("frontend"), return_hidden=True)
+        ce = chunked_cross_entropy(lambda h: apply_head(cfg, params, h), hidden,
+                                   batch["labels"], cfg.loss_chunk)
+        return ce + cfg.aux_loss_weight * aux
+    logits, _, aux = forward(cfg, params, batch["tokens"],
+                             frontend=batch.get("frontend"))
+    return cross_entropy(logits, batch["labels"]) + cfg.aux_loss_weight * aux
+
+
+def count_params(params) -> int:
+    """Number of parameter elements (every leaf of the tree)."""
+    return sum(int(math.prod(a.shape)) for a in leaves(params))
 
 
 def prefill_full(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):

@@ -1,7 +1,11 @@
 """Fault-tolerant step-loop machinery.
 
 A copy of ``src/repro/runtime/fault.py`` over the port's checkpoint
-manager (``repro_torch.checkpoint``).
+manager (``repro_torch.checkpoint``), but for the retry count of
+``FaultTolerantLoop``: the reference resets it whenever a step succeeds,
+the replayed steps after a restore included, so a step that always fails
+just after a checkpoint is replayed forever once that checkpoint has
+landed; here only a step past the furthest one reached resets it.
 
 * ``PreemptionGuard`` — converts SIGTERM/SIGINT into a checkpoint-then-
   exit at the next step boundary (the TPU preemption contract).
@@ -13,8 +17,9 @@ manager (``repro_torch.checkpoint``).
 * ``FaultTolerantLoop`` — wraps a step function with bounded retry +
   restore-from-checkpoint: a step that raises is retried after restoring
   the last good state; repeated failure at the same step aborts (poison
-  batch guard).  Combined with the stateless data pipeline, recovery is
-  bit-exact.
+  batch guard), counted across the replay of the steps between the
+  checkpoint and it.  Combined with the stateless data pipeline, recovery
+  is bit-exact.
 """
 
 from __future__ import annotations
@@ -95,6 +100,9 @@ class FaultTolerantLoop:
         """Returns (final_state, last_completed_step + 1)."""
         step = start_step
         retries = 0
+        # the furthest step reached: a step replayed after a restore is not
+        # progress, so it leaves the failing step's retry count standing
+        frontier = start_step
         with PreemptionGuard() as guard:
             while step < start_step + num_steps:
                 t0 = time.monotonic()
@@ -112,9 +120,10 @@ class FaultTolerantLoop:
                             state = self.on_restore(state)
                         step = latest
                     continue
-                retries = 0
                 self.straggler.record(step, time.monotonic() - t0)
                 step += 1
+                if step > frontier:
+                    frontier, retries = step, 0
                 if step % self.checkpoint_every == 0 or guard.preempted:
                     self.manager.save_async(step, state)
                 if guard.preempted:

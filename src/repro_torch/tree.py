@@ -16,6 +16,13 @@ def is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def is_layer_stack(tree: Any) -> bool:
+    """A list of per-layer dicts: one tree of leaves stacked on a leading
+    layer axis in the reference (``params["blocks"]``)."""
+    return isinstance(tree, (list, tuple)) and not is_namedtuple(tree) \
+        and len(tree) > 0 and all(isinstance(t, dict) for t in tree)
+
+
 def leaves(tree: Any) -> list:
     """The leaves of ``tree`` in JAX's flattening order."""
     if isinstance(tree, dict):

@@ -1234,3 +1234,86 @@ def test_tt_gemm_cuda_family_shapes_match_plain_dataflows_bit_identical(cuda_dev
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
     row = tt_gemm.tt_gemm(a[:1].contiguous(), b, dataflow="WS", **blk)
     assert torch.equal(row[0], outs[1][0])
+
+
+# ---------------------------------------------------------------------------
+# training the MoE, hybrid (Mamba2), RWKV6 and VLM families
+# ---------------------------------------------------------------------------
+
+def _family_train_plan(arch: str, backend: str, path) -> str:
+    import contextlib
+    import io
+    import os
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert dse_cli.main(["--arch", arch, "--smoke", "--mode", "train", "--top-k",
+                             "2", "--tokens", "32", "--plan-backend", backend,
+                             "--emit-plan", str(path), "--out", os.devnull]) == 0
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["streaming_tt", "tt_gemm"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_train_step_cuda_matches_plain(cuda_device, arch, backend,
+                                                    tmp_path):
+    """Each family's smoke model, loss and every gradient, on the card under
+    its smoke train plan forced to one kernel backend (K1 forward and dx,
+    or K2-K4 + K5; weight gradients on K2-K4, the smoke plans' OS and IS
+    dataflows) against the plain executor on the card: within 1e-4 of each
+    tensor's scale; the kernels launched."""
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan
+    from repro_torch.tree import leaves
+
+    plan = load_plan(_family_train_plan(arch, backend, tmp_path / "train.json"))
+    cfg = get_config(arch, smoke=True).with_(loss_chunk=8)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(cuda_device)
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.from_numpy(
+            _np((2, cfg.n_frontend_tokens, cfg.d_model), 4)).to(cuda_device)
+    outs = {}
+    try:
+        for label, force in (("kernels", None), ("plain", "jnp")):
+            m = api(cfg, plan=plan, plan_backend=force, device=cuda_device)
+            params = m.init_params(0)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            launches.reset()
+            loss = m.train_loss(params, batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            outs[label] = ([loss.detach()] + [p.grad for p in leaves(params)],
+                           dict(launches.COUNTS))
+    finally:
+        install_plan(None)
+    counts = outs["kernels"][1]
+    assert sum(counts[f"tt_gemm_{df}"] for df in ("os", "ws", "is")) > 0
+    assert counts["streaming_tt" if backend == "streaming_tt" else "fused_path"] > 0
+    assert sum(outs["plain"][1].values()) == 0
+    for got, want in zip(outs["kernels"][0], outs["plain"][0]):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_grad_compress_train_step_cuda_matches_cpu(cuda_device, tmp_path):
+    """``python -m repro_torch.launch.train --grad-compress`` on zamba2's
+    smoke model under its streaming train plan, two steps on the card (K1,
+    K2-K4) and on the CPU (plain versions): losses and gradient norms within
+    rel 1e-4."""
+    from repro_torch.launch.train import run
+
+    plan = _family_train_plan("zamba2-1.2b", "streaming_tt", tmp_path / "train.json")
+    argv = ["--arch", "zamba2-1.2b", "--smoke", "--plan", plan, "--grad-compress",
+            "--steps", "2", "--batch", "2", "--seq", "16"]
+    got = run(argv + ["--device", str(cuda_device), "--ckpt-dir", str(tmp_path / "g")])
+    want = run(argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "c")])
+    assert got.code == want.code == 0
+    assert got.launches[0]["streaming_tt"] > 0
+    assert sum(got.launches[0][f"tt_gemm_{df}"] for df in ("os", "ws", "is")) > 0
+    np.testing.assert_allclose(got.losses + got.grad_norms,
+                               want.losses + want.grad_norms, rtol=1e-4)

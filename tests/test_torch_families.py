@@ -230,14 +230,6 @@ def test_rwkv_time_and_channel_mix_match_reference(weights, chunk, seq):
 # what is not ported yet
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("family", sorted(ARCHS))
-def test_training_the_families_raises_naming_the_next_slice(weights, family):
-    _, params, cfg = weights[family]
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue A item 12b"):
-        api(cfg, device="cpu").train_loss(params, {"tokens": tokens, "labels": tokens})
-
-
 def test_encdec_raises_naming_the_next_slice(capsys):
     cfg = get_config("seamless-m4t-medium", smoke=True)
     with pytest.raises(NotImplementedError, match="Queue A item 12b"):

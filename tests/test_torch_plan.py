@@ -93,6 +93,15 @@ EMIT = {
     "zamba2-1.2b.pair.decode.json": ["--arch", "zamba2-1.2b", "--serve-slots", "4"],
     "rwkv6-7b.pair.prefill.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
     "rwkv6-7b.pair.decode.json": ["--arch", "rwkv6-7b", "--serve-slots", "4"],
+    "qwen2-moe-a2.7b.train.json": ["--arch", "qwen2-moe-a2.7b", "--mode", "train",
+                                   "--tokens", "2048"],
+    "zamba2-1.2b.train.json": ["--arch", "zamba2-1.2b", "--mode", "train",
+                               "--tokens", "2048"],
+    "zamba2-1.2b.train.tt_gemm.json": ["--arch", "zamba2-1.2b", "--mode", "train",
+                                       "--tokens", "2048", "--plan-backend",
+                                       "tt_gemm"],
+    "rwkv6-7b.train.json": ["--arch", "rwkv6-7b", "--mode", "train",
+                            "--tokens", "2048"],
 }
 PLAN_FILES = sorted(EMIT)
 #: plans whose emission takes minutes on a CPU (the full-width rank search

@@ -44,6 +44,7 @@ from repro_torch.optim import (
     linear_warmup_cosine,
 )
 from repro_torch.plan import load_plan
+from repro_torch.runtime import FaultTolerantLoop
 from repro_torch.tree import leaves
 
 torch.set_num_threads(2)
@@ -212,3 +213,55 @@ def test_train_cli_refuses_missing_card_and_mismatched_plan(tmp_path, capsys):
                             str(PLANS / "tt-lm-100m.train.json")])
     assert code == 2
     assert "plan/model mismatch" in capsys.readouterr().err
+
+
+def _poison_loop(tmp_path, fail):
+    """A loop (checkpoint every 2 steps, 2 retries a step) whose step 3
+    fails while ``fail(n)`` holds for its n-th call; the step-2 checkpoint
+    has landed before step 3 runs, so each failure restores it and
+    replays step 2.  Returns the loop, the steps called and ``run``'s
+    outcome."""
+    mgr = CheckpointManager(str(tmp_path))
+    calls, tries = [], []
+
+    def step_fn(state, step):
+        calls.append(step)
+        if len(calls) > 50:
+            pytest.fail(f"replayed forever: {calls[:12]} ...")
+        if step == 3:
+            mgr.wait()
+            tries.append(step)
+            if fail(len(tries)):
+                raise RuntimeError("step 3 fails")
+        return {"x": state["x"] + 1}
+
+    loop = FaultTolerantLoop(step_fn, mgr, checkpoint_every=2, max_retries_per_step=2)
+    try:
+        out = loop.run({"x": torch.zeros(())}, 0, 6)
+    except RuntimeError as e:
+        out = e
+    return loop, calls, out
+
+
+def test_a_step_that_always_fails_after_a_checkpoint_aborts(tmp_path):
+    """The poison-batch guard counts the retries of the failing step across
+    the replay of the step before it: three failures of step 3, then the
+    error.  (The reference's loop resets the count on the replayed step 2
+    and replays forever once the checkpoint has landed; its own test of a
+    poison step passes only while that checkpoint is still being written.)"""
+    loop, calls, out = _poison_loop(tmp_path, lambda n: True)
+    assert isinstance(out, RuntimeError)
+    assert calls == [0, 1, 2, 3, 2, 3, 2, 3]
+    assert loop.recoveries == 3
+
+
+def test_a_step_that_fails_twice_recovers_from_its_checkpoint(tmp_path):
+    """Two failures of step 3 stay within the two retries: restored from
+    step 2 and replayed each time, the loop finishes all six steps with
+    every step's update applied once."""
+    loop, calls, out = _poison_loop(tmp_path, lambda n: n <= 2)
+    state, done = out
+    assert done == 6 and int(state["x"]) == 6
+    assert calls == [0, 1, 2, 3, 2, 3, 2, 3, 4, 5]
+    assert loop.recoveries == 2
+
