@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
-full-width qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b serving and
-training, on one NVIDIA card.
+full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b and seamless-m4t-medium
+serving and training, on one NVIDIA card.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -91,6 +91,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ms, train tokens/s, launches per step (the remat recompute
    included), peak device memory and one profiled step (busy share, top
    device ops).
+4d. encdec (after the families-train phase): full-width, full-depth
+   seamless-m4t-medium (12 + 12 layers, seed-0 weights, bf16) served
+   through ``launch.steps.make_prefill_step`` / ``make_decode_step`` (the
+   reference's serving form for the family) under its plan pair: batch 4
+   x 512 seeded random frames, a 32-token prompt, 16 greedy tokens;
+   prefill ms, decode ms a step, gen tok/s and launches per prefill and
+   per decode step (K1 required in both); fp32 prefill and decode-step
+   logits against the plain executor (1e-4 x max |logit|); a profiled
+   decode step and the peak memory.  Then 3 AdamW steps of
+   ``make_train_step`` under its train plan (batch 4 x seq 512 with 512
+   frames, remat full, loss_chunk 256): K1 forward and dx and K3 every
+   step, the per-leaf step-0 check of 4c, a profiled step.  K1 at
+   ``enc_mlp.wu`` (2048 frames) and ``xattn.wq`` (4 tokens) and K3 at
+   every weight-gradient GEMM of ``enc_mlp.wu`` are timed as in 4b.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -121,13 +135,16 @@ The last two lines before the final one are the kernels JSON and the
 card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
-"serve_tuned": v, "serve_families": f, "train_families": t}`` (``r`` is
-the part of ``n`` from the rank plan's runs; ``u`` the tune phase's
-measurements, ``v`` its serving under the measured plans, ``f`` the
-families' serve runs, ``t`` the families' train runs), each
-path's counts zeroed just before it and read just after, its times at
-the rank plan's shapes (``rank_plan``) and at the family shapes
-(``families``, K1 and K3) and the K1 refusals over the rank space; the
+"serve_tuned": v, "serve_families": f, "train_families": t,
+"serve_encdec": e, "train_encdec": d}`` (``r`` is the part of ``n`` from
+the rank plan's runs; ``u`` the tune phase's measurements, ``v`` its
+serving under the measured plans, ``f`` the families' serve runs, ``t``
+the families' train runs, ``e`` and ``d`` the encdec phase's counted
+generation and train steps), each path's counts zeroed just before it
+and read just after, its times at the rank plan's shapes
+(``rank_plan``), at the family shapes (``families``, K1 and K3) and at
+the encdec shapes (``encdec``, K1 and K3) and the K1 refusals over the
+rank space; the
 run fails unless every kernel of :data:`SERVE_KERNELS` launched on the serve path, every kernel of
 :data:`TRAIN_KERNELS` on the train path and every kernel of
 :data:`TUNE_KERNELS` on the tune path.  Nothing of JAX or of the JAX
@@ -198,6 +215,12 @@ EMIT = {
                                        "tt_gemm"],
     "rwkv6-7b.train.json": ["--arch", "rwkv6-7b", "--mode", "train",
                             "--tokens", "2048"],
+    "seamless-m4t-medium.pair.prefill.json": ["--arch", "seamless-m4t-medium",
+                                              "--serve-slots", "4"],
+    "seamless-m4t-medium.pair.decode.json": ["--arch", "seamless-m4t-medium",
+                                             "--serve-slots", "4"],
+    "seamless-m4t-medium.train.json": ["--arch", "seamless-m4t-medium", "--mode",
+                                       "train", "--tokens", "2048"],
 }
 #: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
 BF16_TOL = 8e-2
@@ -1536,26 +1559,36 @@ def decode_profile(device) -> list[str]:
         for lane in range(4):
             _, small = eng.prefill_request(list(range(1 + lane, 33 + lane)))
             caches = eng.admit(caches, small, lane)
-        notes += profile_decode(eng, caches, label, kernels)
+        notes += profile_decode(engine_step(eng, caches), label, kernels)
     return notes
 
 
-def profile_decode(eng, caches, label: str, kernels) -> list[str]:
-    """Profile 5 decode steps of ``eng`` (4 busy lanes at position 32,
-    after 3 unprofiled steps): host wall per step, the card's busy time
-    per step (``torch.profiler``, device events only), the kernels that
-    take the most of it and the device time of ``kernels``.  A measurement
-    only: when the profiler records no device time the lines say "not
-    measured" and the run goes on."""
+def engine_step(eng, caches):
+    """``step(i)``: one decode step of the serve engine ``eng`` with 4 busy
+    lanes at position 32 + i, the caches carried from step to step."""
     import numpy as np
-    import torch
 
     tok, pos = np.array([7, 8, 9, 10]), np.array([32, 32, 32, 32])
+    state = [caches]
+
+    def step(i):
+        _, state[0] = eng.decode(tok, pos + i, state[0])
+
+    return step
+
+
+def profile_decode(step, label: str, kernels) -> list[str]:
+    """Profile decode steps 0-4 of ``step`` (4 busy lanes, after unprofiled
+    steps 0-2): host wall per step, the card's busy time per step
+    (``torch.profiler``, device events only), the kernels that take the
+    most of it and the device time of ``kernels``.  A measurement only:
+    when the profiler records no device time the lines say "not measured"
+    and the run goes on."""
+    import torch
 
     def steps(n):
-        nonlocal caches
         for i in range(n):
-            _, caches = eng.decode(tok, pos + i, caches)
+            step(i)
 
     steps(3)
     torch.cuda.synchronize()
@@ -1807,6 +1840,24 @@ def weight_grad_gemms(device) -> list[str]:
         lib_dev, e in rows]
 
 
+def train_batch(cfg, seq: int, batch: int, step: int, device) -> dict:
+    """Step ``step``'s train batch of ``cfg`` on ``device``: tokens and
+    labels from the synthetic pipeline, and for an encoder-decoder seeded
+    random frames (batch, seq, d_model) in the config's dtype, made on the
+    CPU from a ``torch.Generator``."""
+    import torch
+
+    from repro_torch.data import make_pipeline
+
+    out = {k: torch.from_numpy(v).long().to(device)
+           for k, v in make_pipeline(cfg.vocab, seq, batch).batch(step).items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator().manual_seed(1000 + step)
+        out["frontend"] = torch.randn(batch, seq, cfg.d_model, generator=gen).to(
+            device=device, dtype=getattr(torch, cfg.dtype))
+    return out
+
+
 def train_profile(arch, plan_file, seq, batch, kernels, device,
                   warmup: bool = False) -> list[str]:
     """Where one full-width train step of ``arch`` (seed-0 weights, the
@@ -1818,7 +1869,6 @@ def train_profile(arch, plan_file, seq, batch, kernels, device,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import make_pipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import api
     from repro_torch.nn import install_plan
@@ -1834,8 +1884,7 @@ def train_profile(arch, plan_file, seq, batch, kernels, device,
             p.requires_grad_(True)
         state = [params, adamw_init(params)]
         step = make_train_step(cfg)
-        data = {k: torch.from_numpy(v).long().to(device)
-                for k, v in make_pipeline(cfg.vocab, seq, batch).batch(0).items()}
+        data = train_batch(cfg, seq, batch, 0, device)
 
         def one_step():
             state[0], state[1], _ = step(state[0], state[1], data)
@@ -1980,6 +2029,77 @@ def family_logits(arch: str, device) -> list[str]:
     return notes
 
 
+def k1_row(label: str, tn, lp, tokens: int, gen, device) -> tuple[float, dict]:
+    """K1 on ``tokens`` random rows along layer plan ``lp``'s path through
+    network ``tn`` (random cores, the plan's clamped token block) against
+    its plain version, within 1e-4 of the output's scale or the run fails;
+    then timed by :func:`k1_timing`.  Returns (max abs err, the row)."""
+    import torch
+
+    from repro_torch.kernels import ops, streaming_tt
+    from repro_torch.plan.executor import as_candidate_path
+
+    bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
+    tn_b = streaming_tt._rebatch(tn, bt)
+    cp = as_candidate_path(tn_b, lp.path_steps)
+    n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
+    cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
+             for n in tn.nodes if n.kind != "input"]
+    x = torch.randn(tokens, n_in, generator=gen).to(device)
+    got = streaming_tt.streaming_tt_linear(x, cores, tn_b, cp, block_tokens=bt)
+    want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, cp)
+    torch.cuda.synchronize()
+    e = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or e > 1e-4 * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"K1 {label}, {tokens} tokens: err {e}")
+    t = k1_timing(label, tn, lp.path_steps, tn_b, cp, x, cores, bt, want, device)
+    log_timing("streaming_tt", t)
+    return e, t
+
+
+def k3_row(label: str, m: int, k: int, n: int, dataflow: str, tiling, gen,
+           device) -> tuple[float, dict]:
+    """One ``tt_gemm`` GEMM (M, K, N) of random operands with ``tiling``'s
+    blocks clamped as the executor clamps them: bit for bit against OS and
+    within 1e-5 of the output's scale against the plain version, or the
+    run fails; timed (CUDA events and CUDA-graph replay) beside its plain
+    version, one ``torch.matmul`` and the bound.  Returns (max abs err,
+    the row)."""
+    import torch
+
+    from repro_torch.kernels import ops, tt_gemm
+
+    blocks = dict(block_m=ops.clamp_block(tiling.block_m, m),
+                  block_k=ops.clamp_block(tiling.block_k, k),
+                  block_n=ops.clamp_block(tiling.block_n, n))
+    a = torch.randn(m, k, generator=gen).to(device)
+    b = torch.randn(k, n, generator=gen).to(device)
+
+    def kernel():
+        return tt_gemm.tt_gemm(a, b, dataflow=dataflow, **blocks)
+
+    def plain():
+        return tt_gemm.tt_gemm_plain(a, b, dataflow=dataflow, **blocks)
+
+    def library():
+        return torch.matmul(a, b)
+
+    got, want = kernel(), plain()
+    at = f"{label}, M,K,N={m},{k},{n} blocks {','.join(str(v) for v in blocks.values())}"
+    if not torch.equal(got, tt_gemm.tt_gemm(a, b, dataflow="OS", **blocks)):
+        raise AssertionError(f"tt_gemm {dataflow} {at}: not bit-identical to OS")
+    e = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or e > 1e-5 * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"tt_gemm {dataflow} {at}: err {e}")
+    b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n)
+    ms, host_ms = timed(kernel)
+    t = dict(at=at, ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
+             plain_ms=timed(plain)[0], library_ms=timed(library)[0],
+             library_graph_ms=graph_ms(library), bound_ms=b_ms, bound_by=b_by)
+    log_timing(f"tt_gemm_{dataflow.lower()}", t)
+    return e, t
+
+
 def family_kernel_shapes(device) -> tuple[dict, list[str]]:
     """K1 at every streaming layer of the family pairs (prefill at 32 tokens,
     the MoE experts at their 4 capacity slots; decode at 4 lanes) and K3
@@ -1991,9 +2111,8 @@ def family_kernel_shapes(device) -> tuple[dict, list[str]]:
 
     from repro_torch.configs import get_config
     from repro_torch.dse_cli import model_dse_layers
-    from repro_torch.kernels import ops, streaming_tt, tt_gemm
+    from repro_torch.kernels import streaming_tt
     from repro_torch.plan import load_plan
-    from repro_torch.plan.executor import as_candidate_path
 
     gen = torch.Generator().manual_seed(9)
     notes, seen = [], set()
@@ -2014,60 +2133,17 @@ def family_kernel_shapes(device) -> tuple[dict, list[str]]:
                     continue
                 seen.add(key)
                 label = f"{arch} {lp.name} ({phase})"
-                cores = [(torch.randn(n.dims, generator=gen) * 0.2).to(device)
-                         for n in tn.nodes if n.kind != "input"]
                 if lp.backend == "streaming_tt":
-                    bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
-                    tn_b = streaming_tt._rebatch(tn, bt)
-                    cp = as_candidate_path(tn_b, lp.path_steps)
-                    n_in = math.prod(streaming_tt._stream_node(tn).dims[1:])
-                    x = torch.randn(tokens, n_in, generator=gen).to(device)
-                    got = streaming_tt.streaming_tt_linear(x, cores, tn_b, cp,
-                                                           block_tokens=bt)
-                    want = streaming_tt.streaming_tt_linear_plain(x, cores, tn_b, cp)
-                    torch.cuda.synchronize()
-                    e = (got - want).abs().max().item()
-                    if not torch.isfinite(got).all() or \
-                            e > 1e-4 * max(1.0, want.abs().max().item()):
-                        raise AssertionError(f"K1 {label}, {tokens} tokens: err {e}")
+                    e, t = k1_row(label, tn, lp, tokens, gen, device)
                     k1["err"] = max(k1["err"], e)
-                    t = k1_timing(label, tn, lp.path_steps, tn_b, cp, x, cores, bt,
-                                  want, device)
                     k1["rows"].append(t)
-                    log_timing("streaming_tt", t)
                     continue
                 full = streaming_tt._rebatch(tn, tokens)
                 for g in full.gemm_sequence(lp.path_steps):
-                    blocks = dict(block_m=ops.clamp_block(lp.tiling.block_m, g.M),
-                                  block_k=ops.clamp_block(lp.tiling.block_k, g.K),
-                                  block_n=ops.clamp_block(lp.tiling.block_n, g.N))
-                    a = torch.randn(g.M, g.K, generator=gen).to(device)
-                    b = torch.randn(g.K, g.N, generator=gen).to(device)
-
-                    def kernel(a=a, b=b, blocks=blocks):
-                        return tt_gemm.tt_gemm(a, b, dataflow=lp.dataflow, **blocks)
-
-                    want = tt_gemm.tt_gemm_plain(a, b, dataflow=lp.dataflow, **blocks)
-                    e = (kernel() - want).abs().max().item()
-                    if e > 1e-5 * max(1.0, want.abs().max().item()):
-                        raise AssertionError(f"K3 {label} {(g.M, g.K, g.N)}: err {e}")
+                    e, t = k3_row(label, g.M, g.K, g.N, lp.dataflow, lp.tiling, gen,
+                                  device)
                     k3["err"] = max(k3["err"], e)
-                    b_ms, b_by = bound(4 * (g.M * g.K + g.K * g.N + g.M * g.N),
-                                       2 * g.M * g.K * g.N)
-                    ms, host_ms = timed(kernel)
-                    t = dict(
-                        at=f"{label}, M,K,N={g.M},{g.K},{g.N} blocks "
-                           f"{','.join(str(v) for v in blocks.values())}",
-                        ms=ms, host_ms=host_ms, graph_ms=graph_ms(kernel),
-                        plain_ms=timed(lambda a=a, b=b, blocks=blocks:
-                                       tt_gemm.tt_gemm_plain(
-                                           a, b, dataflow=lp.dataflow,
-                                           **blocks))[0],
-                        library_ms=timed(lambda a=a, b=b: torch.matmul(a, b))[0],
-                        library_graph_ms=graph_ms(lambda a=a, b=b: torch.matmul(a, b)),
-                        bound_ms=b_ms, bound_by=b_by)
                     k3["rows"].append(t)
-                    log_timing(f"tt_gemm_{lp.dataflow.lower()}", t)
     for name, rec in (("streaming_tt", k1), ("tt_gemm_ws", k3)):
         rows = [r for r in rec["rows"] if r["graph_ms"] is not None]
         kernel_ms = sum(r["graph_ms"] for r in rows)
@@ -2113,7 +2189,7 @@ def family_engine(arch: str, device) -> list[str]:
         raise AssertionError(f"{arch}: a decode step launched no streaming_tt")
     notes = [f"{arch}: launches per prefill {per_prefill}, per decode step "
              f"(4 lanes) {per_decode}"]
-    notes += profile_decode(eng, caches, arch, ("K1 streaming_tt",))
+    notes += profile_decode(engine_step(eng, caches), arch, ("K1 streaming_tt",))
     peak = torch.cuda.max_memory_allocated() / 2**30
     notes.append(f"{arch}: peak device memory {peak:.2f} GiB "
                  "(torch.cuda.max_memory_allocated since the arch's first run)")
@@ -2240,6 +2316,8 @@ def _family_step0(cfg, plan, device, batch, backend) -> tuple[float, dict]:
     params = m.init_params(0)
     for p in leaves(params):
         p.requires_grad_(True)
+    if "frontend" in batch:   # the frames in the model's dtype
+        batch = dict(batch, frontend=batch["frontend"].to(getattr(torch, cfg.dtype)))
     loss = m.train_loss(params, batch)
     loss.backward()
     return loss.item(), {k: (torch.zeros_like(p) if p.grad is None else p.grad).double()
@@ -2292,14 +2370,12 @@ def family_train_check(arch, plan_file, device) -> list[str]:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import make_pipeline
     from repro_torch.nn import install_plan
     from repro_torch.plan import load_plan
 
     plan = load_plan(os.path.join(PLANS, plan_file))
     full = get_config(arch).with_(dtype="float32")
-    batch = {k: torch.from_numpy(v).long().to(device)
-             for k, v in make_pipeline(full.vocab, 512, 4).batch(0).items()}
+    batch = train_batch(full, 512, 4, 0, device)
     depth = FAMILY_CHECK_LAYERS.get(arch, full.n_layers)
     depths = FAMILY_DEPTHS if arch in FAMILY_CHECK_LAYERS else (depth,)
     notes = []
@@ -2409,6 +2485,355 @@ def families_train_phase(device, ckpt_root: str) -> tuple[dict, list[str]]:
     return counts, notes
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the encoder-decoder (seamless-m4t-medium) at full width
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-medium"
+#: serving: batch 4 x 512 seeded random frames, a 32-token prompt, 16
+#: greedy tokens (the prefill's and 15 decode steps')
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_GEN = 4, 512, 32, 16
+ENCDEC_TRAIN_PLAN = "seamless-m4t-medium.train.json"
+#: training: batch 4 x seq 512 (the train plan's 2048 tokens) with 512
+#: frames, remat full, loss_chunk 256 (two interleaved chunks), AdamW
+ENCDEC_TRAIN_STEPS = 3
+
+
+def encdec_pair() -> tuple[str, str]:
+    return tuple(os.path.join(PLANS, f"{ENCDEC}.pair.{p}.json")
+                 for p in ("prefill", "decode"))
+
+
+def encdec_inputs(cfg, device, seed: int = 11) -> dict:
+    """The serving batch: seeded random frames (in the config's dtype) and
+    prompt tokens, made on the CPU from a ``torch.Generator``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randn(ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT), generator=gen)
+    return {"tokens": tokens.to(device),
+            "frontend": frames.to(device=device, dtype=getattr(torch, cfg.dtype))}
+
+
+def encdec_generate(cfg, params, batch, device, steps: int):
+    """Greedy generation through ``make_prefill_step`` and
+    ``make_decode_step`` under the pair: (tokens (B, 1 + steps), prefill
+    ms, decode ms per step, launches of the prefill, launches of each
+    decode step).  Wall times on the host clock around synchronized
+    calls."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import load_plan
+
+    pre, dec = (load_plan(p) for p in encdec_pair())
+    prefill = make_prefill_step(cfg, max_seq=ENCDEC_PROMPT + ENCDEC_GEN)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    before = launches.snapshot()
+    t0 = time.perf_counter()
+    with plan_context(pre):
+        logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    mid = launches.snapshot()
+    per_prefill = {k: mid[k] - before[k] for k in mid}
+    if not torch.isfinite(logits.float()).all() or logits.shape != (
+            ENCDEC_BATCH, cfg.vocab):
+        raise AssertionError(f"{ENCDEC}: prefill logits {tuple(logits.shape)} not finite")
+    tok = torch.argmax(logits, -1)[:, None]
+    out, per_decode = [tok], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        b = launches.snapshot()
+        with plan_context(dec):
+            logits, caches = decode(params, tok, caches,
+                                    torch.tensor(ENCDEC_PROMPT + i, device=device))
+        a = launches.snapshot()
+        per_decode.append({k: a[k] - b[k] for k in a})
+        tok = torch.argmax(logits, -1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    return torch.cat(out, 1), prefill_ms, decode_ms, per_prefill, per_decode
+
+
+def encdec_logits(device) -> list[str]:
+    """fp32 full width: prefill logits (B, V) and one decode step's logits
+    under the pair's kernels against the plain executor along the same
+    paths (``force_backend="jnp"``) on the card, within 1e-4 x max |logit|
+    (the run fails otherwise), beside the plain executor's spread between
+    two contraction orders (the plan's paths against the MAC-optimal
+    ones)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan, plan_context
+    from repro_torch.plan import load_plan
+
+    cfg = get_config(ENCDEC).with_(dtype="float32")
+    pre, dec = (load_plan(p) for p in encdec_pair())
+    params = api(cfg, plan=None, device=device).init_params(0)
+    batch = encdec_inputs(cfg, device)
+    prefill = make_prefill_step(cfg, max_seq=ENCDEC_PROMPT + ENCDEC_GEN)
+    decode = make_decode_step(cfg)
+    outs = {}
+    try:
+        for label, plans, force in (("kernels", (pre, dec), None),
+                                    ("plain", (pre, dec), "jnp"),
+                                    ("mac-optimal", (None, None), None)):
+            with plan_context(plans[0], force_backend=force):
+                first, caches = prefill(params, batch)
+            tok = batch["tokens"][:, -1:]   # one fixed token: no argmax ties
+            with plan_context(plans[1], force_backend=force):
+                second, _ = decode(params, tok, caches,
+                                   torch.tensor(ENCDEC_PROMPT, device=device))
+            torch.cuda.synchronize()
+            outs[label] = (first.float(), second.float())
+            del caches
+    finally:
+        install_plan(None)
+    notes = []
+    for i, what in enumerate(("prefill", "decode step")):
+        got, want, other = (outs[k][i] for k in ("kernels", "plain", "mac-optimal"))
+        if got.shape != (ENCDEC_BATCH, cfg.vocab) or not torch.isfinite(got).all():
+            raise AssertionError(f"{ENCDEC} {what}: bad logits {tuple(got.shape)}")
+        e = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        spread = (other - want).abs().max().item()
+        notes.append(f"{ENCDEC} {what} logits (float32, 12 + 12 layers, "
+                     f"{ENCDEC_FRAMES} frames), kernels vs plain executor on the card: "
+                     f"max abs diff {e:.3e}, max |logit| {scale:.3e} (ratio "
+                     f"{e / scale:.2e}); plain executor, plan paths vs MAC-optimal "
+                     f"paths: {spread:.3e}; argmax agrees for "
+                     f"{int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+                     f"{ENCDEC_BATCH} lanes; held to 1e-4")
+        if e > 1e-4 * max(scale, 1e-3) + 1e-6:
+            raise AssertionError(f"{ENCDEC} {what}: planned vs plain logits differ by "
+                                 f"{e} (scale {scale})")
+    return notes
+
+
+def encdec_serve(device) -> tuple[dict, list[str]]:
+    """Full width and depth in the config's bf16 (seed-0 weights): one
+    warm-up generation of 2 tokens, then the counted run: a prefill and 15
+    decode steps (counts zeroed just before, read just after); K1 must
+    launch in the prefill and in every decode step.  Then the fp32 check,
+    a profiled decode step and the peak device memory.  Returns the counted
+    run's launches and report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan, plan_context
+    from repro_torch.plan import load_plan
+
+    cfg = get_config(ENCDEC)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = api(cfg, plan=None, device=device).init_params(0)
+    batch = encdec_inputs(cfg, device)
+    try:
+        encdec_generate(cfg, params, batch, device, 1)
+        launches.reset()
+        toks, prefill_ms, decode_ms, per_prefill, per_decode = encdec_generate(
+            cfg, params, batch, device, ENCDEC_GEN - 1)
+        counts = launches.snapshot()
+    finally:
+        install_plan(None)
+    if toks.shape != (ENCDEC_BATCH, ENCDEC_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{ENCDEC}: generated tokens {toks.tolist()}")
+    if not per_prefill["streaming_tt"] or not all(d["streaming_tt"] for d in per_decode):
+        raise AssertionError(f"{ENCDEC}: K1 launches per prefill "
+                             f"{per_prefill['streaming_tt']}, per decode step "
+                             f"{[d['streaming_tt'] for d in per_decode]}")
+    steps = ENCDEC_GEN - 1
+    notes = [f"{ENCDEC} (bf16, 12 + 12 layers, batch {ENCDEC_BATCH}, {ENCDEC_FRAMES} "
+             f"frames, prompt {ENCDEC_PROMPT}, {ENCDEC_GEN} greedy tokens, make_prefill_"
+             f"step / make_decode_step under the pair): prefill {prefill_ms:.1f} ms, "
+             f"decode {decode_ms:.2f} ms a step over {steps} steps, "
+             f"{steps * ENCDEC_BATCH / (decode_ms * steps) * 1e3:.1f} gen tok/s; "
+             f"launches per prefill {({k: v for k, v in per_prefill.items() if v})}, "
+             f"per decode step {({k: v for k, v in per_decode[0].items() if v})}; "
+             f"sample {toks[0, :8].tolist()}"]
+    notes += encdec_logits(device)
+
+    pre, dec = (load_plan(p) for p in encdec_pair())
+    decode = make_decode_step(cfg)
+    with plan_context(pre):
+        _, caches = make_prefill_step(cfg, max_seq=ENCDEC_PROMPT + 16)(params, batch)
+    tok = batch["tokens"][:, -1:]
+
+    def step(i):
+        with plan_context(dec):
+            decode(params, tok, caches, torch.tensor(ENCDEC_PROMPT + i, device=device))
+
+    notes += profile_decode(step, ENCDEC, ("K1 streaming_tt",))
+    notes.append(f"{ENCDEC} serving: peak device memory "
+                 f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+                 "(torch.cuda.max_memory_allocated over the serve runs and the fp32 "
+                 "check)")
+    return counts, notes
+
+
+def encdec_train(device) -> tuple[dict, list[str]]:
+    """:data:`ENCDEC_TRAIN_STEPS` AdamW steps of ``make_train_step`` under
+    the train plan at full width and depth (bf16, remat full, loss_chunk
+    256, seed-0 weights), batch 4 x seq 512 with 512 frames (counts zeroed
+    just before, read just after): every loss and gradient norm finite, and
+    every step launches K1 forward and dx and K3, or the run fails.  Then
+    the per-leaf step-0 check against the plain executor, a profiled step
+    and the peak device memory.  Returns the run's launches and report
+    lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan
+    from repro_torch.optim import adamw_init
+    from repro_torch.plan import execution_log, executor, load_plan, reset_execution_log
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ENCDEC)
+    if cfg.remat != "full" or cfg.loss_chunk != 256:
+        raise AssertionError(f"{ENCDEC}: remat {cfg.remat}, loss_chunk {cfg.loss_chunk}")
+    torch.cuda.reset_peak_memory_stats(device)
+    ring = executor._EXEC_LOG_MAX
+    executor._EXEC_LOG_MAX = FAMILY_TRAIN_LOG
+    install_plan(load_plan(os.path.join(PLANS, ENCDEC_TRAIN_PLAN)))
+    losses, norms, step_ms, per_step, k1 = [], [], [], [], []
+    try:
+        params = api(cfg, device=device).init_params(0)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        opt = adamw_init(params)
+        step = make_train_step(cfg)
+        batches = [train_batch(cfg, 512, 4, i, device)
+                   for i in range(ENCDEC_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        launches.reset()
+        for batch in batches:
+            reset_execution_log()
+            before = launches.snapshot()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = launches.snapshot()
+            per_step.append({k: after[k] - before[k] for k in after})
+            recs = execution_log()
+            k1.append((sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt"
+                           for r in recs),
+                       sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
+                           and r["backend"] == "streaming_tt" for r in recs)))
+        counts = launches.snapshot()
+        del params, opt, batches
+    finally:
+        executor._EXEC_LOG_MAX = ring
+        install_plan(None)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"{ENCDEC} train: non-finite {losses} {norms}")
+    for i, (per, (fwd, dx)) in enumerate(zip(per_step, k1)):
+        if per["streaming_tt"] <= 0 or per["tt_gemm_ws"] <= 0 or fwd <= 0 or dx <= 0:
+            raise AssertionError(f"{ENCDEC} train step {i}: launches {per}, K1 forward "
+                                 f"{fwd}, dx {dx} calls")
+    steady = step_ms[1:]
+    ms = sum(steady) / len(steady)
+    notes = [f"{ENCDEC} {ENCDEC_TRAIN_PLAN} (bf16, remat full, loss_chunk 256, batch 4 "
+             f"x seq 512, 512 frames, make_train_step): losses "
+             f"{[round(x, 6) for x in losses]}, grad norms {[round(x, 6) for x in norms]};"
+             f" step ms first {step_ms[0]:.1f}, then {[round(t, 1) for t in steady]} "
+             f"(mean {ms:.1f}); {2048 / ms * 1e3:.1f} train tokens/s; launches per step "
+             f"{({k: v for k, v in per_step[-1].items() if v})} (the remat recompute "
+             f"included); K1 calls a step: forward {k1[-1][0]}, dx {k1[-1][1]}; peak "
+             f"device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    notes += family_train_check(ENCDEC, ENCDEC_TRAIN_PLAN, device)
+    notes += train_profile(ENCDEC, ENCDEC_TRAIN_PLAN, 512, 4,
+                           ("K1 streaming_tt", "K3 tt_gemm_ws"), device)
+    notes.append(f"{ENCDEC}: check and profile {time.perf_counter() - t0:.1f} s")
+    return counts, notes
+
+
+def encdec_kernel_shapes(device) -> tuple[dict, list[str]]:
+    """K1 at ``enc_mlp.wu`` (1024 -> 4096) with the prefill's 2048 frames
+    and at ``xattn.wq`` with a decode step's 4 tokens, under the pair's
+    paths; K3 at every weight-gradient GEMM of ``enc_mlp.wu`` under the
+    train plan at 2048 tokens; each against its plain version and timed
+    beside one ``torch.einsum`` / ``torch.matmul`` and the bound
+    (:func:`k1_row`, :func:`k3_row`).  Returns the rows per kernel and the
+    report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backward import backward_networks
+    from repro_torch.dse_cli import _block_specs, model_dse_layers
+    from repro_torch.plan import load_plan
+
+    cfg = get_config(ENCDEC)
+    nets = {n.split("[")[0]: tn for n, tn in model_dse_layers(cfg, tokens=8)}
+    gen = torch.Generator().manual_seed(21)
+    rows = {"streaming_tt": {"err": 0.0, "rows": []},
+            "tt_gemm_ws": {"err": 0.0, "rows": []}}
+    pre, dec = (load_plan(p) for p in encdec_pair())
+    for plan, name, tokens, phase in ((pre, "enc_mlp.wu", 2048, "prefill"),
+                                      (dec, "xattn.wq", 4, "decode")):
+        e, t = k1_row(f"{ENCDEC} {name} ({phase})", nets[name], plan.layer(name),
+                      tokens, gen, device)
+        rows["streaming_tt"]["err"] = max(rows["streaming_tt"]["err"], e)
+        rows["streaming_tt"]["rows"].append(t)
+    spec = {sp.name: sp for sp, _, _ in _block_specs(cfg)}["enc_mlp.wu"]
+    lp = load_plan(os.path.join(PLANS, ENCDEC_TRAIN_PLAN)).layer("enc_mlp.wu")
+    bwd = dict(backward_networks(spec.network(2048)))
+    seen = set()
+    for op in lp.backward:
+        if op.backend != "tt_gemm":
+            continue
+        for g in bwd[op.wrt].gemm_sequence(op.path_steps):
+            if (g.M, g.K, g.N, op.tiling) in seen:
+                continue
+            seen.add((g.M, g.K, g.N, op.tiling))
+            e, t = k3_row(f"{ENCDEC} enc_mlp.wu d{op.wrt} (train)", g.M, g.K, g.N,
+                          lp.dataflow, op.tiling, gen, device)
+            rows["tt_gemm_ws"]["err"] = max(rows["tt_gemm_ws"]["err"], e)
+            rows["tt_gemm_ws"]["rows"].append(t)
+    if not rows["tt_gemm_ws"]["rows"]:
+        raise AssertionError(f"{ENCDEC} enc_mlp.wu: no tt_gemm weight gradient")
+    return rows, [f"{name} at the {ENCDEC} shapes: {len(r['rows'])} cases, max abs err "
+                  f"{r['err']:.3e}" for name, r in rows.items()]
+
+
+def encdec_phase(device) -> tuple[dict, dict, dict, list[str]]:
+    """Phase 4d: serve, check, train and time full-width seamless-m4t-medium.
+    Returns the serve and train runs' launches, the kernel rows at its
+    shapes and the report lines."""
+    import torch
+
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    serve_counts, notes = encdec_serve(device)
+    torch.cuda.empty_cache()
+    notes.append(f"{ENCDEC}: serving and its check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_counts, more = encdec_train(device)
+    torch.cuda.empty_cache()
+    notes += more + [f"{ENCDEC}: training, its check and profile "
+                     f"{time.perf_counter() - t0:.1f} s"]
+    rows, more = encdec_kernel_shapes(device)
+    return serve_counts, train_counts, rows, notes + more
+
+
 def main() -> int:
     global PLANS
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2513,6 +2938,21 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} never launched on the families' "
                                      "train path")
 
+        log(f"--- encdec: full-width {ENCDEC}, served through the prefill/decode "
+            "steps and trained")
+        t0 = time.perf_counter()
+        encdec_serve_counts, encdec_train_counts, encdec_rows, notes = \
+            encdec_phase(device)
+        for n in notes:
+            log(f"  {n}")
+        log(f"encdec: {time.perf_counter() - t0:.1f} s; serve-path launches "
+            f"{encdec_serve_counts}; train-path launches {encdec_train_counts}")
+        for name, counts in (("streaming_tt", encdec_serve_counts),
+                             ("streaming_tt", encdec_train_counts),
+                             ("tt_gemm_ws", encdec_train_counts)):
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the encdec path")
+
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device) + calibration_check(device)):
             log(f"  {n}")
@@ -2562,7 +3002,9 @@ def main() -> int:
                       "tune": tune_counts[k["name"]],
                       "serve_tuned": tuned_counts[k["name"]],
                       "serve_families": family_counts[k["name"]],
-                      "train_families": family_train_counts[k["name"]]},
+                      "train_families": family_train_counts[k["name"]],
+                      "serve_encdec": encdec_serve_counts[k["name"]],
+                      "train_encdec": encdec_train_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],
@@ -2577,7 +3019,13 @@ def main() -> int:
                                       "library_ms", "library_graph_ms",
                                       "bound_ms", "bound_by")}
              for r in family_rows[k["name"]]["rows"]]}}
-            if k["name"] in family_rows else {})}
+            if k["name"] in family_rows else {}),
+         **({"encdec": {"max_abs_err": encdec_rows[k["name"]]["err"], "shapes": [
+             {key: r[key] for key in ("at", "ms", "host_ms", "graph_ms", "plain_ms",
+                                      "library_ms", "library_graph_ms",
+                                      "bound_ms", "bound_by")}
+             for r in encdec_rows[k["name"]]["rows"]]}}
+            if k["name"] in encdec_rows else {})}
         for k in kernels],
         "k1_rank_space_refusals": refusals}
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -140,7 +140,9 @@ def run(argv=None) -> ServeRun:
     cfg = get_config(args.arch, tt=not args.dense, smoke=args.smoke)
     if cfg.family == "encdec":
         print("error: the serve scheduler is causal-LM only; encdec runs "
-              "its own scalar-position decoder", file=sys.stderr)
+              "its own scalar-position decoder (serve it through the "
+              "prefill/decode steps: examples/serve_decode_torch.py)",
+              file=sys.stderr)
         return ServeRun(2)
     any_plan = bool(args.plan or args.plan_prefill or args.plan_decode)
     if args.plan:

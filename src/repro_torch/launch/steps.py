@@ -1,12 +1,16 @@
-"""Step builders: train and eval (port of part of ``src/repro/launch/steps.py``).
+"""Step builders: train, prefill, decode and eval (port of
+``src/repro/launch/steps.py``).
 
 PyTorch runs eagerly, so each builder returns a plain function; there is
-nothing to jit.  The serving steps live in ``serve/engine.py``.
+nothing to jit.  The prefill and decode steps are the one-batch serving
+form every family takes (the encoder-decoder's only one:
+``examples/serve_decode_torch.py``); the continuous-batching engine of the
+causal LMs lives in ``serve/engine.py``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -56,6 +60,32 @@ def make_train_step(
             params, opt_state = adamw_update(grads, opt_state, params, lr,
                                              weight_decay=weight_decay)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None):
+    """``(params, batch) -> (last-token logits, primed caches)``, without
+    building the autograd graph; the caches hold ``max_seq`` positions
+    (default: the prompt's length)."""
+    m = api(cfg)
+
+    def step(params, batch):
+        s = batch["tokens"].shape[1]
+        with torch.no_grad():
+            return m.prefill(params, batch, max_seq or s)
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``(params, token, caches, cache_pos) -> (logits, new caches)``,
+    without building the autograd graph."""
+    m = api(cfg)
+
+    def step(params, token, caches, cache_pos):
+        with torch.no_grad():
+            return m.decode_step(params, token, caches, cache_pos)
 
     return step
 

@@ -11,7 +11,8 @@ pipeline).  The loop composes deterministic resumable data, AdamW with a
 warmup-cosine schedule, async atomic checkpoints, straggler monitoring and
 preemption-safe shutdown; ``--grad-compress`` round-trips the gradients
 through int8 error feedback before AdamW.  Every causal family trains
-(dense, moe, hybrid, rwkv, vlm).
+(dense, moe, hybrid, rwkv, vlm); an encoder-decoder arch exits 2, since
+the pipeline makes no encoder frames.
 
 With ``--plan`` every TT projection contracts along the planned paths
 through the planned CUDA kernels, forward and backward, and the run ends
@@ -123,6 +124,14 @@ def run(argv=None) -> TrainRun:
         ap.error("--plan-backend needs --plan")
 
     cfg = get_config(args.arch, tt=not args.dense, smoke=args.smoke)
+    if cfg.family == "encdec":
+        # the reference's train CLI feeds the same pipeline to an encdec arch
+        # and fails at its first step (KeyError: 'frontend')
+        print("error: the data pipeline yields tokens and labels only; an "
+              "encoder-decoder arch also needs encoder frames "
+              "(batch['frontend']): train it through api().train_loss and "
+              "launch.steps.make_train_step", file=sys.stderr)
+        return TrainRun(2)
     install_plan(None)
     if args.plan:
         plan = load_plan(args.plan)

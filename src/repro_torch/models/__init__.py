@@ -1,20 +1,26 @@
-"""Model API (port of ``models/__init__.py::api``): the causal-LM
-families dense, moe, hybrid, rwkv and vlm; encdec is not ported yet.
+"""Model API (port of ``models/__init__.py``): every family, the causal
+LMs dense, moe, hybrid, rwkv and vlm, and the encoder-decoder (encdec).
 
 ``api(cfg)`` returns uniform callables.  ``init_params`` takes a
 ``torch.Generator`` or an int seed; parameters and caches live on
 ``device``, ``cuda`` unless the caller passes ``device="cpu"``.
+``input_specs(cfg, shape)`` gives meta tensors (shape and dtype, no
+storage) for every input of a cell's step, where the reference gives
+``jax.ShapeDtypeStruct``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
+from . import encdec as _encdec
 from . import lm as _lm
-from .config import ModelConfig
+from .config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
+
+ENC_LEN_CAP = 4096   # encoder frame length for enc-dec decode shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +34,10 @@ class ModelAPI:
     decode_step: Callable
     init_caches: Callable
     #: full-logits prefill: (params, batch, max_seq) -> ((B, S, V), caches);
-    #: a VLM batch may carry its ``frontend`` prefix
-    prefill_full: Callable
+    #: a VLM batch may carry its ``frontend`` prefix.  The serve scheduler
+    #: slices the last real token of a bucket-padded prompt from it.
+    #: ``None`` for families without one (encdec)
+    prefill_full: Optional[Callable] = None
 
 
 _PLAN_UNSET = object()  # sentinel: "plan argument not given"
@@ -44,10 +52,6 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
     ``plan=None`` clears it.  ``plan_backend`` forces one executor for all
     layers, with the reference's checks (``models/__init__.py:57-75``).
     """
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue A item 12b)")
     if plan_backend is not None:
         from repro_torch.plan.schema import BACKENDS
 
@@ -68,11 +72,22 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
             plan = load_plan(plan)
         install_plan(plan, force_backend=plan_backend)
 
+    family = _encdec if cfg.family == "encdec" else _lm
+
     def init_params(generator):
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        return _lm.init_params(cfg, generator, device=device)
+        return family.init_params(cfg, generator, device=device)
 
+    if cfg.family == "encdec":
+        return ModelAPI(
+            init_params=init_params,
+            train_loss=lambda p, b: _encdec.train_loss(cfg, p, b),
+            prefill=lambda p, b, max_seq: _encdec.prefill(cfg, p, b, max_seq),
+            decode_step=lambda p, t, c, pos: _encdec.decode_step(cfg, p, t, c, pos),
+            init_caches=lambda batch, max_seq: _encdec.init_caches(
+                cfg, batch, max_seq, min(ENC_LEN_CAP, max_seq), device=device),
+        )
     return ModelAPI(
         init_params=init_params,
         train_loss=lambda p, b: _lm.train_loss(cfg, p, b),
@@ -84,4 +99,46 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
     )
 
 
-__all__ = ["ModelConfig", "ModelAPI", "api"]
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Meta tensors (shape and dtype, no storage) for every input of the
+    cell's step, the reference's ``ShapeDtypeStruct`` stand-ins.
+
+    train:   {tokens, labels[, frontend]}
+    prefill: {tokens[, frontend]}
+    decode:  {token, cache_pos, caches}
+    """
+    gb, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def frontend_spec(seq: int):
+        if cfg.family == "vlm":
+            return spec((gb, cfg.n_frontend_tokens or 256, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            return spec((gb, min(ENC_LEN_CAP, seq), cfg.d_model), dt)
+        return None
+
+    if shape.step in ("train", "prefill"):
+        batch = {"tokens": spec((gb, s))}
+        if shape.step == "train":
+            batch["labels"] = spec((gb, s))
+        fe = frontend_spec(s)
+        if fe is not None:
+            batch["frontend"] = fe
+        return batch
+    if shape.step == "decode":
+        max_seq = s + (cfg.n_frontend_tokens or (256 if cfg.family == "vlm" else 0))
+        return {
+            "token": spec((gb, 1)),
+            "cache_pos": spec(()),
+            "caches": api(cfg, device="meta").init_caches(gb, max_seq),
+        }
+    raise ValueError(shape.step)
+
+
+__all__ = [
+    "ModelConfig", "ShapeConfig", "SHAPES", "shape_applicable",
+    "ModelAPI", "api", "input_specs", "ENC_LEN_CAP",
+]

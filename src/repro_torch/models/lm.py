@@ -80,10 +80,13 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _checkpointed(fn, *args, **kwargs):
-    """``fn(*args)``, recomputed in the backward pass when its first
-    argument (the hidden states) is part of an autograd graph.  The model
-    draws no random numbers, so the RNG state is not replayed."""
-    if not (torch.is_grad_enabled() and args[0].requires_grad):
+    """``fn(*args)``, recomputed in the backward pass when a tensor among
+    its arguments (the hidden states; the encoder's layer parameters, whose
+    first layer's input, the frames, needs no gradient) is part of an
+    autograd graph.  The model draws no random numbers, so the RNG state is
+    not replayed."""
+    if not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in leaves(args))):
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                       **kwargs)

@@ -66,8 +66,9 @@ class ServeEngine:
         if cfg.family == "encdec":
             raise ValueError(
                 "serve scheduler is causal-LM only: encdec runs its own "
-                "scalar-position decoder (not ported yet: ROADMAP.md, Queue "
-                "A item 12b)")
+                "scalar-position decoder (serve it through the prefill/decode "
+                "steps, launch.steps.make_prefill_step / make_decode_step, as "
+                "examples/serve_decode_torch.py does)")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1 (got {n_slots})")
         if prompt_bucket < 1:

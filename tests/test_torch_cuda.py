@@ -31,11 +31,11 @@ import torch
 
 from repro_torch import dse_cli
 from repro_torch.configs import get_config
-from repro_torch.core import find_topk_paths, tt_linear_network
+from repro_torch.core import find_topk_paths, fusion, tt_linear_network
 from repro_torch.core.backward import grad_input_network
 from repro_torch.dse_cli import model_dse_layers
 from repro_torch.kernels import fused_path, launches, ops, streaming_tt, tt_gemm
-from repro_torch.plan import load_plan
+from repro_torch.plan import LayerPlan, Tiling, load_plan
 from repro_torch.plan.executor import as_candidate_path, planned_tt_linear
 from test_torch_rank_kernels import CANDIDATES, _families
 
@@ -657,6 +657,56 @@ def test_fused_path_cuda_refuses_a_block_k_off_4(cuda_device):
     work = _segment_tensors(entries, cuda_device, 72)
     with pytest.raises(ValueError, match="multiple of 4"):
         fused_path.fused_segment_contract(work, chain, block_k=10)
+
+
+#: the example at which the reference's fused == per-step property fails
+#: in the last ulp (``tests/test_fused_exec.py::
+#: test_fused_execution_bit_identical_property``, Pallas interpret mode):
+#: in modes (8, 8), out modes (8, 8), ranks (4, 8, 4), 64 tokens, path 2 of
+#: the top 4, block_tokens 64, a 64 KiB budget, OS
+FUSED_EXAMPLE = dict(in_modes=(8, 8), out_modes=(8, 8), ranks=(4, 8, 4), tokens=64,
+                     path_idx=2, block_tokens=64, budget_kib=64, dataflow="OS")
+
+
+def fused_example(device):
+    """(per-step layer plan, segmented layer plan, x, cores, (in modes, out
+    modes, ranks)) of :data:`FUSED_EXAMPLE`, segmented by the port's
+    ``fusion.segment_path``; the inputs drawn as the reference's property
+    test draws them (``standard_normal`` from seed 0, X then the cores)."""
+    e = FUSED_EXAMPLE
+    tn = tt_linear_network(e["tokens"], e["in_modes"], e["out_modes"], e["ranks"])
+    paths = find_topk_paths(tn, k=4)
+    steps = tuple(tuple(s) for s in paths[min(e["path_idx"], len(paths) - 1)].steps)
+    segs = fusion.segment_path(tn, steps, block_tokens=e["block_tokens"],
+                               budget_bytes=e["budget_kib"] * 1024)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((e["tokens"], math.prod(e["in_modes"]))).astype(np.float32)
+    cores = [torch.from_numpy(rng.standard_normal(n.dims).astype(np.float32)).to(device)
+             for n in tn.nodes if n.kind != "input"]
+
+    def lp(segments):
+        return LayerPlan(name="l", path_index=0, path_steps=steps,
+                         dataflow=e["dataflow"], partitioning=(1, 1),
+                         backend="tt_gemm", tiling=Tiling(block_tokens=e["block_tokens"]),
+                         segments=segments)
+
+    return (lp(None), lp(segs), torch.from_numpy(x).to(device), cores,
+            (e["in_modes"], e["out_modes"], e["ranks"]))
+
+
+@pytest.mark.cuda
+def test_fused_path_cuda_at_the_references_counterexample(cuda_device):
+    """At :data:`FUSED_EXAMPLE` the segmented layer (K5 on its fused run,
+    the per-step CUDA ``tt_gemm`` route on the rest) equals the unsegmented
+    layer on the per-step CUDA route bit for bit."""
+    per_step, segmented, x, cores, geometry = fused_example(cuda_device)
+    assert fusion.has_fused(segmented.segments)
+    plain = planned_tt_linear(per_step, x, cores, *geometry)
+    launches.reset()
+    seg = planned_tt_linear(segmented, x, cores, *geometry)
+    torch.cuda.synchronize()
+    assert launches.COUNTS["fused_path"] > 0
+    assert torch.equal(plain, seg)
 
 
 @pytest.mark.cuda
@@ -1317,3 +1367,114 @@ def test_grad_compress_train_step_cuda_matches_cpu(cuda_device, tmp_path):
     assert sum(got.launches[0][f"tt_gemm_{df}"] for df in ("os", "ws", "is")) > 0
     np.testing.assert_allclose(got.losses + got.grad_norms,
                                want.losses + want.grad_norms, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family (seamless-m4t-medium)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["streaming_tt", "tt_gemm"])
+def test_encdec_smoke_serving_cuda_matches_plain(cuda_device, backend, tmp_path):
+    """The smoke encoder-decoder on the card under a plan pair forced to one
+    kernel backend: ``make_prefill_step`` (12 frames, a 10-token prompt)
+    and 3 ``make_decode_step`` steps at scalar positions against the plain
+    executor on the card, within 1e-4 of the logits' scale; the backend's
+    kernels launched in prefill and in decode."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan, plan_context
+
+    arch = "seamless-m4t-medium"
+    prefix = str(tmp_path / "pair")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert dse_cli.main(["--arch", arch, "--smoke", "--top-k", "2", "--tokens",
+                             "16", "--serve-slots", "2", "--plan-backend", backend,
+                             "--emit-plan-pair", prefix, "--out", os.devnull]) == 0
+    pre, dec = (load_plan(f"{prefix}.{p}.json") for p in ("prefill", "decode"))
+    cfg = get_config(arch, smoke=True)
+    params = api(cfg, plan=None, device=cuda_device).init_params(0)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13))).to(cuda_device)
+    batch = {"tokens": tokens[:, :10],
+             "frontend": torch.from_numpy(_np((2, 12, cfg.d_model), 3)).to(cuda_device)}
+    prefill, decode = make_prefill_step(cfg, max_seq=16), make_decode_step(cfg)
+    kernels = ("streaming_tt",) if backend == "streaming_tt" else (
+        "tt_gemm_os", "tt_gemm_ws", "tt_gemm_is", "fused_path")
+    outs = {}
+    try:
+        for label, force in (("kernels", None), ("plain", "jnp")):
+            launches.reset()
+            with plan_context(pre, force_backend=force):
+                logits, caches = prefill(params, batch)
+            got, counts = [logits], [dict(launches.COUNTS)]
+            for i in range(3):
+                launches.reset()
+                with plan_context(dec, force_backend=force):
+                    logits, caches = decode(params, tokens[:, 10 + i:11 + i], caches,
+                                            torch.tensor(10 + i, device=cuda_device))
+                got.append(logits)
+                counts.append(dict(launches.COUNTS))
+            torch.cuda.synchronize()
+            outs[label] = (got, counts)
+    finally:
+        install_plan(None)
+    for per_call in outs["kernels"][1]:
+        assert sum(per_call[k] for k in kernels) > 0
+    assert not any(sum(c.values()) for c in outs["plain"][1])
+    for got, want in zip(outs["kernels"][0], outs["plain"][0]):
+        assert got.shape == (2, cfg.vocab) and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["streaming_tt", "tt_gemm"])
+def test_encdec_smoke_train_step_cuda_matches_plain(cuda_device, backend, tmp_path):
+    """The smoke encoder-decoder's loss and every gradient on the card under
+    its smoke train plan forced to one kernel backend (K1 forward and dx, or
+    K2-K4 + K5; weight gradients on K2-K4), with ``remat="full"``, against
+    the plain executor on the card: within 1e-4 of each tensor's scale;
+    the kernels launched.  Then one ``make_train_step`` step on each."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.nn import install_plan
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    plan = load_plan(_family_train_plan("seamless-m4t-medium", backend,
+                                        tmp_path / "train.json"))
+    cfg = get_config("seamless-m4t-medium", smoke=True).with_(remat="full")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))).to(cuda_device)
+             for k in ("tokens", "labels")}
+    batch["frontend"] = torch.from_numpy(_np((2, 12, cfg.d_model), 4)).to(cuda_device)
+    outs = {}
+    try:
+        for label, force in (("kernels", None), ("plain", "jnp")):
+            m = api(cfg, plan=plan, plan_backend=force, device=cuda_device)
+            params = m.init_params(0)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            launches.reset()
+            loss = m.train_loss(params, batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = [p.grad for p in leaves(params)]
+            counts = dict(launches.COUNTS)
+            params, _, metrics = make_train_step(cfg)(params, adamw_init(params), batch)
+            outs[label] = ([loss.detach()] + grads + [metrics["grad_norm"]], counts)
+    finally:
+        install_plan(None)
+    counts = outs["kernels"][1]
+    assert sum(counts[f"tt_gemm_{df}"] for df in ("os", "ws", "is")) > 0
+    assert counts["streaming_tt" if backend == "streaming_tt" else "fused_path"] > 0
+    assert sum(outs["plain"][1].values()) == 0
+    for got, want in zip(outs["kernels"][0], outs["plain"][0]):
+        assert got is not None and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))

@@ -227,17 +227,24 @@ def test_rwkv_time_and_channel_mix_match_reference(weights, chunk, seq):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# what the serve scheduler refuses
 # ---------------------------------------------------------------------------
 
 def test_encdec_raises_naming_the_next_slice(capsys):
+    """The encoder-decoder is ported (``api`` builds it), but the serve
+    scheduler and ``python -m repro_torch.launch.serve`` refuse it for good,
+    as the reference does: "causal-LM only", pointing to the prefill/decode
+    steps, with no "not ported" wording."""
     cfg = get_config("seamless-m4t-medium", smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 12b"):
-        api(cfg, device="cpu")
+    assert api(cfg, device="cpu").prefill_full is None
     from repro_torch.serve import ServeEngine
 
-    with pytest.raises(ValueError, match="causal-LM only"):
+    with pytest.raises(ValueError, match="causal-LM only") as info:
         ServeEngine(cfg, {"ln_f": {"scale": torch.ones(1)}}, n_slots=1, max_seq=8)
+    assert "prefill/decode steps" in str(info.value)
+    assert "not ported" not in str(info.value) and "12b" not in str(info.value)
     assert port_serve.main(["--arch", "seamless-m4t-medium", "--smoke",
                             "--device", "cpu"]) == 2
-    assert "causal-LM only" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "causal-LM only" in err and "prefill/decode steps" in err
+    assert "not ported" not in err

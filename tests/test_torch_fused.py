@@ -28,7 +28,8 @@ from repro.kernels import fused_path as ref_fused
 from repro_torch.kernels import fused_path, launches, ops
 from repro_torch.plan import LayerPlan, Tiling, execution_log, reset_execution_log
 from repro_torch.plan.executor import planned_tt_linear
-from test_torch_cuda import _chain_case, _replay, _segment, segment_cases
+from test_torch_cuda import (FUSED_EXAMPLE, _chain_case, _replay, _segment,
+                             fused_example, segment_cases)
 
 torch.set_num_threads(2)
 
@@ -145,6 +146,29 @@ def test_segmented_layer_equals_unsegmented_bit_for_bit(tokens, dataflow):
     assert torch.equal(plain, seg)
     recs = [r for r in execution_log() if "segment" in r]
     assert [tuple(r["segment"]) for r in recs] == list(segs)
+
+
+def test_the_references_counterexample_is_bit_identical_here():
+    """At the example where the reference's fused == per-step property
+    fails in the last ulp (interpret mode; ``FUSED_EXAMPLE``), the port
+    segments the path as the reference compiler does, and its fused route
+    (K5's plain version) equals its per-step route bit for bit, one record
+    per segment."""
+    e = FUSED_EXAMPLE
+    per_step, segmented, x, cores, geometry = fused_example("cpu")
+    tn = ref_tt_linear_network(e["tokens"], e["in_modes"], e["out_modes"], e["ranks"])
+    paths = ref_find_topk_paths(tn, k=4)
+    steps = tuple(tuple(s) for s in paths[min(e["path_idx"], len(paths) - 1)].steps)
+    assert steps == segmented.path_steps
+    assert segmented.segments == ref_fusion.segment_path(
+        tn, steps, block_tokens=e["block_tokens"],
+        budget_bytes=e["budget_kib"] * 1024) == ((0, 1), (1, 2), (2, 4))
+    plain = planned_tt_linear(per_step, x, cores, *geometry)
+    reset_execution_log()
+    seg = planned_tt_linear(segmented, x, cores, *geometry)
+    assert torch.equal(plain, seg)
+    recs = [r for r in execution_log() if "segment" in r]
+    assert [tuple(r["segment"]) for r in recs] == list(segmented.segments)
 
 
 def test_segment_smem_bytes_known_shapes():

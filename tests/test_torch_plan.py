@@ -102,6 +102,12 @@ EMIT = {
                                        "tt_gemm"],
     "rwkv6-7b.train.json": ["--arch", "rwkv6-7b", "--mode", "train",
                             "--tokens", "2048"],
+    "seamless-m4t-medium.pair.prefill.json": ["--arch", "seamless-m4t-medium",
+                                              "--serve-slots", "4"],
+    "seamless-m4t-medium.pair.decode.json": ["--arch", "seamless-m4t-medium",
+                                             "--serve-slots", "4"],
+    "seamless-m4t-medium.train.json": ["--arch", "seamless-m4t-medium", "--mode",
+                                       "train", "--tokens", "2048"],
 }
 PLAN_FILES = sorted(EMIT)
 #: plans whose emission takes minutes on a CPU (the full-width rank search
@@ -165,20 +171,17 @@ def test_config_matches_reference(smoke):
 
 
 def test_unported_arch_points_to_roadmap():
-    """Every architecture's config is ported (the DSE plans them all); the
-    model code of every causal-LM family is too, the encoder-decoder's is
-    not, and says so."""
+    """Every architecture's config is ported (the DSE plans them all), and
+    so is the model code of every family: ``api()`` builds for every arch,
+    the encoder-decoder included (no family raises any more)."""
     from repro_torch.models import api
 
     for arch in ARCH_IDS:
         cfg = get_config(arch, smoke=True)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             ref_get_config(arch, smoke=True))
-        if cfg.family != "encdec":
-            api(cfg, device="cpu")
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 12b"):
-            api(cfg, device="cpu")
+        m = api(cfg, device="cpu")
+        assert (m.prefill_full is None) == (cfg.family == "encdec")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
