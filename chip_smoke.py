@@ -60,7 +60,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    are zeroed just before and read just after, and read again around the
    rank plan's runs, which must launch K1 and each of its layers' dataflow
    kernels.
-4b. families (after the serve phase): full-width, full-depth
+4a. shards (after the serve phase): full-width tt-lm-100m served by 2
+   ranks (``data=2``) and by 4 ranks (``data=2 x model=2`` with
+   ``tt_model_reduce``), processes of this script (``--shard-rank``)
+   that share ``cuda:0`` over ``gloo``, each spawn with a time limit,
+   through ``launch.serve.run`` under the ``--shards 2`` plan pair with
+   its own backends (K1) and forced to tt_gemm (K2, K3, K4), 8 requests
+   (prompt 32, gen 16, 4 slots, continuous).  2 ranks: the tokens of the
+   single-device oneshot run and its fp32 prefill logits bit for bit; 4
+   ranks: logits within 1e-4 x max |logit| (the all-reduce and the
+   repeated-KV attention reorder sums; tokens are reported).  Every
+   rank's records sit at per-shard shapes, no kernel layer runs on the
+   plain executor, every rank launches K1 (auto) and K2, K3, K4
+   (tt_gemm); wall seconds and gen tok/s per run ("N ranks sharing one
+   card, not a scaling figure"), per-shard shapes and the gloo
+   collectives per prefill and decode step are printed.
+4b. families (after the shard phase): full-width, full-depth
    qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16 as
    configured) served through ``python -m repro_torch.launch.serve``'s code
    path under their plan pairs (emitted in the dse phase) with
@@ -136,8 +151,9 @@ card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
 "serve_tuned": v, "serve_families": f, "train_families": t,
-"serve_encdec": e, "train_encdec": d}`` (``r`` is the part of ``n`` from
-the rank plan's runs; ``u`` the tune phase's measurements, ``v`` its
+"serve_encdec": e, "train_encdec": d, "serve_sharded": h}`` (``r`` is
+the part of ``n`` from the rank plan's runs; ``h`` the shard phase's
+serve runs, summed over every rank of both spawns; ``u`` the tune phase's measurements, ``v`` its
 serving under the measured plans, ``f`` the families' serve runs, ``t``
 the families' train runs, ``e`` and ``d`` the encdec phase's counted
 generation and train steps), each path's counts zeroed just before it
@@ -179,6 +195,10 @@ EMIT = {
     "tt-lm-100m.json": ["--arch", "tt-lm-100m"],
     "tt-lm-100m.pair.prefill.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
     "tt-lm-100m.pair.decode.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
+    "tt-lm-100m.shards2.pair.prefill.json": ["--arch", "tt-lm-100m", "--serve-slots",
+                                             "4", "--shards", "2"],
+    "tt-lm-100m.shards2.pair.decode.json": ["--arch", "tt-lm-100m", "--serve-slots",
+                                            "4", "--shards", "2"],
     "tt-lm-smoke.json": ["--arch", "tt-lm-100m", "--smoke"],
     "tt-lm-smoke.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
                                  "--plan-backend", "tt_gemm"],
@@ -1402,6 +1422,313 @@ def serve_runs() -> tuple[dict, dict, list[str]]:
             raise AssertionError(f"{plan}: continuous and oneshot serving disagree")
         notes.append(f"{plan}: continuous == oneshot per request: yes")
     return counts, rank_counts, notes
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: sharded serving, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: the plan pair searched at per-rank shapes (``--shards 2``)
+SHARD_PAIR = ("tt-lm-100m.shards2.pair.prefill.json",
+              "tt-lm-100m.shards2.pair.decode.json")
+#: (ranks, tt_model_reduce) of each sharded run
+SHARD_RUNS = ((2, False), (4, True))
+#: (label, --plan-backend) of each serve run on the ranks: the pair's own
+#: backends (K1), and the pair forced to tt_gemm (K2, K3, K4)
+SHARD_BACKENDS = (("auto", None), ("tt_gemm", "tt_gemm"))
+SHARD_KERNELS = {"auto": ("streaming_tt",),
+                 "tt_gemm": ("tt_gemm_os", "tt_gemm_ws", "tt_gemm_is")}
+#: seconds a spawn of the ranks may take, start-up and every rank's runs
+SHARD_TIMEOUT_S = 300
+#: fp32 prefill batch of the logits check (tokens divide over 2 and 4 ranks)
+SHARD_LOGITS_BATCH = (4, 32)
+
+
+def _shard_pair_argv() -> list[str]:
+    return ["--plan-prefill", os.path.join(PLANS, SHARD_PAIR[0]),
+            "--plan-decode", os.path.join(PLANS, SHARD_PAIR[1])]
+
+
+def _shard_tokens(cfg, device):
+    import torch
+
+    return torch.randint(0, cfg.vocab, SHARD_LOGITS_BATCH,
+                         generator=torch.Generator().manual_seed(5)).to(device)
+
+
+def _expected_shards(cfg, reduce: bool) -> dict:
+    """TT layer name -> (mesh, d_in per rank) the sharded route must record:
+    token-parallel over ``data=2``, and under ``reduce`` row-parallel too
+    for the layers whose leading input mode divides by 2."""
+    from repro_torch.models.blocks import attn_spec, mlp_spec
+    from repro_torch.models.lm import head_spec
+
+    a, m = attn_spec(cfg), mlp_spec(cfg)
+    out = {}
+    for spec in (a.q_spec, a.k_spec, a.v_spec, a.o_spec, m.up_spec,
+                 m.gate_spec, m.down_spec, head_spec(cfg)):
+        if not spec.tensorized:
+            continue
+        if reduce and spec.in_modes[0] % 2 == 0:
+            out[spec.name] = ("data=2+reduce(model=2)", spec.d_in // 2)
+        else:
+            out[spec.name] = ("data=2", spec.d_in)
+    return out
+
+
+def shard_rank(out_dir: str) -> int:
+    """One rank of the shard phase (``chip_smoke.py --shard-rank DIR``):
+    joins the ``gloo`` group, serves through ``launch.serve.run`` under
+    each setting of :data:`SHARD_BACKENDS`, counts launches and collectives
+    of one prefill and one decode step, and compares fp32 prefill logits
+    with the parent's single-device ones.  Writes ``rank<r>.json``."""
+    import contextlib
+    import dataclasses
+    import datetime
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.plan import execution_log, load_plan
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method="env://", timeout=datetime.timedelta(
+        seconds=SHARD_TIMEOUT_S))
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        # gloo's collectives on CUDA tensors, before the model needs them
+        t = torch.full((2, 3), float(rank), device=device)
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        s = t.clone()
+        dist.all_reduce(s)
+        out = {"rank": rank, "device": str(device), "gloo_cuda": {
+            "all_gather": all(torch.equal(p, torch.full_like(t, i))
+                              for i, p in enumerate(parts)),
+            "all_reduce": torch.equal(s, torch.full_like(t, sum(range(world))))}}
+        pair = spec["pair"]
+        for label, backend in SHARD_BACKENDS:
+            argv = pair + SERVE + ["--schedule", "continuous"] + (
+                ["--plan-backend", backend] if backend else [])
+            launches.reset()
+            reset_collectives()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                run = serve.run(argv, tt_model_reduce=spec["reduce"])
+            if run.code != 0:
+                raise AssertionError(f"rank {rank}: serve ({label}) exited "
+                                     f"{run.code}\n{text.getvalue()}")
+            recs = execution_log()
+            out[label] = {
+                "report": text.getvalue(),
+                "tokens": {str(k): list(v)
+                           for k, v in run.result.tokens_by_rid().items()},
+                "launches": dict(run.launches),
+                "collectives": dict(COLLECTIVES),
+                "wall_s": run.summary["wall_s"],
+                "gen_tok_s": run.summary["gen_tok_s"],
+                "records": sorted({(r["stream"], r["name"], r["backend"], r["mesh"],
+                                    tuple(r["shard_shape"] or ()), r["tokens"])
+                                   for r in recs})}
+        cfg = get_config("tt-lm-100m")
+        pre, dec = load_plan(pair[1]), load_plan(pair[3])
+        rules = make_rules(cfg, ShapeConfig("cli", 48, 4, "decode"), make_test_mesh())
+        rules = dataclasses.replace(rules, tt_model_reduce=spec["reduce"])
+        toks = _shard_tokens(cfg, device)
+        out["per_call"], out["logits"] = {}, {}
+        for label, backend in SHARD_BACKENDS:
+            with use_rules(rules):
+                m = api(cfg, plan=pre, plan_backend=backend, device=device)
+                params = m.init_params(0)
+                got, _ = m.prefill_full(params, {"tokens": toks}, 48)
+                eng = ServeEngine(cfg, params, n_slots=4, max_seq=48,
+                                  prompt_bucket=8, prefill_plan=pre,
+                                  decode_plan=dec, arch="tt-lm-100m",
+                                  plan_backend=backend)
+                launches.reset()
+                reset_collectives()
+                _, small = eng.prefill_request(list(range(1, 33)))
+                per_prefill = (launches.snapshot(), dict(COLLECTIVES))
+                caches = eng.admit(eng.fresh_caches(), small, 0)
+                launches.reset()
+                reset_collectives()
+                eng.decode(np.array([5, 0, 0, 0]), np.array([32, 0, 0, 0]), caches)
+                per_decode = (launches.snapshot(), dict(COLLECTIVES))
+            torch.cuda.synchronize(device)
+            want = torch.load(spec["logits"][label]).to(device)
+            out["per_call"][label] = {"prefill": per_prefill, "decode": per_decode}
+            out["logits"][label] = {
+                "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+                "equal": bool(torch.equal(got, want)),
+                "max_abs_diff": float((got - want).abs().max()),
+                "scale": float(want.abs().max())}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(world: int, spec: dict, out_dir: str) -> tuple[list[dict], float]:
+    """Run :func:`shard_rank` on ``world`` processes sharing the card; every
+    rank must exit 0 within :data:`SHARD_TIMEOUT_S`, or all are killed and
+    the phase fails.  Returns each rank's result and the wall seconds."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    wall = spawn_ranks(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", out_dir],
+        world, out_dir, SHARD_TIMEOUT_S, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def shard_phase(device, card: str) -> tuple[dict, list[str]]:
+    """Full-width tt-lm-100m served by 2 ranks (``data=2``) and by 4 ranks
+    (``data=2 x model=2``, ``tt_model_reduce``) that share ``cuda:0`` over
+    ``gloo``, under the ``--shards 2`` pair with its own backends (K1) and
+    forced to tt_gemm (K2-K4).  The oracle is the single-device route in
+    this process: 2 ranks give its tokens and its fp32 prefill logits bit
+    for bit; 4 ranks give logits within 1e-4 x max |logit|.  Every rank's
+    records sit at per-shard shapes, no planned kernel layer falls back to
+    the plain executor, and every rank launches K1 (auto) and K2, K3, K4
+    (tt_gemm).  Returns the launches summed over every rank's serve runs,
+    and the report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import run
+    from repro_torch.models import api
+    from repro_torch.plan import load_plan
+
+    pair = _shard_pair_argv()
+    cfg = get_config("tt-lm-100m")
+    pre, dec = load_plan(pair[1]), load_plan(pair[3])
+    notes, want_tokens = [], {}
+    work = tempfile.mkdtemp(prefix="repro_torch_shards_")
+    try:
+        spec = {"pair": pair, "logits": {}}
+        toks = _shard_tokens(cfg, device)
+        for label, backend in SHARD_BACKENDS:
+            out = run(pair + SERVE + ["--schedule", "oneshot"]
+                      + (["--plan-backend", backend] if backend else []))
+            if out.code != 0:
+                raise AssertionError(f"single-device serve ({label}) exited {out.code}")
+            want_tokens[label] = {str(k): list(v)
+                                  for k, v in out.result.tokens_by_rid().items()}
+            m = api(cfg, plan=pre, plan_backend=backend, device=device)
+            logits, _ = m.prefill_full(m.init_params(0), {"tokens": toks}, 48)
+            path = os.path.join(work, f"logits.{label}.pt")
+            torch.save(logits.cpu(), path)
+            spec["logits"][label] = path
+        planned_backend = {label: {
+            stream: {lp.name: backend or lp.backend for lp in plan.layers}
+            for stream, plan in (("prefill", pre), ("decode", dec))}
+            for label, backend in SHARD_BACKENDS}
+        totals = {k: 0 for k in launches.COUNTS}
+        for world, reduce in SHARD_RUNS:
+            ranks, wall = _spawn_ranks(world, {**spec, "reduce": reduce},
+                                       os.path.join(work, f"w{world}"))
+            expect = _expected_shards(cfg, reduce)
+            for res in ranks:
+                r = res["rank"]
+                if not all(res["gloo_cuda"].values()):
+                    raise AssertionError(f"rank {r}: gloo collectives on CUDA "
+                                         f"tensors gave wrong values {res['gloo_cuda']}")
+                for label, _ in SHARD_BACKENDS:
+                    got = res[label]
+                    for k, v in got["launches"].items():
+                        totals[k] += v
+                    for name in SHARD_KERNELS[label]:
+                        if got["launches"][name] <= 0:
+                            raise AssertionError(f"{world} ranks, rank {r}, {label}: "
+                                                 f"kernel {name} never launched")
+                    for stream, name, backend, mesh, shape, tokens in got["records"]:
+                        planned = planned_backend[label][stream][name]
+                        if backend == "jnp":
+                            # a layer the plan puts on jnp (the decode pair's
+                            # attention at 2 tokens a rank) runs whole on
+                            # every rank; a kernel layer there was demoted
+                            if planned != "jnp" or mesh:
+                                raise AssertionError(
+                                    f"{world} ranks, {label}: {name} ({stream}, "
+                                    f"planned {planned}) ran on the plain executor")
+                            continue
+                        if (mesh, shape) != (expect[name][0], [tokens, expect[name][1]]):
+                            raise AssertionError(
+                                f"{world} ranks, {label}: record "
+                                f"{(stream, name, mesh, shape, tokens)} not at its "
+                                f"per-shard shape {expect[name]}")
+                    lg = res["logits"][label]
+                    if lg["shape"] != [*SHARD_LOGITS_BATCH, cfg.vocab] or not lg["finite"]:
+                        raise AssertionError(f"rank {r}: bad logits {lg}")
+                    if world == 2 and not (lg["equal"] and got["tokens"] == want_tokens[label]):
+                        raise AssertionError(
+                            f"2 ranks, rank {r}, {label}: not bit-identical to the "
+                            f"single device (logits equal {lg['equal']}, max diff "
+                            f"{lg['max_abs_diff']:.3e}; tokens equal "
+                            f"{got['tokens'] == want_tokens[label]})")
+                    if lg["max_abs_diff"] > 1e-4 * lg["scale"]:
+                        raise AssertionError(f"{world} ranks, rank {r}, {label}: "
+                                             f"logits differ by {lg['max_abs_diff']}")
+            r0 = ranks[0]
+            said = [ln for ln in r0["auto"]["report"].splitlines()
+                    if ln.startswith("sharded execution:")]
+            if not said or f"{world} ranks share one card" not in said[0]:
+                raise AssertionError(f"{world} ranks: rank 0's report lacks the "
+                                     f"sharded-execution line: {said}")
+            notes.append(f"{world} ranks sharing one card, not a scaling figure "
+                         f"({card}; mesh {'data=2 x model=2, tt_model_reduce' if reduce else 'data=2'}, "
+                         f"gloo): spawn wall {wall:.1f} s; rank 0 said: {said[0]}")
+            for label, _ in SHARD_BACKENDS:
+                got = r0[label]
+                same = sum(got["tokens"][k] == want_tokens[label][k]
+                           for k in want_tokens[label])
+                lg = [res["logits"][label] for res in ranks]
+                shapes = sorted({(m, tuple(s)) for _, _, b, m, s, _ in got["records"]
+                                 if b != "jnp"})
+                pc = r0["per_call"][label]
+                notes.append(
+                    f"  {label}: rank 0 serve wall {got['wall_s']:.3f} s, "
+                    f"{got['gen_tok_s']:.1f} gen tok/s; requests with the single "
+                    f"device's tokens {same}/{len(want_tokens[label])}; prefill logits "
+                    f"bit-identical on {sum(x['equal'] for x in lg)}/{len(lg)} ranks, "
+                    f"max abs diff {max(x['max_abs_diff'] for x in lg):.3e} (max |logit| "
+                    f"{lg[0]['scale']:.3e}); launches per rank "
+                    f"{[{k: v for k, v in res[label]['launches'].items() if v} for res in ranks]}")
+                notes.append(f"    per-shard (mesh, (tokens, d_in)): {shapes}")
+                notes.append(
+                    f"    gloo collectives: {got['collectives']} in the serve run; "
+                    f"per prefill {pc['prefill'][1]}, per decode step "
+                    f"{pc['decode'][1]}; launches per prefill "
+                    f"{ {k: v for k, v in pc['prefill'][0].items() if v} }, per decode "
+                    f"step { {k: v for k, v in pc['decode'][0].items() if v} }")
+        return totals, notes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def model_params(cfg, plan, device, cache: dict):
@@ -2917,6 +3244,15 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} never launched by the rank "
                                      "plan's runs")
 
+        log("--- shards: full-width tt-lm-100m served by 2 and 4 ranks sharing "
+            "the card")
+        t0 = time.perf_counter()
+        sharded_counts, notes = shard_phase(device, card)
+        for n in notes:
+            log(f"  {n}")
+        log(f"shards: {time.perf_counter() - t0:.1f} s; serve-path launches, "
+            f"every rank of both runs: {sharded_counts}")
+
         log("--- families: full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b")
         t0 = time.perf_counter()
         family_counts, family_rows, notes = families_phase(device)
@@ -2998,6 +3334,7 @@ def main() -> int:
          "replaces": sources[k["name"]][1],
          "launches": {"serve": serve_counts[k["name"]],
                       "serve_rank_plan": rank_counts[k["name"]],
+                      "serve_sharded": sharded_counts[k["name"]],
                       "train": train_counts[k["name"]],
                       "tune": tune_counts[k["name"]],
                       "serve_tuned": tuned_counts[k["name"]],
@@ -3042,4 +3379,6 @@ def _fmt(ms: float | None) -> str:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:  # one rank of the shard phase
+        sys.exit(shard_rank(sys.argv[2]))
     sys.exit(main())

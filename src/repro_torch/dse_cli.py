@@ -24,9 +24,9 @@ per-layer (path, partitioning, dataflow) choices and stage timings;
 consume the same report via ``run_dse``.
 
 ``--tune cache|measure`` measures on the card (``repro_torch.tune``;
-``--device cpu`` times the plain versions on the CPU).  ``--shards``,
-whose sharded executor is not ported yet, exits 2 with ``error: ...``
-naming its ROADMAP.md item (Queue A item 11).
+``--device cpu`` times the plain versions on the CPU).  ``--shards N``
+searches the per-rank problems of an N-way token-sharded run
+(``repro_torch.plan.sharded``).
 """
 
 from __future__ import annotations
@@ -216,19 +216,6 @@ def model_layer_paths(
 # end-to-end run
 # ---------------------------------------------------------------------------
 
-def _check_ported(shards: Optional[int]) -> None:
-    """Refuse the reference option whose subsystem the port lacks.
-
-    Raises ``ValueError`` (``main`` exits 2 with ``error: ...``) naming
-    the ROADMAP.md item that ports it, rather than approximating the
-    reference's result.
-    """
-    if shards is not None:
-        raise ValueError(
-            "--shards needs the sharded executor, which is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue A item 11)")
-
-
 def run_dse(
     arch: str,
     hw: str = "fpga_vu9p",
@@ -292,10 +279,11 @@ def run_dse(
     report gains a ``tune`` section; with ``--emit-plan`` the plan
     additionally carries measured kernel tilings.
 
-    ``shards`` keeps the reference's signature and is refused
-    (:func:`_check_ported`).
+    ``shards=N`` searches at per-rank shard shapes (``tokens / N``) so the
+    emitted tilings match what the sharded executor streams per rank on
+    an N-way data-parallel mesh; defaults to installed sharding rules,
+    else unsharded.
     """
-    _check_ported(shards)
     if mode == "both":
         _check_train_compatible(objective, engine)  # fail before any search
         _check_tune_compatible(tune, "both", objective, hw_search)
@@ -305,17 +293,17 @@ def run_dse(
         infer, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
             hw_search, hw_budget, search=search, search_budget=search_budget,
-            search_seed=search_seed)
+            search_seed=search_seed, shards=shards)
         train, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "train",
             hw_search, hw_budget, search=search, search_budget=search_budget,
-            search_seed=search_seed)
+            search_seed=search_seed, shards=shards)
         return _both_report(infer, train)
     report, _, _, _, tuner, _ = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, mode, hw_search,
         hw_budget, tune, tune_cache, serve_gen, serve_slots, decode_tokens,
         search, search_budget, search_seed, rank_search, accuracy_budget,
-        fused_cost, device)
+        shards, fused_cost, device)
     _save_tuner(tuner)
     return report
 
@@ -417,7 +405,6 @@ def run_dse_plan(
     """
     from repro_torch.plan import BACKENDS, compile_plan
 
-    _check_ported(shards)
     if plan_backend != "auto" and plan_backend not in BACKENDS:
         raise ValueError(
             f"unknown plan backend {plan_backend!r}; have "
@@ -434,14 +421,14 @@ def run_dse_plan(
         infer_report, _, _, _, _, _ = _run_dse(
             arch, hw, top_k, objective, tokens, smoke, engine, "infer",
             hw_search, hw_budget, search=search, search_budget=search_budget,
-            search_seed=search_seed)
+            search_seed=search_seed, shards=shards)
     plan_mode = "train" if mode in ("train", "both") else "infer"
     report, named, res, plan_hw, tuner, calibration = _run_dse(
         arch, hw, top_k, objective, tokens, smoke, engine, plan_mode,
         hw_search, hw_budget, tune, tune_cache,
         serve_gen, serve_slots, decode_tokens,
         search, search_budget, search_seed, rank_search, accuracy_budget,
-        fused_cost, device)
+        shards, fused_cost, device)
     factorizations = None
     rank_report = report.get("rank_search")
     if rank_report is not None and rank_report.get("plan_embeddable"):
@@ -455,6 +442,15 @@ def run_dse_plan(
                 accuracy_proxy=float(f["accuracy_proxy"]))
             for f in rank_report["chosen"]["families"]
         }
+    plan_sharding = None
+    shard_rep = report.get("sharding")
+    if shard_rep is not None:
+        from repro_torch.plan import PlanSharding
+
+        plan_sharding = PlanSharding(
+            n_shards=int(shard_rep["n_shards"]),
+            axes=tuple((str(a), int(s)) for a, s in shard_rep["axes"]),
+            tokens_per_shard=int(shard_rep["tokens_per_shard"]))
     plan = compile_plan(
         named, res, plan_hw,
         arch=arch,
@@ -466,6 +462,7 @@ def run_dse_plan(
         tuner=tuner,
         phase=phase,
         factorizations=factorizations,
+        sharding=plan_sharding,
     )
     if tuner is not None:
         if calibration is not None and report["objective"] == "latency":
@@ -658,14 +655,44 @@ def _check_fused_compatible(fused_cost: bool, mode: str, objective: str,
             "segmentation (open item)")
 
 
-def _make_tuner(tune: str, tune_cache: Optional[str], device: str):
+def _make_tuner(tune: str, tune_cache: Optional[str], device: str,
+                shards: int = 1):
     """Build the Autotuner over the persistent cache (lazy import); it
     measures on ``device``."""
     from repro_torch.tune import Autotuner, DEFAULT_CACHE_PATH, TuningCache
 
     path = tune_cache or DEFAULT_CACHE_PATH
     return Autotuner(TuningCache.load_or_empty(path), tune, cache_path=path,
-                     device=device)
+                     shards=shards, device=device)
+
+
+def _shard_context(shards: Optional[int]) -> Optional[dict]:
+    """Resolve the per-rank shard context for the search, or ``None``.
+
+    An explicit ``--shards N`` wins; otherwise installed
+    :class:`~repro_torch.sharding.ShardingRules` supply their token axes
+    (library callers running the DSE under ``use_rules``).  When a
+    context is active the searched problems, cost tables, tilings, and
+    tuning sweeps are all built at ``tokens / n_shards``: the per-rank
+    block the sharded executor streams (``repro_torch.plan.sharded``).
+    """
+    if shards is not None:
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if shards == 1:
+            return None
+        return {"n_shards": int(shards), "axes": [["data", int(shards)]]}
+    from repro_torch.sharding import get_rules
+
+    rules = get_rules()
+    if rules is None or rules.mesh is None:
+        return None
+    axes = [[a, int(rules.axis_sizes[a])] for a in rules.resolve("tokens")
+            if rules.axis_sizes.get(a, 1) > 1]
+    n = math.prod(s for _, s in axes)
+    if n <= 1:
+        return None
+    return {"n_shards": int(n), "axes": axes}
 
 
 def _save_tuner(tuner) -> None:
@@ -771,15 +798,18 @@ def _run_dse(
     search_seed: int = 0,
     rank_search: str = "off",
     accuracy_budget: Optional[float] = None,
+    shards: Optional[int] = None,
     fused_cost: bool = False,
     device: str = "cuda",
 ):
     """Shared pipeline; returns (report, named_layers, DSEResult, hw_cfg,
     tuner, calibration).
 
-    The reference's pipeline with the shard context left out
-    (:func:`_check_ported` refuses it before this runs): its report keeps
-    the ``sharding`` key, as ``None``.
+    ``shards`` activates the per-rank shard context
+    (:func:`_shard_context`): every problem network, and therefore every
+    cost table, tiling and tuning sweep, is built at the per-shard token
+    count the sharded executor streams, and the report gains a
+    ``sharding`` section for plan provenance.
 
     The tuner is the live ``repro_torch.tune.Autotuner`` (measuring on
     ``device``) when ``tune`` is on (``run_dse_plan`` hands it to the plan
@@ -851,8 +881,14 @@ def _run_dse(
     _check_tune_compatible(tune, mode, objective, hw_search)
     _check_fused_compatible(fused_cost, mode, objective, engine, hw_search,
                             search, rank_search)
+    shard_ctx = _shard_context(shards)
     if rank_search != "off":
         _check_rank_compatible(rank_search, mode, objective, engine, tune)
+        if shard_ctx is not None:
+            raise ValueError(
+                "--rank-search re-derives networks per decomposition "
+                "candidate; composing it with the --shards context is not "
+                "supported yet")
         return _run_rank_dse(
             arch, hw, top_k, tokens, smoke, engine, hw_search, hw_budget,
             search, search_budget, search_seed, accuracy_budget)
@@ -860,6 +896,16 @@ def _run_dse(
         raise ValueError("accuracy_budget requires rank_search='budget'")
 
     named, tokens = dse_problems(arch, tokens, smoke)
+    if shard_ctx is not None:
+        # per-rank problems: the searched tilings/tables must match the
+        # (tokens / n_shards) block each rank actually streams
+        from repro_torch.core.cost_table import shard_streamed_tokens
+
+        global_tokens = tokens
+        tokens = shard_streamed_tokens(tokens, shard_ctx["n_shards"])
+        named, _ = dse_problems(arch, tokens, smoke)
+        shard_ctx = {**shard_ctx, "tokens_per_shard": tokens,
+                     "global_tokens": global_tokens}
 
     # stage 1 — top-K path search, memoised over repeated layers
     t0 = time.perf_counter()
@@ -895,7 +941,8 @@ def _run_dse(
         # whatever the cache already holds (analytic fallback on miss) —
         # but the train *search* stays analytic: composing the measured
         # calibration with the fwd+bwd+update decomposition is open.
-        tuner = _make_tuner(tune, tune_cache, device)
+        tuner = _make_tuner(tune, tune_cache, device,
+                            shards=(shard_ctx or {}).get("n_shards", 1))
         tune_report = {
             "mode": tune,
             "cache": tuner.cache_path,
@@ -917,7 +964,8 @@ def _run_dse(
             measured_calibration,
         )
 
-        tuner = _make_tuner(tune, tune_cache, device)
+        tuner = _make_tuner(tune, tune_cache, device,
+                            shards=(shard_ctx or {}).get("n_shards", 1))
         t0 = time.perf_counter()
         shapes = gemm_work_items(layer_paths,
                                  max_shapes=TUNE_CALIBRATION_SHAPES)
@@ -1019,6 +1067,11 @@ def _run_dse(
         obj_table = seconds_table
     decode_seconds = None
     dec_tokens = decode_tokens if decode_tokens is not None else serve_slots
+    if shard_ctx is not None:
+        from repro_torch.core.cost_table import shard_streamed_tokens
+
+        dec_tokens = shard_streamed_tokens(dec_tokens,
+                                           shard_ctx["n_shards"])
     if hw_search == "off" and mode != "train" and engine != "scalar":
         tables = build_cost_tables(layer_paths, hw_cfg, all_parts)
         seconds_table = tables.seconds
@@ -1138,7 +1191,7 @@ def _run_dse(
             "exhaustive_evals": n_space * _table_cells(layer_paths,
                                                       all_parts),
         },
-        "sharding": None,
+        "sharding": shard_ctx,
         "n_layers": len(layers),
         "timings": {
             "path_search_s": path_search_s,
@@ -1447,8 +1500,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="search per-shard problems for an N-way token-"
                         "parallel mesh: each projection is costed at "
                         "--tokens/N streamed tokens and emitted plans carry "
-                        "sharding provenance (not ported yet, ROADMAP.md "
-                        "Queue A item 11)")
+                        "sharding provenance (default: installed sharding "
+                        "rules, else 1)")
     p.add_argument("--smoke", action="store_true",
                    help="use the config's reduced SMOKE variant")
     p.add_argument("--engine", default="vectorized",

@@ -4,29 +4,53 @@
       --plan src/repro_torch/plans/tt-lm-100m.json --strict-plan \\
       --schedule continuous --batch 4 --n-requests 8 --prompt-len 32 --gen 16
 
-Port of ``src/repro/launch/serve.py`` with the same flags, minus the
-multi-device mesh.  ``--device`` defaults to ``cuda`` and the run fails
-when no card is present (``--device cpu`` runs the plain versions).
-``--plan-backend`` forces one kernel backend for every planned layer.
+Port of ``src/repro/launch/serve.py`` with the same flags.  ``--device``
+defaults to ``cuda`` and the run fails when no card is present
+(``--device cpu`` runs the plain versions).  ``--plan-backend`` forces one
+kernel backend for every planned layer.
+
+Across ranks: under ``torchrun --nproc-per-node N`` (``WORLD_SIZE > 1``),
+or in a process whose ``torch.distributed`` group is already up, every
+rank serves the same requests under the sharding rules of
+``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`), and each planned
+TT projection splits its tokens over the ranks
+(:mod:`repro_torch.plan.sharded`).  A rank's card is
+``cuda:{local_rank % device_count}``; the backend is ``nccl`` when every
+rank has a card of its own and ``gloo`` when ranks share one (NCCL refuses
+two ranks on one card) or run on the CPU.  Rank 0 prints the report; every
+rank checks that all ranks generated the same tokens (exit 5 if not).
+``run(..., tt_model_reduce=True)`` turns on the row-parallel reduction,
+a library switch as in the reference (no flag).
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --smoke --plan-prefill P --plan-decode D --strict-plan
 
 ``--strict-plan`` exits 3 when a plan was given but no projection executed
 under it, and 4 when a layer planned for a kernel backend ran on the
-plain executor instead.
+plain executor instead.  Across ranks, a projection whose tokens do not
+divide over the mesh runs its planned kernel on every rank, unsharded (a
+record without a mesh), and is not demoted.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
+import os
 import sys
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import launches
+from repro_torch.launch.mesh import make_rules, make_test_mesh
 from repro_torch.models import api
+from repro_torch.models.config import ShapeConfig
 from repro_torch.plan import (
     BACKENDS,
     execution_log,
@@ -43,9 +67,11 @@ from repro_torch.serve import (
     summarize,
     synthetic_trace,
 )
+from repro_torch.sharding import use_rules
 
 EXIT_UNPLANNED = 3   # --strict-plan: plan given, zero planned executions
 EXIT_DEMOTED = 4     # --strict-plan: planned kernel layers ran the plain executor
+EXIT_RANKS_DISAGREE = 5  # ranks generated different tokens
 
 
 @dataclasses.dataclass
@@ -58,6 +84,45 @@ class ServeRun:
     result: Optional[ServeResult] = None
     summary: Optional[dict] = None
     launches: Optional[dict] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place among the serving ranks."""
+
+    rank: int
+    world: int
+    backend: str            # "" on one rank
+    shared_card: bool       # several ranks on one card
+    owned: bool             # :func:`_join_ranks` started the process group
+
+
+def _join_ranks(device_type: str) -> Ranks:
+    """Join the process group (torchrun's ``env://``), or adopt the one the
+    caller started; one rank without either."""
+    owned = not dist.is_initialized()
+    world = (int(os.environ.get("WORLD_SIZE", "1")) if owned
+             else dist.get_world_size())
+    if world <= 1:
+        return Ranks(0, 1, "", False, False)
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    shared = device_type == "cuda" and local_world > torch.cuda.device_count()
+    if owned:
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" and not shared else "gloo",
+            init_method="env://")
+    return Ranks(dist.get_rank(), world, str(dist.get_backend()), shared, owned)
+
+
+def _tokens_agree(ranks: Ranks, result: ServeResult, device) -> bool:
+    """Whether every rank generated the same tokens (a digest all-gathered)."""
+    text = repr(sorted(result.tokens_by_rid().items())).encode()
+    digest = int.from_bytes(hashlib.sha256(text).digest()[:7], "little")
+    dev = device if ranks.backend == "nccl" else "cpu"
+    mine = torch.tensor([digest], dtype=torch.int64, device=dev)
+    every = [torch.empty_like(mine) for _ in range(ranks.world)]
+    dist.all_gather(every, mine)
+    return all(int(t) == digest for t in every)
 
 
 def _load_and_describe(path: str, label: str):
@@ -124,8 +189,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(argv=None) -> ServeRun:
-    """Parse ``argv``, serve, print the report; see :class:`ServeRun`."""
+def run(argv=None, *, tt_model_reduce: bool = False) -> ServeRun:
+    """Parse ``argv``, serve, print the report; see :class:`ServeRun`.
+
+    ``tt_model_reduce`` turns on the rules' row-parallel reduction over the
+    model axis (several ranks only)."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.plan and (args.plan_prefill or args.plan_decode):
@@ -136,7 +204,24 @@ def run(argv=None) -> ServeRun:
         print("error: --device cuda but no CUDA device is available "
               "(pass --device cpu to run the plain versions)", file=sys.stderr)
         return ServeRun(2)
+    ranks = _join_ranks(device.type)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", ranks.rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    if device.type == "cuda" and ranks.world > 1:
+        torch.cuda.set_device(device)  # NCCL talks on the current device
+    try:
+        with open(os.devnull, "w") as sink:
+            # rank 0 prints the report; errors reach stderr from every rank
+            with (contextlib.redirect_stdout(sink) if ranks.rank
+                  else contextlib.nullcontext()):
+                return _serve(args, ap, device, ranks, tt_model_reduce)
+    finally:
+        if ranks.owned:
+            dist.destroy_process_group()
 
+
+def _serve(args, ap, device, ranks: Ranks, tt_model_reduce: bool) -> ServeRun:
     cfg = get_config(args.arch, tt=not args.dense, smoke=args.smoke)
     if cfg.family == "encdec":
         print("error: the serve scheduler is causal-LM only; encdec runs "
@@ -168,33 +253,43 @@ def run(argv=None) -> ServeRun:
             len(r.prompt) + r.max_new_tokens - 1)
         for r in requests) if requests else bucket
 
+    shape = ShapeConfig("cli", max_seq, args.batch, "decode")
+    rules = make_rules(cfg, shape, make_test_mesh())
+    if tt_model_reduce:
+        rules = dataclasses.replace(rules, tt_model_reduce=True)
+
     reset_execution_log()
     t0 = time.perf_counter()
-    # install a plan before init: v4 plans embed searched factorizations,
-    # which set the TT parameter shapes themselves
-    init_plan = prefill_plan if prefill_plan is not None else decode_plan
-    m = (api(cfg, plan=init_plan, device=device) if init_plan is not None
-         else api(cfg, device=device))
-    params = m.init_params(0)  # random weights, as the reference's PRNGKey(0)
-    try:
-        engine = ServeEngine(
-            cfg, params, n_slots=args.batch, max_seq=max_seq,
-            prompt_bucket=bucket, prefill_plan=prefill_plan,
-            decode_plan=decode_plan, arch=args.arch,
-            plan_backend=args.plan_backend)
-    except ValueError as e:
-        print(f"error: plan/model mismatch: {e}", file=sys.stderr)
-        return ServeRun(2)
-    sched = Scheduler(
-        engine,
-        ServePolicy(schedule=args.schedule,
-                    max_admissions_per_step=args.max_admissions),
-        temperature=args.temperature, seed=args.seed)
-    result = sched.run(requests)
+    with use_rules(rules):
+        # install a plan before init: v4 plans embed searched
+        # factorizations, which set the TT parameter shapes themselves
+        init_plan = prefill_plan if prefill_plan is not None else decode_plan
+        m = (api(cfg, plan=init_plan, device=device) if init_plan is not None
+             else api(cfg, device=device))
+        params = m.init_params(0)  # random weights, as the reference's PRNGKey(0)
+        try:
+            engine = ServeEngine(
+                cfg, params, n_slots=args.batch, max_seq=max_seq,
+                prompt_bucket=bucket, prefill_plan=prefill_plan,
+                decode_plan=decode_plan, arch=args.arch,
+                plan_backend=args.plan_backend)
+        except ValueError as e:
+            print(f"error: plan/model mismatch: {e}", file=sys.stderr)
+            return ServeRun(2)
+        sched = Scheduler(
+            engine,
+            ServePolicy(schedule=args.schedule,
+                        max_admissions_per_step=args.max_admissions),
+            temperature=args.temperature, seed=args.seed)
+        result = sched.run(requests)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total_s = time.perf_counter() - t0
     counts = launches.snapshot()
+    if ranks.world > 1 and not _tokens_agree(ranks, result, device):
+        print(f"error: rank {ranks.rank}: the {ranks.world} ranks generated "
+              "different tokens", file=sys.stderr)
+        return ServeRun(EXIT_RANKS_DISAGREE, result, summarize(result), counts)
 
     s = summarize(result)
     print(f"schedule {args.schedule}: {s['n_requests']} requests over "
@@ -241,6 +336,17 @@ def run(argv=None) -> ServeRun:
             print(f"NOTE: the execution log ring dropped {dropped} oldest "
                   f"records (cap {len(log)}); the counts above cover the "
                   "newest records only")
+        meshes = sorted({r.get("mesh", "") for r in log} - {""})
+        if meshes:
+            shapes = sorted({tuple(r["shard_shape"]) for r in log
+                             if r.get("shard_shape")})
+            where = ("on the CPU" if device.type == "cpu" else
+                     f"{ranks.world} ranks share one card" if ranks.shared_card
+                     else "one card per rank")
+            print(f"sharded execution: mesh {' '.join(meshes)}, "
+                  f"per-shard (tokens, d_in) "
+                  + " ".join(str(s) for s in shapes)
+                  + f" ({ranks.world} ranks, backend {ranks.backend}, {where})")
         # a layer planned for a kernel backend that recorded backend "jnp"
         # was demoted; --strict-plan makes it fatal
         backends_by_stream = {

@@ -1,10 +1,17 @@
 """GQA attention with chunked softmax and KV-cache decode.
 
-Port of ``nn/attention.py`` (single device).  Prefill attends in query
-chunks so the score tensor is (B, g, Hkv, q_chunk, S) rather than
-(B, H, S, S); decode attends one new token against the cache with a per-
-lane ``(B,)`` cache position, the continuous-batching form.  Query heads
-group INTERLEAVED over the kv heads (head j serves kv head j % Hkv).
+Port of ``nn/attention.py``.  Prefill attends in query chunks so the
+score tensor is (B, g, Hkv, q_chunk, S) rather than (B, H, S, S); decode
+attends one new token against the cache with a per-lane ``(B,)`` cache
+position, the continuous-batching form.  Query heads group INTERLEAVED
+over the kv heads (head j serves kv head j % Hkv).
+
+Under sharding rules with a model axis that the group size does not
+divide, prefill takes the reference's other form, repeated-KV flat heads
+(:func:`_repeat_kv`), as the reference does; the two forms compute the
+same function in another order of operations.  The reference's head and
+sequence layout constraints (``_shard_heads``) change no value and are not
+ported: every rank holds all heads.
 
 The caches are updated in place: the JAX reference returned new cache
 arrays (donated by the engine), this port writes the new K/V rows into
@@ -18,6 +25,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.sharding import get_rules
 
 from .linear import LinearSpec, TTConfig, linear_apply, linear_init
 from .rope import apply_rope, rope_for
@@ -74,6 +83,16 @@ def attention_init(spec: AttentionSpec, generator: torch.Generator,
     }
 
 
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """INTERLEAVED kv repeat: repeated head j serves kv head j % hkv, the
+    grouped form's convention, so the two forms are interchangeable."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return torch.broadcast_to(x[:, :, None], (b, s, n_rep, h, d)).reshape(
+        b, s, n_rep * h, d)
+
+
 def _chunked_attention(
     q: torch.Tensor,            # (B, Sq, H, Dh)
     k: torch.Tensor,            # (B, Sk, Hkv, Dh) - kv heads not repeated
@@ -82,7 +101,12 @@ def _chunked_attention(
     q_chunk: int,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Grouped-GQA attention over query chunks, fp32 scores."""
+    """GQA attention over query chunks, fp32 scores.
+
+    Grouped (q heads contract against the raw K/V per kv head) unless the
+    installed rules' model axis does not divide the group size; then, as in
+    the reference, repeated-KV flat heads.
+    """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -92,7 +116,14 @@ def _chunked_attention(
         chunk = sq  # a single chunk for ragged sizes
     n_chunks = sq // chunk
     kv_pos = torch.arange(sk, device=q.device)
-    grouped = g > 1
+    # the reference picks the form its head sharding can take: grouped
+    # when g divides the model axis, else repeated-KV flat heads
+    rules = get_rules()
+    tp = rules.axis_sizes.get(rules.model_axis or "", 1) if rules else 1
+    grouped = g > 1 and (tp <= 1 or g % tp == 0)
+    if not grouped and g > 1:
+        k = _repeat_kv(k, g)
+        v = _repeat_kv(v, g)
     outs = []
     for idx in range(n_chunks):
         qi = q[:, idx * chunk:(idx + 1) * chunk]

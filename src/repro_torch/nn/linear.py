@@ -9,8 +9,19 @@ per network signature.
 Differentiable: a projection planned for a kernel (forward or backward)
 runs under the executor's ``torch.autograd.Function``, whose backward
 contracts the plan's gradient networks on the planned kernels; the plain
-executor uses native autograd.  Single-device only: the reference's
-sharded branch (``shard_map`` over a mesh) is not ported yet.
+executor uses native autograd.
+
+Across ranks (``repro_torch.sharding`` rules with an axis over 1
+installed), a kernel-planned projection routes through
+:mod:`repro_torch.plan.sharded` whenever :func:`shard_decision` accepts
+it: each rank runs the plan's kernel on its token block, collectives
+rebuild the output.  Where it declines (tokens that do not divide), every
+rank runs the plan's kernel on the whole block, which it holds already,
+and the record carries no mesh.  (The reference falls back to the plain
+executor there, because a global array cannot feed its per-device
+kernel; here every rank has the whole activations.)  The reference's
+layout constraints on TT intermediates (``_constrain_tokens``) change no
+value and are not ported.
 """
 
 from __future__ import annotations
@@ -137,6 +148,20 @@ class LinearSpec:
 
     def network(self, batch: int) -> TensorNetwork:
         return tt_linear_network(batch, self.in_modes, self.out_modes, self.tt_ranks)
+
+
+def _shard_decision(tokens: int, in_modes: tuple):
+    """The installed multi-rank rules and their decision for ``tokens``
+    rows, or ``None`` when a planned kernel runs locally: on one rank, or
+    where :func:`shard_decision` declines."""
+    from repro_torch.plan.sharded import shard_decision
+    from repro_torch.sharding import get_rules
+
+    rules = get_rules()
+    if rules is None or all(v <= 1 for v in rules.axis_sizes.values()):
+        return None
+    decision = shard_decision(rules, tokens, in_modes)
+    return None if decision is None else (rules, decision)
 
 
 # ---------------------------------------------------------------------------
@@ -329,13 +354,24 @@ def linear_apply(
         if lp is not None and (lp.backend != "jnp" or has_kernel_backward(lp)):
             # planned kernel execution, forward or backward (a jnp forward
             # with kernel backward ops too): flatten to (tokens, d_in) and
-            # route through the plan's CUDA kernels, differentiable
+            # route through the plan's CUDA kernels, differentiable; locally
+            # on one rank, per token block across ranks
             tokens = math.prod(lead) if lead else 1
             cores = [params[f"core{k}"] for k in range(n_cores)]
-            y2d = planned_tt_linear(
-                lp, x.reshape(tokens, spec.d_in), cores,
-                spec.in_modes, spec.out_modes, spec.tt_ranks,
-            )
+            x2d = x.reshape(tokens, spec.d_in)
+            sharded = _shard_decision(tokens, spec.in_modes)
+            if sharded is None:
+                y2d = planned_tt_linear(
+                    lp, x2d, cores, spec.in_modes, spec.out_modes, spec.tt_ranks,
+                )
+            else:
+                from repro_torch.plan.sharded import sharded_tt_linear
+
+                rules, decision = sharded
+                y2d = sharded_tt_linear(
+                    lp, x2d, cores, spec.in_modes, spec.out_modes, spec.tt_ranks,
+                    rules=rules, decision=decision,
+                )
             y = y2d.reshape(lead + (spec.d_out,)).to(x.dtype)
             if spec.bias:
                 y = y + params["b"].to(y.dtype)

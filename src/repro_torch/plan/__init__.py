@@ -30,7 +30,9 @@ from .executor import (
     planned_tt_linear,
     record_execution,
     reset_execution_log,
+    shard_execution,
 )
+from .sharded import ShardDecision, shard_decision, sharded_tt_linear
 from .compiler import (
     base_name,
     batch_dim,
@@ -52,4 +54,6 @@ __all__ = [
     "as_candidate_path", "execution_log", "execution_log_dropped",
     "execution_stream",
     "planned_tt_linear", "record_execution", "reset_execution_log",
+    "shard_execution",
+    "ShardDecision", "shard_decision", "sharded_tt_linear",
 ]

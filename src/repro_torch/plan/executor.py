@@ -62,6 +62,10 @@ _EXEC_DROPPED = 0
 #: serving-stream tag stack (:func:`execution_stream`)
 _STREAM: list[str] = []
 
+#: shard-execution stack (:func:`shard_execution`): records appended inside
+#: a rank's per-shard call carry the mesh layout and the per-shard shape
+_SHARD: list[tuple[str, tuple[int, ...]]] = []
+
 
 def reset_execution_log() -> None:
     global _EXEC_DROPPED
@@ -95,6 +99,23 @@ def execution_stream(name: str) -> Iterator[None]:
         _STREAM.pop()
 
 
+@contextlib.contextmanager
+def shard_execution(mesh: str, shard_shape: tuple[int, ...]) -> Iterator[None]:
+    """Tag records appended inside with their placement on the ranks' mesh.
+
+    ``mesh`` is a readable axis layout (``"data=2"`` or
+    ``"data=2+reduce(model=2)"``); ``shard_shape`` is the per-rank
+    ``(tokens, d_in)`` the kernel actually sees.  The sharded dispatcher
+    (:mod:`repro_torch.plan.sharded`) runs each rank's block inside this
+    context.  Single-device records carry ``mesh=""``/``shard_shape=None``.
+    """
+    _SHARD.append((str(mesh), tuple(int(d) for d in shard_shape)))
+    try:
+        yield
+    finally:
+        _SHARD.pop()
+
+
 def record_execution(
     lp: LayerPlan,
     tokens: int,
@@ -112,7 +133,7 @@ def record_execution(
     layer's forward tiling; backward records (``phase="bwd"``) pass the
     gradient op's backend, ``wrt``, steps and tiling.  ``segment`` marks
     the per-segment records of a fusion-segmented layer.  ``mesh`` and
-    ``shard_shape`` are the single-device values.
+    ``shard_shape`` come from the innermost :func:`shard_execution`.
     """
     global _EXEC_DROPPED
     rec = {
@@ -124,8 +145,8 @@ def record_execution(
         "tokens": tokens,
         "phase": phase,
         "stream": _STREAM[-1] if _STREAM else "",
-        "mesh": "",
-        "shard_shape": None,
+        "mesh": _SHARD[-1][0] if _SHARD else "",
+        "shard_shape": list(_SHARD[-1][1]) if _SHARD else None,
         "tiling": (lp.tiling if tiling is None else tiling).to_json(),
     }
     if wrt is not None:
@@ -136,8 +157,6 @@ def record_execution(
         del _EXEC_LOG[0]
         _EXEC_DROPPED += 1
     _EXEC_LOG.append(rec)
-
-
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ byte for byte, with the committed files (which ``tests/test_torch_plan.py``
 holds equal to fresh reference emissions) and with the reference's own
 emission.  ``--tune cache|measure`` runs (measurements stubbed in both
 packages, ``--device cpu``; ``tests/test_torch_tune.py`` holds the tuner
-itself); ``--shards``, whose subsystem the port lacks, exits 2 and names
-its ROADMAP.md item.  The plan-install API of ``nn/linear.py`` follows
+itself); ``--shards N`` reports and plans (per-rank problems) equal the
+reference's, and ``--rank-search`` with ``--shards`` is refused as there.  The plan-install API of ``nn/linear.py`` follows
 ``tests/test_plan.py:266-283`` and ``tests/test_nn.py:66-77``.
 """
 
@@ -169,6 +169,8 @@ def test_chip_smoke_emits_the_committed_plans_with_these_arguments():
     SMOKE + ["--rank-search", "budget", "--engine", "scalar"],
     SMOKE + ["--rank-search", "budget", "--fused-cost"],
     SMOKE + ["--rank-search", "budget", "--accuracy-budget", "-1"],
+    SMOKE + ["--rank-search", "budget", "--shards", "4"],
+    SMOKE + ["--shards", "0"],
 ])
 def test_listings_and_errors_match_reference(argv):
     """Listings print what the reference prints; refused combinations exit
@@ -184,14 +186,42 @@ def test_listings_and_errors_match_reference(argv):
         assert last == rerr.strip().splitlines()[-1]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--shards", "2"], "item 11"),
-    (["--emit-plan-pair", os.devnull, "--shards", "1"], "item 11"),
+@pytest.mark.parametrize("argv", [
+    ["--shards", "2"],
+    ["--shards", "4"],
+    ["--shards", "4", "--mode", "train"],
+    ["--shards", "2", "--objective", "throughput", "--serve-gen", "32"],
 ])
-def test_unported_options_exit_2_and_name_their_item(argv, item):
+def test_sharded_report_matches_reference(argv):
+    """``--shards N`` searches the per-rank problems: the report (its
+    ``sharding`` section included) equals the reference's."""
     rc, out, err = _main(dse_cli.main, SMOKE + argv)
-    assert rc == 2 and out == ""
-    assert err.startswith("error: ") and "ROADMAP.md" in err and item in err, err
+    rrc, rout, rerr = _main(ref_dse_cli.main, SMOKE + argv)
+    assert rc == rrc == 0, err + rerr
+    report = json.loads(out)
+    assert _strip(report) == _strip(json.loads(rout))
+    n = int(argv[1])
+    assert report["sharding"]["n_shards"] == n
+    assert report["sharding"]["global_tokens"] == 64
+
+
+@pytest.mark.parametrize("argv,outputs", [
+    (["--emit-plan-pair", "{out}", "--shards", "1"], [".prefill.json", ".decode.json"]),
+    (["--emit-plan-pair", "{out}", "--shards", "2", "--serve-slots", "4"],
+     [".prefill.json", ".decode.json"]),
+    (["--emit-plan", "{out}", "--shards", "4", "--plan-backend", "tt_gemm"], [""]),
+])
+def test_sharded_plans_match_reference_byte_for_byte(argv, outputs, tmp_path):
+    for main, tag in ((dse_cli.main, "port"), (ref_dse_cli.main, "ref")):
+        rc, _, err = _main(main, SMOKE + [a.format(out=tmp_path / tag) for a in argv]
+                           + ["--out", os.devnull])
+        assert rc == 0, err
+    for suffix in outputs:
+        got = (tmp_path / f"port{suffix}").read_text()
+        assert got == (tmp_path / f"ref{suffix}").read_text()
+        shards = int(argv[argv.index("--shards") + 1])
+        sharding = json.loads(got)["sharding"]
+        assert (sharding is None) == (shards == 1)
 
 
 @pytest.mark.parametrize("tune", ["cache", "measure"])

@@ -66,6 +66,10 @@ EMIT = {
     "tt-lm-100m.json": ["--arch", "tt-lm-100m"],
     "tt-lm-100m.pair.prefill.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
     "tt-lm-100m.pair.decode.json": ["--arch", "tt-lm-100m", "--serve-slots", "4"],
+    "tt-lm-100m.shards2.pair.prefill.json": ["--arch", "tt-lm-100m", "--serve-slots",
+                                             "4", "--shards", "2"],
+    "tt-lm-100m.shards2.pair.decode.json": ["--arch", "tt-lm-100m", "--serve-slots",
+                                            "4", "--shards", "2"],
     "tt-lm-smoke.json": ["--arch", "tt-lm-100m", "--smoke"],
     "tt-lm-smoke.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
                                  "--plan-backend", "tt_gemm"],
