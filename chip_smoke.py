@@ -75,7 +75,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (tt_gemm); wall seconds and gen tok/s per run ("N ranks sharing one
    card, not a scaling figure"), per-shard shapes and the gloo
    collectives per prefill and decode step are printed.
-4b. families (after the shard phase): full-width, full-depth
+4a'. shard train (after the shard phase): full-width tt-lm-100m (fp32,
+   seed 0, batch 8 x seq 256) trained by ranks sharing ``cuda:0`` over
+   ``gloo`` (processes of this script, ``--shard-train-rank``, each spawn
+   with a time limit) through ``launch.train.run``, 3 AdamW steps: (a)
+   ``tt-lm-100m.shards2.train.json`` on 2 ranks (``data=2``); (b) the same
+   plan on 4 (``data=2 x model=2``, ``tt_model_reduce``); (c)
+   ``tt-lm-100m.shards2.train.tt_gemm.json`` on 2 (K5 on a mesh); (d) in
+   (a)'s spawn, one ``remat="full"`` step.  The oracle is the single
+   device in this process under the same plan and seed: 2 ranks give its
+   step-0 loss and every gradient leaf but the TT cores bit for bit, the
+   cores within rel 1e-4, the losses of steps 1-2 within rel 1e-4; 4
+   ranks the step-0 loss and grad norm within rel 1e-4 and every leaf
+   within the per-leaf bound of 4c.  Every record of a kernel layer
+   (forward, the remat recompute, backward) sits at its mesh and
+   per-shard shape, no kernel layer runs on the plain executor, every
+   step launches K1 forward and dx and K3 (K3 and K5 under tt_gemm);
+   collectives a step, step ms a rank and peak memory are printed.
+4b. families (after the shard-train phase): full-width, full-depth
    qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16 as
    configured) served through ``python -m repro_torch.launch.serve``'s code
    path under their plan pairs (emitted in the dse phase) with
@@ -101,8 +118,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through the kernels against the plain executor on the card: the loss
    and the gradient norm at rel 1e-4, every gradient leaf at ``||g -
    g_plain|| / ||g_plain||`` <= 1e-4 or 10x the plain executor's own
-   fp32-vs-float64 gap of that leaf (rwkv6-7b at 4 layers; 4, 8, 16 and
-   32 layers reported); per arch the step
+   fp32-vs-float64 gap of that leaf (rwkv6-7b at 4 layers, 4, 8, 16 and
+   32 layers reported; qwen2-moe-a2.7b at 6 of its 24); per arch the step
    ms, train tokens/s, launches per step (the remat recompute
    included), peak device memory and one profiled step (busy share, top
    device ops).
@@ -151,9 +168,11 @@ card's ``name, power.limit``; the last line is the ``{"ok": true, ...}``
 JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
 "serve_tuned": v, "serve_families": f, "train_families": t,
-"serve_encdec": e, "train_encdec": d, "serve_sharded": h}`` (``r`` is
-the part of ``n`` from the rank plan's runs; ``h`` the shard phase's
-serve runs, summed over every rank of both spawns; ``u`` the tune phase's measurements, ``v`` its
+"serve_encdec": e, "train_encdec": d, "serve_sharded": h,
+"train_sharded": g}`` (``r`` is the part of ``n`` from the rank plan's
+runs; ``h`` the shard phase's serve runs, summed over every rank of both
+spawns; ``g`` the shard-train phase's train runs, summed over every rank
+of its three spawns; ``u`` the tune phase's measurements, ``v`` its
 serving under the measured plans, ``f`` the families' serve runs, ``t``
 the families' train runs, ``e`` and ``d`` the encdec phase's counted
 generation and train steps), each path's counts zeroed just before it
@@ -207,6 +226,12 @@ EMIT = {
     "tt-lm-100m.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode", "train",
                                       "--tokens", "2048", "--plan-backend",
                                       "tt_gemm"],
+    "tt-lm-100m.shards2.train.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                                      "--tokens", "2048", "--shards", "2"],
+    "tt-lm-100m.shards2.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode",
+                                              "train", "--tokens", "2048",
+                                              "--shards", "2", "--plan-backend",
+                                              "tt_gemm"],
     "tt-lm-smoke.train.json": ["--arch", "tt-lm-100m", "--smoke", "--mode",
                                "train", "--top-k", "2", "--tokens", "32"],
     "tt-lm-smoke.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",
@@ -1731,6 +1756,321 @@ def shard_phase(device, card: str) -> tuple[dict, list[str]]:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 4a': sharded training, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: the train plans searched at per-rank shapes (``--shards 2``): K1
+#: forward and dx with K3 weight gradients, and tt_gemm with K5 segments
+SHARD_TRAIN_PLANS = ("tt-lm-100m.shards2.train.json",
+                     "tt-lm-100m.shards2.train.tt_gemm.json")
+#: (label, ranks, tt_model_reduce, plan, with a remat="full" step) of each
+#: spawn: (a) token-parallel, its spawn also running (d) the remat step;
+#: (b) the same plan with the reduce; (c) the tt_gemm plan (K5 on a mesh)
+SHARD_TRAIN_RUNS = (("a", 2, False, SHARD_TRAIN_PLANS[0], True),
+                    ("b", 4, True, SHARD_TRAIN_PLANS[0], False),
+                    ("c", 2, False, SHARD_TRAIN_PLANS[1], False))
+SHARD_TRAIN_STEPS = 3
+
+
+def _is_core(leaf: str) -> bool:
+    return leaf.rsplit("/", 1)[-1].startswith("core")
+
+
+def _shard_train_records(recs, expect: dict, planned: dict, steps: int) -> dict:
+    """Check the execution records of sharded training: every record of a
+    kernel layer, forward (recompute included) and backward, at its mesh
+    and per-shard shape; none of a kernel layer on the plain executor.
+    Returns K1's forward and dx calls a step."""
+    for r in recs:
+        if r["backend"] == "jnp":
+            # a layer the plan puts on jnp runs whole on every rank
+            if planned[r["name"]] != "jnp" or r["mesh"]:
+                raise AssertionError(f"{r['name']} ({r['phase']}, planned "
+                                     f"{planned[r['name']]}) ran on the plain executor")
+            continue
+        mesh, d_in = expect[r["name"]]
+        if r["mesh"] != mesh or r["shard_shape"] != [r["tokens"], d_in] or \
+                r["tokens"] != 1024:
+            raise AssertionError(f"record {(r['name'], r['phase'], r.get('wrt'), r['mesh'], r['shard_shape'])} "
+                                 f"not at its per-shard shape {(mesh, [1024, d_in])}")
+    if not any(r["phase"] == "bwd" for r in recs):
+        raise AssertionError("no backward record")
+    return {"k1_fwd": sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt"
+                          and "segment" not in r for r in recs) // steps,
+            "k1_dx": sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
+                         and r["backend"] == "streaming_tt" for r in recs) // steps}
+
+
+def shard_train_rank(out_dir: str) -> int:
+    """One rank of the shard-train phase (``chip_smoke.py --shard-train-rank
+    DIR``): joins the ``gloo`` group, takes step 0 of full-width tt-lm-100m
+    under the spawn's plan and rules and holds every gradient leaf against
+    the single device's, trains :data:`SHARD_TRAIN_STEPS` AdamW steps
+    through ``launch.train.run``, and with ``remat`` one ``remat="full"``
+    step (its recompute on the autograd engine's device thread).  Writes
+    ``rank<r>.json``."""
+    import contextlib
+    import dataclasses
+    import datetime
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+    from repro_torch.sharding import use_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method="env://", timeout=datetime.timedelta(
+        seconds=SHARD_TIMEOUT_S))
+    try:
+        rank = dist.get_rank()
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        cfg = get_config("tt-lm-100m")
+        plan = load_plan(spec["plan"])
+        planned = {lp.name: lp.backend for lp in plan.layers}
+        expect = {k: tuple(v) for k, v in spec["expect"].items()}
+        rules = dataclasses.replace(
+            make_rules(cfg, ShapeConfig("cli", 256, 8, "train"), make_test_mesh()),
+            tt_model_reduce=spec["reduce"])
+        batch = train_batch(cfg, 256, 8, 0, device)
+        out = {"rank": rank, "device": str(device)}
+
+        def step0(cfg):
+            reset_execution_log()
+            reset_collectives()
+            with use_rules(rules):
+                loss, grads = _family_step0(cfg, plan, device, batch, None)
+            torch.cuda.synchronize(device)
+            bwd = dict(BWD_COLLECTIVES)
+            return loss, grads, execution_log(), {
+                "fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()}, "bwd": bwd}
+
+        loss, grads, recs, coll = step0(cfg)
+        _shard_train_records(recs, expect, planned, 1)
+        oracle = torch.load(spec["oracle"], weights_only=False)
+        want = {k: v.to(device) for k, v in oracle["grads"].items()}
+        gaps = _leaf_gaps(grads, want)
+        bounds = spec.get("bounds") or {}
+        out["step0"] = {
+            "loss": loss, "loss_equal": loss == oracle["loss"],
+            "loss_rel": abs(loss - oracle["loss"]) / abs(oracle["loss"]),
+            "norm_rel": _norm_gap(grads, want),
+            "unequal_noncore": sorted(k for k in grads if not _is_core(k)
+                                      and not torch.equal(grads[k], want[k])),
+            "n_leaves": len(grads), "n_noncore": sum(not _is_core(k) for k in grads),
+            "worst_core": max((gaps[k], k) for k in gaps if _is_core(k)),
+            "worst_noncore": max((gaps[k], k) for k in gaps if not _is_core(k)),
+            "worst_share": max((g / bounds[k], k) for k, g in gaps.items())
+            if bounds else None,
+            "collectives": coll}
+        del grads, want, oracle
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats(device)
+        launches.reset()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            run = train.run(["--plan", spec["plan"], "--steps", str(SHARD_TRAIN_STEPS),
+                             "--ckpt-dir", spec["ckpt"]] + TRAIN,
+                            tt_model_reduce=spec["reduce"])
+        if run.code != 0:
+            raise AssertionError(f"rank {rank}: train exited {run.code}\n{text.getvalue()}")
+        out["run"] = {"report": text.getvalue(), "losses": run.losses,
+                      "grad_norms": run.grad_norms, "step_s": run.step_s,
+                      "launches": run.launches, "collectives": run.collectives,
+                      "launches_total": launches.snapshot(),
+                      "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                      **_shard_train_records(execution_log(), expect, planned,
+                                             SHARD_TRAIN_STEPS)}
+        if spec["remat"]:
+            r_loss, _, r_recs, _ = step0(cfg.with_(remat="full"))
+            fwd = sum(r["phase"] == "fwd" for r in r_recs)
+            out["remat"] = {"loss_equal": r_loss == loss, "n_fwd": fwd,
+                            "n_fwd_plain": sum(r["phase"] == "fwd" for r in recs),
+                            "n_bwd": sum(r["phase"] == "bwd" for r in r_recs),
+                            **_shard_train_records(r_recs, expect, planned, 1)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_train_ranks(world: int, spec: dict, out_dir: str) -> tuple[list[dict], float]:
+    """Run :func:`shard_train_rank` on ``world`` processes sharing the card,
+    each within :data:`SHARD_TIMEOUT_S`; returns each rank's result and the
+    wall seconds."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    wall = spawn_ranks(
+        [sys.executable, os.path.abspath(__file__), "--shard-train-rank", out_dir],
+        world, out_dir, SHARD_TIMEOUT_S, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def shard_train_phase(device, card: str) -> tuple[dict, list[str]]:
+    """Full-width tt-lm-100m (fp32, seed 0, batch 8 x seq 256) trained by
+    ranks sharing ``cuda:0`` over ``gloo`` (:data:`SHARD_TRAIN_RUNS`).  The
+    oracle is the single device in this process under the same plan and
+    seed.  2 ranks: the step-0 loss and every gradient leaf but the TT
+    cores bit for bit (token-parallel forward and dx are row-independent
+    on the card), TT cores within rel 1e-4 (the ranks sum the token
+    blocks' weight gradients in another order), the losses of steps 1-2
+    within rel 1e-4.  4 ranks with the reduce: the step-0 loss and grad
+    norm within rel 1e-4, every leaf within its bound of
+    :func:`family_train_check` (max(1e-4, 10x the plain executor's
+    fp32-vs-float64 gap)).  Every record of a kernel layer, the remat
+    step's recompute and backward included, at its mesh and per-shard
+    shape; K1 forward and dx and K3 every step (K3 and K5 under tt_gemm).
+    Returns the launches of the train runs, summed over every rank, and
+    the report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.train import run
+    from repro_torch.plan import load_plan
+
+    cfg = get_config("tt-lm-100m")
+    batch = train_batch(cfg, 256, 8, 0, device)
+    notes, totals = [], {k: 0 for k in launches.COUNTS}
+    work = tempfile.mkdtemp(prefix="repro_torch_shard_train_")
+    try:
+        single = {}
+        for plan_file in SHARD_TRAIN_PLANS:
+            path = os.path.join(PLANS, plan_file)
+            plan = load_plan(path)
+            loss, grads = _family_step0(cfg, plan, device, batch, None)
+            oracle = os.path.join(work, f"oracle.{plan_file}.pt")
+            torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()}},
+                       oracle)
+            bounds = None
+            if plan_file == SHARD_TRAIN_PLANS[0]:
+                plain = _family_step0(cfg, plan, device, batch, "jnp")
+                wide = _family_step0(cfg.with_(dtype="float64"), plan, device, batch, "jnp")
+                own = _leaf_gaps(plain[1], wide[1])
+                bounds = {k: max(1e-4, 10 * g) for k, g in own.items()}
+                del plain, wide
+            del grads
+            torch.cuda.empty_cache()
+            out = run(["--plan", path, "--steps", str(SHARD_TRAIN_STEPS), "--ckpt-dir",
+                       os.path.join(work, f"single.{plan_file}")] + TRAIN)
+            if out.code != 0:
+                raise AssertionError(f"single-device train ({plan_file}) exited {out.code}")
+            single[plan_file] = {"oracle": oracle, "bounds": bounds, "loss0": loss,
+                                 "losses": out.losses, "step_s": out.step_s}
+        for label, world, reduce, plan_file, remat in SHARD_TRAIN_RUNS:
+            path = os.path.join(PLANS, plan_file)
+            expect = _expected_shards(cfg, reduce)
+            ranks, wall = _spawn_train_ranks(world, {
+                "plan": path, "reduce": reduce, "remat": remat,
+                "oracle": single[plan_file]["oracle"],
+                "bounds": single[plan_file]["bounds"] if reduce else None,
+                "expect": expect, "ckpt": os.path.join(work, f"ckpt.{label}")},
+                os.path.join(work, f"run.{label}"))
+            want = single[plan_file]["losses"]
+            need = ("tt_gemm_ws", "fused_path") if "tt_gemm" in plan_file else \
+                ("streaming_tt", "tt_gemm_ws")
+            for res in ranks:
+                r, s0, tr = res["rank"], res["step0"], res["run"]
+                where = f"({label}) {world} ranks, rank {r}, {plan_file}"
+                for k, v in tr["launches_total"].items():
+                    totals[k] += v
+                for i, per in enumerate(tr["launches"]):
+                    for k in need:
+                        if per[k] <= 0:
+                            raise AssertionError(f"{where}: step {i} launched no {k}")
+                if "tt_gemm" not in plan_file and (tr["k1_fwd"] <= 0 or tr["k1_dx"] <= 0):
+                    raise AssertionError(f"{where}: K1 forward {tr['k1_fwd']}, dx "
+                                         f"{tr['k1_dx']} calls a step")
+                if world == 2:
+                    if not s0["loss_equal"] or s0["unequal_noncore"] or \
+                            s0["worst_core"][0] > 1e-4:
+                        raise AssertionError(
+                            f"{where}: step 0 not as one device: loss equal "
+                            f"{s0['loss_equal']}, non-core leaves that differ "
+                            f"{s0['unequal_noncore'][:5]}, worst core {s0['worst_core']}")
+                    rel = max(abs(g - w) / abs(w) for g, w in zip(tr["losses"], want))
+                    if rel > 1e-4:
+                        raise AssertionError(f"{where}: losses {tr['losses']} vs one "
+                                             f"device {want} (rel {rel})")
+                elif max(s0["loss_rel"], s0["norm_rel"]) > 1e-4 or \
+                        s0["worst_share"][0] > 1.0:
+                    raise AssertionError(
+                        f"{where}: step 0 loss rel {s0['loss_rel']}, grad norm rel "
+                        f"{s0['norm_rel']}, worst leaf share {s0['worst_share']}")
+                if remat:
+                    rm = res["remat"]
+                    if not rm["loss_equal"] or rm["n_fwd"] != 2 * rm["n_fwd_plain"] \
+                            or rm["n_bwd"] <= 0:
+                        raise AssertionError(f"{where}: remat step {rm}")
+            r0 = ranks[0]
+            tr, s0 = r0["run"], r0["step0"]
+            said = [ln for ln in tr["report"].splitlines()
+                    if ln.startswith("sharded planned execution:")]
+            if not said or f"{world} ranks share one card" not in said[0]:
+                raise AssertionError(f"({label}) rank 0's report lacks the mesh line: {said}")
+            steady = tr["step_s"][1:]
+            notes.append(
+                f"({label}) {world} ranks sharing one card ({card}; "
+                f"{'data=2 x model=2, tt_model_reduce' if reduce else 'data=2'}, gloo), "
+                f"{plan_file}: spawn wall {wall:.1f} s; rank 0 said: {said[0]}")
+            notes.append(
+                f"  step 0 vs one device: loss {s0['loss']:.7f} vs "
+                f"{single[plan_file]['loss0']:.7f} (equal {s0['loss_equal']}, rel "
+                f"{s0['loss_rel']:.1e}), grad norm rel {s0['norm_rel']:.1e}; "
+                f"{s0['n_noncore'] - len(s0['unequal_noncore'])}/{s0['n_noncore']} "
+                f"non-core leaves bit-identical (worst {s0['worst_noncore'][0]:.1e} "
+                f"{s0['worst_noncore'][1]}), worst TT core {s0['worst_core'][0]:.1e} "
+                f"({s0['worst_core'][1]}) of {s0['n_leaves']} leaves"
+                + (f"; worst share of its bound {s0['worst_share'][0]:.2f} "
+                   f"({s0['worst_share'][1]})" if s0["worst_share"] else ""))
+            notes.append(
+                f"  losses rank 0 {[round(x, 7) for x in tr['losses']]} vs one device "
+                f"{[round(x, 7) for x in want]}; step ms a rank first "
+                f"{1e3 * tr['step_s'][0]:.1f}, then "
+                f"{[round(1e3 * t, 1) for t in steady]} (one device "
+                f"{[round(1e3 * t, 1) for t in single[plan_file]['step_s'][1:]]}); peak "
+                f"memory a rank {[round(res['run']['peak_gib'], 2) for res in ranks]} GiB")
+            notes.append(
+                f"  collectives a step (rank 0, the last step): forward "
+                f"{tr['collectives'][-1]['fwd']}, backward {tr['collectives'][-1]['bwd']}; "
+                f"step 0 (no optimizer) {s0['collectives']}; launches per step a rank "
+                f"{ {k: v for k, v in tr['launches'][-1].items() if v} }; K1 calls a "
+                f"step: forward {tr['k1_fwd']}, dx {tr['k1_dx']}")
+            if remat:
+                rm = r0["remat"]
+                notes.append(
+                    f"  (d) remat=\"full\" step: loss bit-identical {rm['loss_equal']}; "
+                    f"{rm['n_fwd']} forward records (without remat {rm['n_fwd_plain']}) "
+                    f"and {rm['n_bwd']} backward, every one at its mesh and per-shard "
+                    f"shape; K1 forward {rm['k1_fwd']}, dx {rm['k1_dx']}")
+        return totals, notes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def model_params(cfg, plan, device, cache: dict):
     """Random weights from seed 0 in ``plan``'s decomposition (a v4 plan's
     factorizations set the TT shapes; the other plans share the frozen
@@ -2678,12 +3018,17 @@ def _leaf_gaps(got: dict, want: dict) -> dict:
 #: depths at which rwkv6-7b's step 0 is reported (its gate is at
 #: :data:`FAMILY_CHECK_LAYERS`)
 FAMILY_DEPTHS = (4, 8, 16, 32)
+#: qwen2-moe-a2.7b's step-0 check runs 6 of its 24 layers: its three
+#: host-bound step-0 passes took 100 s of the run at full depth, the time
+#: the shard-train phase needs; its train runs keep full depth
+FAMILY_TRAIN_CHECK_LAYERS = {"qwen2-moe-a2.7b": 6}
 
 
 def family_train_check(arch, plan_file, device) -> list[str]:
     """Step 0 through the kernels in fp32 against the plain executor along
     the same paths (``--plan-backend jnp``) on the card, at the depth of
-    :data:`FAMILY_CHECK_LAYERS` (full depth for the others): the loss and
+    :data:`FAMILY_CHECK_LAYERS` or :data:`FAMILY_TRAIN_CHECK_LAYERS` (full
+    depth for the others): the loss and
     the global gradient norm within rel 1e-4, and every gradient leaf
     within ``||g_kernels - g_plain|| / ||g_plain|| <= max(1e-4, 10 r)``,
     where ``r`` is the same gap between the plain executor in fp32 and in
@@ -2703,7 +3048,8 @@ def family_train_check(arch, plan_file, device) -> list[str]:
     plan = load_plan(os.path.join(PLANS, plan_file))
     full = get_config(arch).with_(dtype="float32")
     batch = train_batch(full, 512, 4, 0, device)
-    depth = FAMILY_CHECK_LAYERS.get(arch, full.n_layers)
+    depth = FAMILY_CHECK_LAYERS.get(
+        arch, FAMILY_TRAIN_CHECK_LAYERS.get(arch, full.n_layers))
     depths = FAMILY_DEPTHS if arch in FAMILY_CHECK_LAYERS else (depth,)
     notes = []
     try:
@@ -3253,6 +3599,19 @@ def main() -> int:
         log(f"shards: {time.perf_counter() - t0:.1f} s; serve-path launches, "
             f"every rank of both runs: {sharded_counts}")
 
+        log("--- shard train: full-width tt-lm-100m trained by 2 and 4 ranks "
+            "sharing the card")
+        t0 = time.perf_counter()
+        shard_train_counts, notes = shard_train_phase(device, card)
+        for n in notes:
+            log(f"  {n}")
+        log(f"shard train: {time.perf_counter() - t0:.1f} s; train-path launches, "
+            f"every rank of the three runs: {shard_train_counts}")
+        for name in ("streaming_tt", "tt_gemm_ws", "fused_path"):
+            if shard_train_counts[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the sharded "
+                                     "train path")
+
         log("--- families: full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b")
         t0 = time.perf_counter()
         family_counts, family_rows, notes = families_phase(device)
@@ -3335,6 +3694,7 @@ def main() -> int:
          "launches": {"serve": serve_counts[k["name"]],
                       "serve_rank_plan": rank_counts[k["name"]],
                       "serve_sharded": sharded_counts[k["name"]],
+                      "train_sharded": shard_train_counts[k["name"]],
                       "train": train_counts[k["name"]],
                       "tune": tune_counts[k["name"]],
                       "serve_tuned": tuned_counts[k["name"]],
@@ -3381,4 +3741,6 @@ def _fmt(ms: float | None) -> str:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:  # one rank of the shard phase
         sys.exit(shard_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--shard-train-rank"]:  # one rank of the shard-train phase
+        sys.exit(shard_train_rank(sys.argv[2]))
     sys.exit(main())

@@ -15,6 +15,12 @@ keeps ``params["blocks"]`` as a list of per-layer dicts.  A list of dicts
 is therefore stored stacked, one leaf per key with a leading layer axis,
 and split again on restore.  So a checkpoint written by the reference
 restores into the port, and one written by the port into the reference.
+
+Across ranks (:class:`RankCheckpointManager`) the state is split (the
+AdamW moments of the leaves ``param_shardings`` splits): every rank
+gathers it whole, rank 0 writes it in the layout above, and the others
+wait at a barrier until the write has landed; on restore every rank reads
+the whole checkpoint and keeps its own block.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -216,3 +222,38 @@ class CheckpointManager:
         steps = self.all_steps()
         for s in steps[: max(0, len(steps) - self.keep)]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+
+class RankCheckpointManager(CheckpointManager):
+    """Checkpoints of a state split over the ranks of a process group.
+
+    ``whole(tree)`` gathers the whole state from every rank's part (a
+    collective: every rank calls it), ``whole_like(tree)`` makes a template
+    of the whole state's shapes without one, ``local(tree)`` takes this
+    rank's part of a whole state.  Rank 0 writes; every save ends at a
+    barrier, so a save is synchronous here (``save_async`` too): no rank
+    goes on before the checkpoint has landed.
+    """
+
+    def __init__(self, directory: str, keep: int = 3, *, rank: int,
+                 whole: Callable[[Any], Any], whole_like: Callable[[Any], Any],
+                 local: Callable[[Any], Any],
+                 barrier: Callable[[], None]):
+        super().__init__(directory, keep)
+        self.rank = rank
+        self._whole, self._whole_like, self._local = whole, whole_like, local
+        self._barrier = barrier
+
+    def save(self, step: int, tree: Any) -> None:
+        whole = self._whole(tree)
+        if self.rank == 0:
+            super().save(step, whole)
+        self._barrier()
+
+    def save_async(self, step: int, tree: Any) -> None:
+        self.save(step, tree)
+
+    def restore(self, template: Any,
+                step: Optional[int] = None) -> tuple[int, Any]:
+        step, whole = super().restore(self._whole_like(template), step)
+        return step, self._local(whole)

@@ -1,6 +1,6 @@
-"""The ranks' mesh and the sharding policy (serving half).
+"""The ranks' mesh, the sharding policy and the parameter shardings.
 
-Port of ``src/repro/launch/mesh.py:1-131``.  Where the reference lays a
+Port of ``src/repro/launch/mesh.py:1-146``.  Where the reference lays a
 ``jax.sharding.Mesh`` over devices, this lays a :class:`Mesh` over the
 ranks of the initialised ``torch.distributed`` process group: rank ``r``
 sits at ``numpy.unravel_index(r, shape)`` (the first axis major, as
@@ -15,6 +15,16 @@ importing this module touches no process group.
   * model  -> the TP axis
   * seq    -> sequence parallelism, on when attention heads cannot shard
     the model axis (kv_heads % tp != 0) or at >= 200k context
+
+``param_shardings`` is the reference's FSDP/TP heuristic, one spec per
+leaf as a tuple of entries (an axis name or None per dim, ``()`` for a
+replicated leaf), the reference's ``PartitionSpec``.  Every rank computes
+with whole parameters (activations are replicated); what the specs split
+is the AdamW state: :class:`ParamShards` gives each rank its block of
+every split leaf and gathers an updated block back whole
+(:mod:`repro_torch.optim.adamw`).  The reference's ``cache_shardings``,
+``batch_shardings`` and ``replicated`` feed only its XLA dry run
+(``launch/dryrun.py``) and are not ported.
 """
 
 from __future__ import annotations
@@ -25,10 +35,12 @@ import math
 from typing import Any, Optional
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.sharding import ShardingRules
+from repro_torch.sharding import ShardingRules, SpecEntry
+from repro_torch.tree import leaves, map_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +168,90 @@ def make_rules(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> ShardingRule
         seq_axis="model" if sp_enabled(cfg, shape, tp, dp) else None,
         mesh=mesh,
     )
+
+
+# ---------------------------------------------------------------------------
+# parameter shardings
+# ---------------------------------------------------------------------------
+
+_REPLICATE_BELOW = 65_536  # elements; TT cores & norms replicate
+
+
+def _param_pspec(shape: tuple[int, ...], axis_sizes: dict) -> tuple[SpecEntry, ...]:
+    """The reference's spec of one parameter leaf: the largest dim that
+    divides the model axis takes it, the largest other dim that divides
+    the data axis takes that (``()``: replicated)."""
+    if math.prod(shape) < _REPLICATE_BELOW or len(shape) < 2:
+        return ()
+    spec: list = [None] * len(shape)
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    tp = axis_sizes.get("model", 1)
+    if tp > 1:
+        for i in order:
+            if shape[i] % tp == 0 and shape[i] >= tp:
+                spec[i] = "model"
+                break
+    fsdp = axis_sizes.get("data", 1)
+    if fsdp > 1:
+        for i in order:
+            if spec[i] is None and shape[i] % fsdp == 0 and shape[i] >= fsdp:
+                spec[i] = "data"
+                break
+    return tuple(spec)
+
+
+def param_shardings(params: Any, mesh: Mesh) -> Any:
+    """FSDP/TP heuristic specs for a parameter (or optimizer-state) tree:
+    a tree like ``params`` of :func:`_param_pspec` tuples."""
+    axis_sizes = dict(mesh.shape)
+    return map_tree(lambda p: _param_pspec(tuple(p.shape), axis_sizes), params)
+
+
+class ParamShards:
+    """This rank's block of each parameter leaf that :func:`param_shardings`
+    splits, by the leaf's place in :func:`repro_torch.tree.leaves` order.
+
+    A leaf's block is the slice of each split dim at this rank's coordinate
+    on that dim's axis; :meth:`gather` rebuilds the whole leaf from every
+    rank's block (an ``all_gather`` over the leaf's axes).
+    """
+
+    def __init__(self, params: Any, mesh: Mesh):
+        self.mesh = mesh
+        self.shapes = [tuple(p.shape) for p in leaves(params)]
+        self.specs = [_param_pspec(s, dict(mesh.shape)) for s in self.shapes]
+
+    def split(self, i: int) -> bool:
+        return any(e is not None for e in self.specs[i])
+
+    def _axes(self, i: int) -> tuple[str, ...]:
+        """The leaf's axes in mesh order (its group's rank order)."""
+        return tuple(a for a in self.mesh.shape if a in self.specs[i])
+
+    def _index(self, i: int, coords: dict) -> tuple[slice, ...]:
+        out = []
+        for n, e in zip(self.shapes[i], self.specs[i]):
+            size = n // self.mesh.shape[e] if e is not None else n
+            c = coords[e] if e is not None else 0
+            out.append(slice(c * size, (c + 1) * size))
+        return tuple(out)
+
+    def block(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i``'s whole tensor ``t`` (a view)."""
+        return t[self._index(i, self.mesh.coords)]
+
+    def block_shape(self, i: int) -> tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self._index(i, self.mesh.coords))
+
+    def gather(self, i: int, block: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole, from every rank's ``block`` of it."""
+        axes = self._axes(i)
+        parts = [torch.empty_like(block) for _ in
+                 range(math.prod(self.mesh.shape[a] for a in axes))]
+        dist.all_gather(parts, block.contiguous(), group=self.mesh.group(axes))
+        whole = block.new_empty(self.shapes[i])
+        sizes = [self.mesh.shape[a] for a in axes]
+        for g, part in enumerate(parts):
+            coords = dict(zip(axes, (int(c) for c in np.unravel_index(g, sizes))))
+            whole[self._index(i, coords)] = part
+        return whole

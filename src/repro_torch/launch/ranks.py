@@ -1,4 +1,12 @@
-"""Start the ranks of one process group on this host, with a time limit.
+"""The ranks of one process group: joining it, and starting it on this
+host with a time limit.
+
+:func:`join_ranks` joins the group a launcher started (torchrun's
+``env://``) or adopts one the caller started; the serve and train drivers
+share it.  A rank's card is ``cuda:{local_rank % device_count}``; the
+backend is ``nccl`` when every rank has a card of its own and ``gloo``
+when ranks share one (NCCL refuses two ranks on one card) or run on the
+CPU.
 
 :func:`spawn_ranks` runs one command as ``world`` processes and gives each
 the environment ``torchrun --standalone`` would (``MASTER_ADDR``,
@@ -12,11 +20,65 @@ collective cannot hang the caller.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 import socket
 import subprocess
 import time
 from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place among the ranks."""
+
+    rank: int
+    world: int
+    backend: str            # "" on one rank
+    shared_card: bool       # several ranks on one card
+    owned: bool             # :func:`join_ranks` started the process group
+
+    def device(self, device: torch.device) -> torch.device:
+        """``device``, with a CUDA device that names no index placed on this
+        rank's card (made current when there are several ranks)."""
+        if device.type == "cuda" and device.index is None:
+            local = int(os.environ.get("LOCAL_RANK", self.rank))
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        if device.type == "cuda" and self.world > 1:
+            torch.cuda.set_device(device)  # NCCL talks on the current device
+        return device
+
+
+def join_ranks(device_type: str) -> Ranks:
+    """Join the process group (torchrun's ``env://``), or adopt the one the
+    caller started; one rank without either."""
+    owned = not dist.is_initialized()
+    world = (int(os.environ.get("WORLD_SIZE", "1")) if owned
+             else dist.get_world_size())
+    if world <= 1:
+        return Ranks(0, 1, "", False, False)
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    shared = device_type == "cuda" and local_world > torch.cuda.device_count()
+    if owned:
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" and not shared else "gloo",
+            init_method="env://")
+    return Ranks(dist.get_rank(), world, str(dist.get_backend()), shared, owned)
+
+
+def ranks_agree(ranks: Ranks, text: bytes, device) -> bool:
+    """Whether every rank holds the same ``text`` (a digest all-gathered;
+    on the card under ``nccl``, on the host under ``gloo``)."""
+    digest = int.from_bytes(hashlib.sha256(text).digest()[:7], "little")
+    dev = device if ranks.backend == "nccl" else "cpu"
+    mine = torch.tensor([digest], dtype=torch.int64, device=dev)
+    every = [torch.empty_like(mine) for _ in range(ranks.world)]
+    dist.all_gather(every, mine)
+    return all(int(t) == digest for t in every)
 
 
 def free_port() -> int:

@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import hashlib
 import os
 import sys
 import time
@@ -49,6 +48,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.kernels import launches
 from repro_torch.launch.mesh import make_rules, make_test_mesh
+from repro_torch.launch.ranks import Ranks, join_ranks, ranks_agree
 from repro_torch.models import api
 from repro_torch.models.config import ShapeConfig
 from repro_torch.plan import (
@@ -86,43 +86,10 @@ class ServeRun:
     launches: Optional[dict] = None
 
 
-@dataclasses.dataclass(frozen=True)
-class Ranks:
-    """This process's place among the serving ranks."""
-
-    rank: int
-    world: int
-    backend: str            # "" on one rank
-    shared_card: bool       # several ranks on one card
-    owned: bool             # :func:`_join_ranks` started the process group
-
-
-def _join_ranks(device_type: str) -> Ranks:
-    """Join the process group (torchrun's ``env://``), or adopt the one the
-    caller started; one rank without either."""
-    owned = not dist.is_initialized()
-    world = (int(os.environ.get("WORLD_SIZE", "1")) if owned
-             else dist.get_world_size())
-    if world <= 1:
-        return Ranks(0, 1, "", False, False)
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    shared = device_type == "cuda" and local_world > torch.cuda.device_count()
-    if owned:
-        dist.init_process_group(
-            "nccl" if device_type == "cuda" and not shared else "gloo",
-            init_method="env://")
-    return Ranks(dist.get_rank(), world, str(dist.get_backend()), shared, owned)
-
-
 def _tokens_agree(ranks: Ranks, result: ServeResult, device) -> bool:
     """Whether every rank generated the same tokens (a digest all-gathered)."""
-    text = repr(sorted(result.tokens_by_rid().items())).encode()
-    digest = int.from_bytes(hashlib.sha256(text).digest()[:7], "little")
-    dev = device if ranks.backend == "nccl" else "cpu"
-    mine = torch.tensor([digest], dtype=torch.int64, device=dev)
-    every = [torch.empty_like(mine) for _ in range(ranks.world)]
-    dist.all_gather(every, mine)
-    return all(int(t) == digest for t in every)
+    return ranks_agree(ranks, repr(sorted(result.tokens_by_rid().items())).encode(),
+                       device)
 
 
 def _load_and_describe(path: str, label: str):
@@ -204,12 +171,8 @@ def run(argv=None, *, tt_model_reduce: bool = False) -> ServeRun:
         print("error: --device cuda but no CUDA device is available "
               "(pass --device cpu to run the plain versions)", file=sys.stderr)
         return ServeRun(2)
-    ranks = _join_ranks(device.type)
-    if device.type == "cuda" and device.index is None:
-        local = int(os.environ.get("LOCAL_RANK", ranks.rank))
-        device = torch.device("cuda", local % torch.cuda.device_count())
-    if device.type == "cuda" and ranks.world > 1:
-        torch.cuda.set_device(device)  # NCCL talks on the current device
+    ranks = join_ranks(device.type)
+    device = ranks.device(device)
     try:
         with open(os.devnull, "w") as sink:
             # rank 0 prints the report; errors reach stderr from every rank

@@ -25,6 +25,7 @@ def make_train_step(
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
     grad_compress: bool = False,
+    shards=None,
 ):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
@@ -36,6 +37,9 @@ def make_train_step(
     CompressState)`` and the clipped gradients round-trip through int8
     error feedback before AdamW.  A leaf that took no part in the loss (an
     expert no token reached) gets a zero gradient, as ``jax.grad`` gives.
+    Across ranks, ``shards`` (:class:`repro_torch.launch.mesh.ParamShards`)
+    splits the AdamW state (:func:`repro_torch.optim.adamw_update`); the
+    compression's residual stays whole on every rank.
     """
     m = api(cfg)
 
@@ -54,11 +58,13 @@ def make_train_step(
             adam_state, comp_state = opt_state
             grads, comp_state = compress_decompress(grads, comp_state)
             params, adam_state = adamw_update(grads, adam_state, params, lr,
-                                              weight_decay=weight_decay)
+                                              weight_decay=weight_decay,
+                                              shards=shards)
             opt_state = (adam_state, comp_state)
         else:
             params, opt_state = adamw_update(grads, opt_state, params, lr,
-                                             weight_decay=weight_decay)
+                                             weight_decay=weight_decay,
+                                             shards=shards)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step

@@ -45,6 +45,7 @@ from repro_torch.nn import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.sharding import get_rules, use_rules
 from repro_torch.tree import leaves
 from .blocks import (
     attn_spec,
@@ -88,7 +89,16 @@ def _checkpointed(fn, *args, **kwargs):
     if not (torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in leaves(args))):
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+    rules = get_rules()
+
+    def body(*xs):
+        # the recompute runs on the autograd engine's thread (on the card,
+        # the device's own), where this thread's sharding rules are not
+        # installed: hand them over, so it splits as the forward did
+        with use_rules(rules):
+            return fn(*xs)
+
+    return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
                       **kwargs)
 
 

@@ -9,6 +9,13 @@ Unlike the reference (pure functions over immutable arrays), the update
 works in place: :func:`adamw_update` writes the new values into the
 parameter and moment tensors it is given and returns those same tensors,
 so a step allocates no second copy of the model.
+
+Across ranks (``shards``, a :class:`repro_torch.launch.mesh.ParamShards`),
+the moments of a leaf that ``param_shardings`` splits hold only this
+rank's block of it: the rank updates that block of the parameter and
+all-gathers it back whole (every rank computes with whole parameters).
+AdamW is elementwise, so the result is the unsplit update's, bit for bit.
+Leaves the specs replicate keep whole moments on every rank.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.tree import leaves, map_tree
+from repro_torch.tree import leaves, map_indexed, map_tree
 
 
 class AdamWState(NamedTuple):
@@ -26,13 +33,19 @@ class AdamWState(NamedTuple):
     v: Any               # fp32 tree like params
 
 
-def adamw_init(params: Any) -> AdamWState:
+def adamw_init(params: Any, shards=None) -> AdamWState:
+    """Zero moments: whole leaves, or this rank's blocks under ``shards``."""
     first = leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def zeros(i, p):
+        shape = (shards.block_shape(i) if shards is not None and shards.split(i)
+                 else p.shape)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
-        m=map_tree(zeros, params),
-        v=map_tree(zeros, params),
+        m=map_indexed(zeros, params),
+        v=map_indexed(zeros, params),
     )
 
 
@@ -56,23 +69,28 @@ def adamw_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    shards=None,
 ) -> tuple[Any, AdamWState]:
-    """Returns ``(params, state)``, both updated in place."""
+    """Returns ``(params, state)``, both updated in place; under ``shards``
+    each split leaf's block is updated here and gathered back whole."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else torch.tensor(
         lr, dtype=torch.float32, device=step.device)
     s = step.to(torch.float32)
     b1c = 1.0 - b1 ** s
     b2c = 1.0 - b2 ** s
-    for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
-                          leaves(params)):
-        g32 = g.to(torch.float32)
+    for i, (g, m, v, whole) in enumerate(zip(
+            leaves(grads), leaves(state.m), leaves(state.v), leaves(params))):
+        split = shards is not None and shards.split(i)
+        p = shards.block(i, whole) if split else whole
+        g32 = (shards.block(i, g) if split else g).to(torch.float32)
         m_new = b1 * m + (1.0 - b1) * g32
         v_new = b2 * v + (1.0 - b2) * torch.square(g32)
         mhat = m_new / b1c
         vhat = v_new / b2c
         delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr_t * delta).to(p.dtype))
+        new = (p.to(torch.float32) - lr_t * delta).to(p.dtype)
+        whole.copy_(shards.gather(i, new) if split else new)
         m.copy_(m_new)
         v.copy_(v_new)
     return params, AdamWState(step=step, m=state.m, v=state.v)

@@ -381,14 +381,22 @@ class _PlannedTTLinear(torch.autograd.Function):
     def forward(ctx, x2d, lp, geometry, *cores):
         ctx.save_for_backward(x2d, *cores)
         ctx.lp, ctx.geometry = lp, geometry
+        # the rank's placement: the backward runs after the sharded call's
+        # shard_execution has closed (on the card, on another thread)
+        ctx.shard = _SHARD[-1] if _SHARD else None
         return _forward_planned(lp, x2d, cores, *geometry)
 
     @staticmethod
     def backward(ctx, dy2d):
         x2d, *cores = ctx.saved_tensors
-        dx2d, dcores = _backward_planned(ctx.lp, x2d, cores, dy2d,
-                                         *ctx.geometry)
-        return (dx2d, None, None, *dcores)
+        with (shard_execution(*ctx.shard) if ctx.shard is not None
+              else contextlib.nullcontext()):
+            dx2d, dcores = _backward_planned(ctx.lp, x2d, cores, dy2d,
+                                             *ctx.geometry)
+        # row-major, as the sharded route's gathered dx is: a dx that
+        # ``execute_path`` leaves transposed would make the reductions
+        # downstream (a norm's scale gradient) sum in another order
+        return (dx2d.contiguous(), None, None, *dcores)
 
 
 # ---------------------------------------------------------------------------

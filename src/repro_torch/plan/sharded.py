@@ -21,21 +21,41 @@ split and rebuilt explicitly:
   bit-identical to the single-device route wherever the kernels' rows do
   not depend on the token count, which the CUDA kernels guarantee.
 
-Serving only: the sharded backward (the core gradients' all-reduce, which
-the reference's ``shard_map`` transpose adds) is not ported, so the route
-refuses to run under autograd (ROADMAP.md, Queue A item 11b).
+Training.  Every rank computes the same loss on the same activations, so
+each split and each collective is a ``torch.autograd.Function`` whose
+backward hands every rank the *whole* gradient (what the reference's
+``shard_map`` transpose gives):
+
+* the token ``all_gather`` of y: the backward takes this rank's row block
+  of dy (no sum: dy is the same on every rank);
+* the model ``all_reduce`` of y: the backward is the identity;
+* the row (and column) block take of x: the backward ``all_gather``s the
+  dx blocks over the token group (and over the model group);
+* the cores other than j1: the backward ``all_reduce``s their gradients
+  over the token axes (and the model axis under the reduce), all of them
+  in one flat buffer;
+* core j1's column slice: the backward ``all_reduce``s it over the token
+  axes, then ``all_gather``s the slices along dim 1 over the model axis.
+
+``torch.distributed.nn.functional``'s collectives are not used: their
+backward reduce-scatters (``all_gather``) or all-reduces (``all_reduce``),
+which under a replicated loss gives ``n`` times the gradient.  The
+kernel's own backward (the executor's autograd Function) re-enters the
+rank's :func:`~repro_torch.plan.executor.shard_execution`, so gradient
+records carry the mesh and the per-shard shape.
 
 Collectives go through :func:`_collective`, which counts them
-(:data:`COLLECTIVES`).  Gloo runs ``all_gather`` and ``all_reduce`` on
-CUDA tensors itself (copying through the host inside the backend), which
-is what lets several ranks share one card.
+(:data:`COLLECTIVES`, forward and backward; :data:`BWD_COLLECTIVES`, the
+backward's alone).  Gloo runs ``all_gather`` and ``all_reduce`` on CUDA
+tensors itself (copying through the host inside the backend), which is
+what lets several ranks share one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -43,13 +63,17 @@ import torch.distributed as dist
 from .executor import planned_tt_linear, shard_execution
 from .schema import LayerPlan
 
-#: collectives the sharded route issued since the last :func:`reset_collectives`
+#: collectives the sharded route issued since the last
+#: :func:`reset_collectives`, forward and backward
 COLLECTIVES: dict[str, int] = {"all_gather": 0, "all_reduce": 0}
+#: the part of :data:`COLLECTIVES` issued by backward passes
+BWD_COLLECTIVES: dict[str, int] = {"all_gather": 0, "all_reduce": 0}
 
 
 def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for counts in (COLLECTIVES, BWD_COLLECTIVES):
+        for k in counts:
+            counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +101,8 @@ def shard_decision(rules, tokens: int,
     the token count does not divide the DP axes and no model reduction
     applies): the caller runs the planned kernel on the whole block on
     every rank (the reference falls back to the plain executor there).
+    Under autograd that needs no collective: every rank computes the
+    whole core gradients itself.
     """
     if rules is None or rules.mesh is None:
         return None
@@ -95,16 +121,94 @@ def shard_decision(rules, tokens: int,
     return ShardDecision(tuple(axes), int(n), model_reduce, tp)
 
 
-def _collective(kind: str, t: torch.Tensor, group) -> torch.Tensor:
-    """``all_gather`` (blocks concatenated along dim 0, in group-rank
+def _collective(kind: str, t: torch.Tensor, group, dim: int = 0,
+                backward: bool = False) -> torch.Tensor:
+    """``all_gather`` (blocks concatenated along ``dim``, in group-rank
     order) or ``all_reduce(SUM)`` of ``t`` over ``group``, counted."""
     COLLECTIVES[kind] += 1
+    if backward:
+        BWD_COLLECTIVES[kind] += 1
+    t = t.contiguous()
     if kind == "all_reduce":
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=dim)
+
+
+class _TakeBlock(torch.autograd.Function):
+    """Block ``index`` of ``n`` along ``dim``; the backward all-reduces the
+    block's gradient over ``sum_group`` (when given), then all-gathers the
+    blocks over ``group``, so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, index: int, n: int, group: Any,
+                sum_group: Any = None):
+        ctx.dim, ctx.group, ctx.sum_group = dim, group, sum_group
+        size = t.shape[dim] // n
+        return t.narrow(dim, index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_group is not None:
+            # a copy: the all-reduce works in place, ``g`` is autograd's
+            g = _collective("all_reduce", g.clone(), ctx.sum_group,
+                            backward=True)
+        g = _collective("all_gather", g, ctx.group, dim=ctx.dim, backward=True)
+        return g, None, None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The row blocks of every rank of ``group``, concatenated; the
+    backward takes this rank's rows of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, t, index: int, group: Any):
+        ctx.index, ctx.rows = index, t.shape[0]
+        return _collective("all_gather", t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+class _SumPartials(torch.autograd.Function):
+    """The sum of every rank's partial output over ``group``; each rank's
+    partial gets the whole (replicated) gradient, so the backward is the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, t, group: Any):
+        ctx.mark_dirty(t)  # the all-reduce sums in place (``t`` contiguous)
+        return _collective("all_reduce", t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    """Cores every rank of ``group`` holds whole, as they are; the backward
+    sums their gradients over ``group`` in one flat all-reduce (each rank
+    contracted only its own block of the problem)."""
+
+    @staticmethod
+    def forward(ctx, group: Any, *cores):
+        ctx.group = group
+        ctx.like = [torch.empty((0,), dtype=c.dtype, device=c.device)
+                    for c in cores]
+        ctx.shapes = [c.shape for c in cores]
+        return tuple(c.view_as(c) for c in cores)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([
+            (g if g is not None else like.new_zeros(s)).reshape(-1)
+            for g, like, s in zip(grads, ctx.like, ctx.shapes)])
+        flat = _collective("all_reduce", flat, ctx.group, backward=True)
+        return (None, *(part.reshape(s).clone() for part, s in zip(
+            flat.split([math.prod(s) for s in ctx.shapes]), ctx.shapes)))
 
 
 def sharded_tt_linear(
@@ -120,46 +224,53 @@ def sharded_tt_linear(
 ) -> torch.Tensor:
     """Planned TT projection over the ranks: per-shard kernel execution.
 
-    ``x2d: (tokens, d_in)`` -> ``(tokens, d_out)`` on every rank.  This
-    rank streams its token block through the plan's backend at the
-    per-shard shape; cores are replicated, except the leading input core
-    under ``model_reduce``, of which each rank of the model group takes
-    its slice.
+    ``x2d: (tokens, d_in)`` -> ``(tokens, d_out)`` on every rank, and under
+    autograd the whole dx and core gradients on every rank.  This rank
+    streams its token block through the plan's backend at the per-shard
+    shape; cores are replicated, except the leading input core under
+    ``model_reduce``, of which each rank of the model group takes its
+    slice.
     """
-    if torch.is_grad_enabled() and (
-            x2d.requires_grad or any(c.requires_grad for c in cores)):
-        raise NotImplementedError(
-            "the sharded planned route is forward-only: its backward (the "
-            "core gradients' all-reduce) is ROADMAP.md, Queue A item 11b; "
-            "run under torch.no_grad() or without sharding rules")
     in_modes, out_modes, ranks = tuple(in_modes), tuple(out_modes), tuple(ranks)
     mesh = rules.mesh
     tokens, d_in = int(x2d.shape[0]), int(x2d.shape[1])
     shard_tokens = tokens // decision.n_shards
-    t0 = mesh.index(decision.axes) * shard_tokens
-    xs = x2d[t0:t0 + shard_tokens]
+    token_group = mesh.group(decision.axes) if decision.axes else None
+    index = mesh.index(decision.axes)
+    xs = x2d
+    if decision.axes:
+        xs = _TakeBlock.apply(xs, 0, index, decision.n_shards, token_group)
     cores = list(cores)
     local_in = in_modes
+    shared = decision.axes
     if decision.model_reduce:
         tp = decision.tp
-        m = mesh.coords[rules.model_axis]
+        ma = rules.model_axis
+        m = mesh.coords[ma]
+        model_group = mesh.group((ma,))
+        shared = decision.axes + (ma,)
         local_in = (in_modes[0] // tp,) + in_modes[1:]
         # x columns are row-major over in_modes, so a contiguous 1/tp
         # column block IS a slice of the leading input mode j1; cores are
         # ordered out_modes then in_modes, so j1's core sits at index
         # len(out_modes), its mode along dim 1 (interior (r, m, r) and
         # final (r, m) cores alike)
-        w = d_in // tp
-        xs = xs[:, m * w:(m + 1) * w]
+        xs = _TakeBlock.apply(xs, 1, m, tp, model_group)
         j1 = len(out_modes)
-        c = local_in[0]
-        cores[j1] = cores[j1][:, m * c:(m + 1) * c].contiguous()
+        cores[j1] = _TakeBlock.apply(cores[j1], 1, m, tp, model_group,
+                                     token_group)
+        rest = [k for k in range(len(cores)) if k != j1]
+    else:
+        rest = list(range(len(cores)))
+    for k, c in zip(rest, _Replicated.apply(mesh.group(shared),
+                                            *(cores[k] for k in rest))):
+        cores[k] = c
     desc = decision.describe(rules.axis_sizes, rules.model_axis)
     with shard_execution(desc, (shard_tokens, xs.shape[1])):
         y = planned_tt_linear(lp, xs, cores, local_in, out_modes, ranks)
     y = y.contiguous()
     if decision.model_reduce:
-        y = _collective("all_reduce", y, mesh.group((rules.model_axis,)))
+        y = _SumPartials.apply(y, model_group)
     if decision.axes:
-        y = _collective("all_gather", y, mesh.group(decision.axes))
+        y = _GatherRows.apply(y, index, token_group)
     return y

@@ -41,3 +41,21 @@ def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tree(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def map_indexed(fn: Callable, tree: Any) -> Any:
+    """``fn(i, leaf)`` over the leaves of ``tree``, ``i`` the leaf's place
+    in :func:`leaves`' order; the result keeps ``tree``'s structure."""
+    count = iter(range(len(leaves(tree))))
+
+    def walk(t):
+        if isinstance(t, dict):
+            done = {k: walk(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if is_namedtuple(t):
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return fn(next(count), t)
+
+    return walk(tree)

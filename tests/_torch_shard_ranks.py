@@ -1,5 +1,6 @@
-"""Rank bodies of ``tests/test_torch_shard_exec.py``: the port's sharded
-planned execution on ranks of a ``gloo`` process group, on the CPU.
+"""Rank bodies of ``tests/test_torch_shard_exec.py`` (serving) and
+``tests/test_torch_shard_train.py`` (training): the port's sharded planned
+execution on ranks of a ``gloo`` process group, on the CPU.
 
 :func:`spawn` starts ``world`` Python processes (one per rank, each with a
 time limit) that run :func:`main`; each rank joins the process group,
@@ -113,6 +114,12 @@ def linear_inputs(geometry, seed: int = 0):
     return x, cores
 
 
+def autograd_weights(shape) -> torch.Tensor:
+    """The weights of ``loss = sum(y * w)`` in the autograd case."""
+    return torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tuple(shape)).astype(np.float32))
+
+
 def _rules(reduce: bool):
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.sharding import ShardingRules
@@ -128,8 +135,8 @@ def _rules(reduce: bool):
 
 def body_linear(spec: dict) -> dict:
     """``sharded_tt_linear`` on every geometry and route, its execution
-    records, the collectives, the autograd refusal, and ``launch.serve``'s
-    token agreement check."""
+    records, the collectives, its gradients under autograd, and
+    ``launch.serve``'s token agreement check."""
     import torch.distributed as dist
 
     from repro_torch.launch import serve
@@ -156,13 +163,13 @@ def body_linear(spec: dict) -> dict:
             out.setdefault("collectives", {})[key] = dict(COLLECTIVES)
     x, cores = linear_inputs(GEOMETRIES[0])
     lp = layer_plan("streaming_tt", "OS", GEOMETRIES[0])
-    try:
-        sharded_tt_linear(lp, x.requires_grad_(), cores, *GEOMETRIES[0],
-                          rules=rules,
+    x.requires_grad_(True)
+    for c in cores:
+        c.requires_grad_(True)
+    y = sharded_tt_linear(lp, x, cores, *GEOMETRIES[0], rules=rules,
                           decision=shard_decision(rules, TOKENS, GEOMETRIES[0][0]))
-        out["autograd"] = "ran"
-    except NotImplementedError as e:
-        out["autograd"] = str(e)
+    (y * autograd_weights(y.shape)).sum().backward()
+    out["autograd"] = [x.grad] + [c.grad for c in cores]
     # launch.serve's check that the ranks generated the same tokens
     rank = dist.get_rank()
     ranks = serve.Ranks(rank, dist.get_world_size(), "gloo", False, False)
@@ -211,4 +218,322 @@ def body_serve(spec: dict) -> dict:
     return out
 
 
-BODIES = {"linear": body_linear, "serve": body_serve}
+# ---------------------------------------------------------------------------
+# training bodies
+# ---------------------------------------------------------------------------
+
+PLANS = SRC / "repro_torch" / "plans"
+TRAIN_PLANS = ("tt-lm-smoke.train.json", "tt-lm-smoke.train.tt_gemm.json")
+#: the planned projections the layer bodies train: tt-lm-smoke's mlp.wg
+#: (input modes (16, 8)) and, behind it in the mixed case, mlp.wd ((16, 16))
+TRAIN_LAYER, MIXED_LAYER = "mlp.wg", "mlp.wd"
+#: (label, plan file, forced backend, forced dataflow): K1 (dx on K1, weight
+#: gradients on K3's plain version), K2-K4's plain versions with every
+#: gradient on the same dataflow, and K5's (fused segments forward)
+TRAIN_ROUTES = (("k1", TRAIN_PLANS[0], None, None),
+                ("os", TRAIN_PLANS[0], "tt_gemm", "OS"),
+                ("ws", TRAIN_PLANS[0], "tt_gemm", "WS"),
+                ("is", TRAIN_PLANS[0], "tt_gemm", "IS"),
+                ("k5", TRAIN_PLANS[1], None, None))
+#: token counts of the layer bodies: 8 divide over ``data=2``; 7 do not,
+#: so every rank runs the kernel whole (the decline case; on 4 ranks with
+#: the reduce, the columns still split)
+TRAIN_TOKENS = (8, 7)
+#: (batch, seq) of the model bodies: 32 tokens split; 15 decline
+MODEL_BATCHES = {"split": (2, 16), "decline": (3, 5)}
+
+
+def smoke_specs() -> dict:
+    from repro_torch import dse_cli
+    from repro_torch.configs import get_config
+
+    return {s.name: s for s, _, _ in dse_cli._block_specs(
+        get_config("tt-lm-100m", smoke=True))}
+
+
+def train_layer_plan(plan_module, route, name: str = TRAIN_LAYER):
+    """The route's LayerPlan of ``name`` in ``plan_module`` (the port's or
+    the reference's ``plan`` package: both load the same file)."""
+    import dataclasses
+
+    _, plan_file, backend, dataflow = route
+    lp = plan_module.load_plan(str(PLANS / plan_file)).layer(name)
+    if backend is not None:
+        lp = lp.with_backend(backend)
+    if dataflow is not None:
+        lp = dataclasses.replace(lp, dataflow=dataflow)
+    return lp
+
+
+def train_layer_inputs(name: str, tokens: int, seed: int):
+    """numpy ``x (tokens, d_in)``, the cores and the output weights ``w``
+    of ``loss = sum(y * w)``, made from ``seed``."""
+    spec = smoke_specs()[name]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((tokens, spec.d_in)).astype(np.float32)
+    cores = [(rng.standard_normal(n.dims) * 0.5).astype(np.float32)
+             for n in spec.network(tokens).nodes if n.kind != "input"]
+    w = rng.standard_normal((tokens, spec.d_out)).astype(np.float32)
+    return x, cores, w
+
+
+def _geometry(name: str):
+    spec = smoke_specs()[name]
+    return spec.in_modes, spec.out_modes, spec.tt_ranks
+
+
+def _dispatch(lp, x, cores, geometry, rules):
+    """``nn/linear.py``'s route for a kernel-planned projection: sharded
+    where the rules' decision accepts the tokens, whole where it declines."""
+    from repro_torch.nn import linear
+    from repro_torch.plan import planned_tt_linear, sharded_tt_linear
+    from repro_torch.sharding import use_rules
+
+    with use_rules(rules):
+        sharded = linear._shard_decision(x.shape[0], geometry[0])
+    if sharded is None:
+        return planned_tt_linear(lp, x, cores, *geometry)
+    return sharded_tt_linear(lp, x, cores, *geometry, rules=sharded[0],
+                             decision=sharded[1])
+
+
+def _leaves_grad(tensors):
+    return [t.grad.clone() for t in tensors]
+
+
+def body_train_layers(spec: dict) -> dict:
+    """One planned projection on every route and token count, and a mixed
+    pair (mlp.wg split, mlp.wd on 7 of its rows, declined on 2 ranks):
+    outputs, dx and core gradients of ``sum(y * w)``, the records and the
+    collectives."""
+    from repro_torch import plan as port_plan
+    from repro_torch.plan import execution_log, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+
+    rules = _rules(spec["reduce"])
+    out = {}
+
+    def grads(key, fn, inputs):
+        reset_execution_log()
+        reset_collectives()
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+        loss = fn(*ts)
+        loss.backward()
+        out[key] = {"loss": loss.detach(), "grads": _leaves_grad(ts),
+                    "records": [dict(r) for r in execution_log()],
+                    "collectives": dict(COLLECTIVES),
+                    "bwd_collectives": dict(BWD_COLLECTIVES)}
+
+    geometry = _geometry(TRAIN_LAYER)
+    for route in TRAIN_ROUTES:
+        lp = train_layer_plan(port_plan, route)
+        for tokens in TRAIN_TOKENS:
+            x, cores, w = train_layer_inputs(TRAIN_LAYER, tokens, seed=tokens)
+            grads(f"{route[0]}:{tokens}", lambda x, *cs, w=w, lp=lp: (
+                _dispatch(lp, x, list(cs), geometry, rules)
+                * torch.from_numpy(w)).sum(), [x, *cores])
+    route = TRAIN_ROUTES[0]
+    first = train_layer_plan(port_plan, route, TRAIN_LAYER)
+    second = train_layer_plan(port_plan, route, MIXED_LAYER)
+    x, c1, _ = train_layer_inputs(TRAIN_LAYER, 8, seed=21)
+    _, c2, w = train_layer_inputs(MIXED_LAYER, 7, seed=22)
+    n1 = len(c1)
+
+    def mixed(x, *cs):
+        h = _dispatch(first, x, list(cs[:n1]), geometry, rules)
+        y = _dispatch(second, h[:7], list(cs[n1:]), _geometry(MIXED_LAYER), rules)
+        return (y * torch.from_numpy(w)).sum()
+
+    grads("mixed", mixed, [x, *c1, *c2])
+    return out
+
+
+def _model_batch(cfg, key: str) -> dict:
+    b, s = MODEL_BATCHES[key]
+    rng = np.random.default_rng(3)
+    return {k: rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int64)
+            for k in ("tokens", "labels")}
+
+
+def _model_rules(cfg, key: str, reduce: bool):
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    b, s = MODEL_BATCHES[key]
+    rules = make_rules(cfg, ShapeConfig("t", s, b, "train"), make_test_mesh())
+    return dataclasses.replace(rules, tt_model_reduce=reduce)
+
+
+def body_train_model(spec: dict) -> dict:
+    """tt-lm-smoke's loss and every gradient leaf under each smoke train
+    plan and batch, on the weights saved at ``spec["params"]``; then one
+    ``remat="full"`` step whose backward runs on a thread of its own (where
+    this thread's sharding rules are not installed, as on the card's
+    autograd device thread)."""
+    import dataclasses
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config("tt-lm-100m", smoke=True)
+    out = {}
+
+    def step(cfg, plan_file, key, threaded=False):
+        params = torch.load(spec["params"], weights_only=False)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v) for k, v in _model_batch(cfg, key).items()}
+        reset_execution_log()
+        reset_collectives()
+        with plan_context(load_plan(str(PLANS / plan_file))), \
+                use_rules(_model_rules(cfg, key, spec["reduce"])):
+            loss = api(cfg, device="cpu").train_loss(params, batch)
+            if threaded:
+                t = threading.Thread(target=loss.backward)
+                t.start()
+                t.join(SPAWN_TIMEOUT_S)
+                assert not t.is_alive()
+            else:
+                loss.backward()
+        return {"loss": float(loss), "grads": flat_grads(params),
+                "records": [dict(r) for r in execution_log()],
+                "collectives": dict(COLLECTIVES)}
+
+    for plan_file in TRAIN_PLANS:
+        for key in MODEL_BATCHES:
+            out[f"{plan_file}:{key}"] = step(cfg, plan_file, key)
+    out["remat"] = step(dataclasses.replace(cfg, remat="full"), TRAIN_PLANS[0],
+                        "split", threaded=True)
+    return out
+
+
+def flat_grads(params) -> dict:
+    """``{key path: gradient}`` of a parameter tree (lists by index)."""
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            return {k: v for key in t for k, v in walk(t[key], f"{prefix}/{key}").items()}
+        if isinstance(t, list):
+            return {k: v for i, x in enumerate(t)
+                    for k, v in walk(x, f"{prefix}[{i}]").items()}
+        return {prefix: t.grad.clone()}
+    return walk(params, "")
+
+
+def adamw_tree(seed: int) -> dict:
+    """A parameter tree with leaves ``param_shardings`` splits on every
+    test mesh (a layer list included) and leaves it replicates."""
+    rng = np.random.default_rng(seed)
+    shapes = {"embed": (512, 160), "blocks": [{"w": (256, 384), "b": (384,)},
+                                              {"w": (256, 384), "b": (384,)}],
+              "cube": (8, 16, 8, 72), "norm": (64, 64)}
+
+    def make(s):
+        if isinstance(s, dict):
+            return {k: make(v) for k, v in s.items()}
+        if isinstance(s, list):
+            return [make(v) for v in s]
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return make(shapes)
+
+
+def body_train_adamw(spec: dict) -> dict:
+    """Three AdamW steps with the state split by ``param_shardings`` against
+    the same steps unsplit, on this rank: parameters and the moments'
+    blocks, bit for bit."""
+    from repro_torch.launch.mesh import ParamShards, make_test_mesh
+    from repro_torch.optim import adamw_init, adamw_update, linear_warmup_cosine
+    from repro_torch.tree import leaves
+
+    mesh = make_test_mesh()
+    split, whole = adamw_tree(0), adamw_tree(0)
+    shards = ParamShards(split, mesh)
+    s_opt, w_opt = adamw_init(split, shards), adamw_init(whole)
+    lr = linear_warmup_cosine(1e-2, 2, 10)
+    for k in range(3):
+        grads = adamw_tree(10 + k)
+        split, s_opt = adamw_update(grads, s_opt, split, lr, shards=shards)
+        whole, w_opt = adamw_update(grads, w_opt, whole, lr)
+    return {
+        "params_equal": [torch.equal(a, b) for a, b in zip(leaves(split), leaves(whole))],
+        "moments_equal": [
+            torch.equal(m, shards.block(i, wm)) and torch.equal(v, shards.block(i, wv))
+            for i, (m, v, wm, wv) in enumerate(zip(
+                leaves(s_opt.m), leaves(s_opt.v), leaves(w_opt.m), leaves(w_opt.v)))],
+        "moment_shapes": [tuple(m.shape) for m in leaves(s_opt.m)],
+        "param_shapes": [tuple(p.shape) for p in leaves(whole)],
+        "specs": list(shards.specs), "coords": dict(mesh.coords)}
+
+
+def body_train_cli(spec: dict) -> dict:
+    """``launch.train.run`` on the ranks (the group is already up): each
+    run of ``spec["runs"]``, in order, with rank 0's report."""
+    from repro_torch.launch import train
+
+    out = {}
+    for label, argv in spec["runs"]:
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            run = train.run(argv, tt_model_reduce=spec["reduce"])
+        out[label] = {"code": run.code, "losses": run.losses,
+                      "grad_norms": run.grad_norms, "done": run.done,
+                      "collectives": run.collectives, "stdout": text.getvalue()}
+    return out
+
+
+def smoke_step0(plan_file: str, device, rules=None) -> dict:
+    """tt-lm-smoke's step 0 (seed-0 weights, the split batch) on ``device``
+    under ``plan_file`` and ``rules``: the loss, every gradient leaf (on the
+    CPU), the kernel launches and the planned records' meshes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import api
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config("tt-lm-100m", smoke=True)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in _model_batch(cfg, "split").items()}
+    with plan_context(load_plan(str(PLANS / plan_file))), use_rules(rules):
+        m = api(cfg, device=device)
+        params = m.init_params(0)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        reset_execution_log()
+        launches.reset()
+        loss = m.train_loss(params, batch)
+        loss.backward()
+    return {"loss": loss.item(),
+            "grads": {k: g.cpu() for k, g in flat_grads(params).items()},
+            "launches": launches.snapshot(),
+            "meshes": sorted({r["mesh"] for r in execution_log()
+                              if r["backend"] != "jnp"})}
+
+
+def body_cuda_train(spec: dict) -> dict:
+    """:func:`smoke_step0` on the card the ranks share, under each smoke
+    train plan and the ranks' rules."""
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                          % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+
+    cfg = get_config("tt-lm-100m", smoke=True)
+    return {f: smoke_step0(f, device, _model_rules(cfg, "split", False))
+            for f in TRAIN_PLANS}
+
+
+BODIES = {"linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
+          "train_layers": body_train_layers, "train_model": body_train_model,
+          "train_adamw": body_train_adamw, "train_cli": body_train_cli}

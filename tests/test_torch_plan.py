@@ -78,6 +78,12 @@ EMIT = {
     "tt-lm-100m.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode", "train",
                                       "--tokens", "2048", "--plan-backend",
                                       "tt_gemm"],
+    "tt-lm-100m.shards2.train.json": ["--arch", "tt-lm-100m", "--mode", "train",
+                                      "--tokens", "2048", "--shards", "2"],
+    "tt-lm-100m.shards2.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--mode",
+                                              "train", "--tokens", "2048",
+                                              "--shards", "2", "--plan-backend",
+                                              "tt_gemm"],
     "tt-lm-smoke.train.json": ["--arch", "tt-lm-100m", "--smoke", "--mode",
                                "train", "--top-k", "2", "--tokens", "32"],
     "tt-lm-smoke.train.tt_gemm.json": ["--arch", "tt-lm-100m", "--smoke",

@@ -24,7 +24,8 @@ unsharded ``prefill_full`` on the same weights (``params_from_jax``):
 * tokens that do not divide over the mesh run the planned kernel on the
   whole block on every rank (a record without a mesh), so ``--strict-plan``
   passes and the tokens equal the single-device run's;
-* the sharded route refuses to run under autograd (Queue A item 11b).
+* under autograd the sharded route's gradients equal the single-device
+  route's (``tests/test_torch_shard_train.py`` trains across ranks).
 """
 
 from __future__ import annotations
@@ -46,8 +47,9 @@ from repro.models import api as ref_api
 from repro.nn import install_plan as ref_install_plan
 from repro.plan import load_plan as ref_load_plan
 
-from _torch_shard_ranks import (GEOMETRIES, ROUTES, SRC, TOKENS, layer_plan,
-                                linear_inputs, spawn)
+from _torch_shard_ranks import (GEOMETRIES, ROUTES, SRC, TOKENS,
+                                autograd_weights, layer_plan, linear_inputs,
+                                spawn)
 from repro_torch import dse_cli
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
@@ -174,9 +176,26 @@ def test_model_reduce_within_1e5_of_single_device(four, key):
 
 
 def test_sharded_route_refuses_autograd(two):
+    """Once the refusal of autograd (the sharded backward was not ported);
+    now the parity that replaced it: every rank's dx and core gradients of
+    ``sum(y * w)`` through the sharded K1 route equal the single-device
+    route's at the gradient tolerance, 1e-4 (the CPU plain K1 is not
+    row-independent).  ``tests/test_torch_shard_train.py`` holds the
+    sharded backward to the reference."""
+    x, cores = linear_inputs(GEOMETRIES[0])
+    x.requires_grad_(True)
+    for c in cores:
+        c.requires_grad_(True)
+    with one_thread():
+        y = planned_tt_linear(layer_plan("streaming_tt", "OS", GEOMETRIES[0]),
+                              x, cores, *GEOMETRIES[0])
+        (y * autograd_weights(y.shape)).sum().backward()
+    want = [x.grad] + [c.grad for c in cores]
     for rank in two:
-        msg = rank["linear"]["autograd"]
-        assert "11b" in msg and "ROADMAP.md" in msg, msg
+        got = rank["linear"]["autograd"]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 def test_ranks_check_that_they_generated_the_same_tokens(two):
