@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
 full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b and seamless-m4t-medium
-serving and training, on one NVIDIA card.
+serving and training, on one NVIDIA card; run the dry run of one cell of
+every architecture, hold one dry-run cell against the card, and run the
+examples.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -10,6 +12,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. card: ``nvidia-smi`` name and power limit.
 2. build: ``nvcc`` builds ``src/repro_torch/csrc/*.cu``, one process per
    source, all started together.
+2a. dryrun: (a) the dry run's CLI (``python -m repro_torch.launch.dryrun
+   --arch A --shape S``) for one shape of every arch
+   (:data:`DRYRUN_CELLS`: every step kind and the long-context skip) at
+   full width on the single-pod production mesh (16 x 16), shapes only on
+   ``meta``, with cost, one process per cell, :data:`DRYRUN_WORKERS` at a time
+   (:data:`DRYRUN_TIMEOUT_S`): every cell ``ok``, or ``skipped`` with the
+   reference's reason; the roofline table over the cells (H100 peaks).
+   (b) meanwhile, in this process: full-width tt-lm-100m's train step
+   (seq 256 x batch 8, no plan) traced on ``meta`` against the same step
+   on the card under ``FlopCounterMode``: the FLOPs equal, the predicted
+   peak within 0.5-2x of ``torch.cuda.max_memory_allocated``.  (c)
+   started with (a): ``examples/quickstart_torch.py`` and
+   ``train_tt_lm_torch.py --steps 40`` on the card and the host-only
+   ``dse_explore_torch.py``, each a process with a time limit
+   (:data:`EXAMPLE_TIMEOUT_S`): each exits 0, and the quickstart's planned
+   layer launches a kernel (its last line, the launch counts of its
+   process).
 2b. dse: the port's DSE (``python -m repro_torch.dse`` through
    ``dse_cli.main``, in process, no JAX) emits every committed plan of
    ``src/repro_torch/plans/`` with the argv of :data:`EMIT` into a
@@ -169,8 +188,8 @@ JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
 "serve_tuned": v, "serve_families": f, "train_families": t,
 "serve_encdec": e, "train_encdec": d, "serve_sharded": h,
-"train_sharded": g}`` (``r`` is the part of ``n`` from the rank plan's
-runs; ``h`` the shard phase's serve runs, summed over every rank of both
+"train_sharded": g, "examples": x}`` (``r`` is the part of ``n`` from the
+rank plan's runs; ``x`` the quickstart's launches in its own process; ``h`` the shard phase's serve runs, summed over every rank of both
 spawns; ``g`` the shard-train phase's train runs, summed over every rank
 of its three spawns; ``u`` the tune phase's measurements, ``v`` its
 serving under the measured plans, ``f`` the families' serve runs, ``t``
@@ -188,6 +207,7 @@ package is imported.
 
 from __future__ import annotations
 
+import ast
 import collections
 import json
 import math
@@ -3507,6 +3527,257 @@ def encdec_phase(device) -> tuple[dict, dict, dict, list[str]]:
     return serve_counts, train_counts, rows, notes + more
 
 
+# ---------------------------------------------------------------------------
+# phase 2a: the dry run and the roofline, held against the card
+# ---------------------------------------------------------------------------
+
+#: the dry run's cell held against the card: the train phase's step of
+#: full-width tt-lm-100m, seq 256 x batch 8, no plan, one device
+DRYRUN_CARD_SHAPE = (256, 8)
+#: the sweep's cells: one shape per arch, every step kind and the
+#: long-context skip among them, the longest first.  The whole 10 x 4
+#: sweep (the CLI's ``--arch all --shape all``) took 178.1 s of the run's
+#: 1200 (rwkv6-7b's train and prefill ~100 s each: its WKV runs 16-token
+#: chunks), so the phase runs these ten
+DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("grok-1-314b", "prefill_32k"),
+                ("glm4-9b", "prefill_32k"), ("rwkv6-7b", "long_500k"),
+                ("zamba2-1.2b", "decode_32k"), ("qwen1.5-110b", "decode_32k"),
+                ("phi3-medium-14b", "decode_32k"), ("internvl2-2b", "decode_32k"),
+                ("seamless-m4t-medium", "prefill_32k"), ("chatglm3-6b", "long_500k"))
+#: processes of the sweep at a time, and the seconds it may take
+DRYRUN_WORKERS = 8
+DRYRUN_TIMEOUT_S = 300
+#: the examples run beside the card check, each a subprocess: (script,
+#: arguments); dse_explore_torch.py is host-only
+EXAMPLES = (("quickstart_torch.py", ()),
+            ("dse_explore_torch.py", ()),
+            ("train_tt_lm_torch.py", ("--steps", "40")))
+EXAMPLE_TIMEOUT_S = 300
+
+
+def _start(argv: list[str], out_path: str) -> tuple:
+    """A subprocess of ``python argv`` from the repository root, its
+    output (both streams) to ``out_path``."""
+    out = open(out_path, "w")
+    proc = subprocess.Popen([sys.executable] + argv, cwd=ROOT, stdout=out,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=SRC,
+                                     OMP_NUM_THREADS="1"))
+    return proc, out, out_path
+
+
+def _finish(job: tuple, deadline: float) -> tuple[int, str]:
+    """Wait for a :func:`_start` job until ``deadline`` (killed after it);
+    returns (exit code, its output)."""
+    proc, out, path = job
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    out.close()
+    with open(path) as f:
+        return rc, f.read()
+
+
+def dryrun_vs_card(device, card: str) -> list[str]:
+    """(b) full-width tt-lm-100m's train step (seq 256 x batch 8, no plan)
+    traced on ``meta`` on a one-device mesh, against the same step run on
+    the card under ``FlopCounterMode`` from seed-0 weights and the
+    pipeline's batch: the FLOPs equal, the predicted peak within 0.5-2x
+    of ``torch.cuda.max_memory_allocated`` (less what was allocated before
+    the step's arguments)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, make_rules
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api, input_specs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import install_plan
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config("tt-lm-100m")
+    seq, batch = DRYRUN_CARD_SHAPE
+    shape = ShapeConfig("chip_train", seq, batch, "train")
+    mesh = Mesh({"data": 1, "model": 1}, {"data": 0, "model": 0}, {})
+    install_plan(None)
+    t0 = time.perf_counter()
+    with use_rules(make_rules(cfg, shape, mesh)):
+        pred = dryrun.trace_step(cfg, shape, mesh)
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    params = api(cfg, device=device).init_params(0)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = adamw_init(params)
+    specs = input_specs(cfg, shape)
+    data = {k: torch.from_numpy(v).to(device=device, dtype=specs[k].dtype)
+            for k, v in make_pipeline(cfg.vocab, seq, batch).batch(0).items()}
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = step(params, opt, data)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize(device)
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    card_flops = fc.get_total_flops()
+    del params, opt, data, metrics
+    torch.cuda.empty_cache()
+
+    mem = pred["memory"]
+    ratio = mem["peak_bytes"] / peak
+    if pred["flops"] != card_flops:
+        raise AssertionError(f"dry run FLOPs {pred['flops']:.0f} != the card's "
+                             f"{card_flops} for tt-lm-100m's train step")
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"dry run peak {mem['peak_bytes']} B is {ratio:.3f}x "
+                             f"the card's max_memory_allocated {peak} B")
+    if not math.isfinite(loss):
+        raise AssertionError(f"tt-lm-100m train step on the card: loss {loss}")
+    return [f"tt-lm-100m train step (seq {seq} x batch {batch}, fp32, no plan): "
+            f"meta FLOPs {pred['flops']:.0f} == the card's {card_flops} "
+            f"(FlopCounterMode); predicted peak {mem['peak_bytes']} B "
+            f"({mem['peak_bytes'] / 2**30:.3f} GiB: arguments "
+            f"{mem['argument_bytes']}, temporaries {mem['temp_bytes']}) vs "
+            f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB), ratio "
+            f"{ratio:.4f}; meta trace {trace_s:.1f} s on the host; the step "
+            f"on the card {step_ms:.1f} ms (first step, FlopCounterMode on), "
+            f"loss {loss:.6f}; {card}"]
+
+
+def dryrun_sweep(cells: list, res_dir: str, log_dir: str, deadline: float,
+                 jobs: list, stop) -> dict:
+    """(a) one ``python -m repro_torch.launch.dryrun --arch A --shape S``
+    process per cell, :data:`DRYRUN_WORKERS` at a time, until ``deadline``
+    or ``stop`` is set; every process started is appended to ``jobs``.
+    Returns {(arch, shape): (the cell's JSON result, its CLI line)}."""
+    pending, running, results = list(cells), [], {}
+    while pending or running:
+        if stop.is_set():
+            raise RuntimeError("the dry-run sweep was stopped")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the dry-run sweep passed {DRYRUN_TIMEOUT_S} s "
+                                 f"with {len(pending) + len(running)} cells left")
+        while pending and len(running) < DRYRUN_WORKERS:
+            arch, shape = pending.pop(0)
+            job = _start(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--force", "--out-dir", res_dir],
+                         os.path.join(log_dir, f"{arch}_{shape}.log"))
+            jobs.append(job)
+            running.append((arch, shape, job))
+        done = [c for c in running if c[2][0].poll() is not None]
+        if not done:
+            time.sleep(0.1)
+        for arch, shape, job in done:
+            running.remove((arch, shape, job))
+            rc, text = _finish(job, deadline)
+            if rc != 0:
+                raise AssertionError(f"dry run --arch {arch} --shape {shape} "
+                                     f"exited {rc}:\n{text[-3000:]}")
+            with open(os.path.join(res_dir, f"{arch}_{shape}_pod_tt.json")) as f:
+                results[arch, shape] = json.load(f), text.strip().splitlines()[-1]
+    return results
+
+
+def dryrun_phase(device, card: str) -> tuple[dict, list[str]]:
+    """Phase 2a: (a) the dry run's CLI for the cells of
+    :data:`DRYRUN_CELLS` at full width on the single-pod production mesh
+    (16 x 16), on ``meta``, with cost, one process per cell
+    (:func:`dryrun_sweep`, on a thread): every cell
+    ``ok``, or ``skipped`` with the reference's reason; the roofline table
+    over the cells.  (c) the three examples, subprocesses started with the
+    sweep, each with a time limit: each exits 0 and the quickstart
+    launches a hand-written kernel on the card.  (b) :func:`dryrun_vs_card`
+    in this process meanwhile.  Returns the quickstart's launch counts and
+    the report lines."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models import SHAPES, shape_applicable
+
+    cells = list(DRYRUN_CELLS)
+    if ({a for a, _ in cells} != set(ARCH_IDS) or len(cells) != len(ARCH_IDS)
+            or {SHAPES[s].step for _, s in cells} != {"train", "prefill", "decode"}
+            or "long_500k" not in {s for _, s in cells}):
+        raise AssertionError(f"DRYRUN_CELLS must hold one shape of each of "
+                             f"{ARCH_IDS} and every step kind: {cells}")
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    res_dir = os.path.join(out_dir, "results")
+    start = time.perf_counter()
+    stop, sweep_jobs, jobs = threading.Event(), [], {}
+    pool = ThreadPoolExecutor(1)
+    try:
+        sweep = pool.submit(dryrun_sweep, cells, res_dir, out_dir,
+                            start + DRYRUN_TIMEOUT_S, sweep_jobs, stop)
+        for name, argv in EXAMPLES:
+            if name.startswith("train"):
+                argv += ("--ckpt-dir", os.path.join(out_dir, "ckpt"))
+            jobs[name] = _start([os.path.join("examples", name), *argv],
+                                os.path.join(out_dir, f"{name}.log"))
+        notes = dryrun_vs_card(device, card)
+
+        failed, counts = [], {}
+        for name, job in jobs.items():
+            rc, text = _finish(job, start + EXAMPLE_TIMEOUT_S)
+            if rc != 0:
+                failed.append(f"{name} exited {rc}:\n{text[-3000:]}")
+                continue
+            last = text.strip().splitlines()[-1]
+            notes.append(f"example {name}: exit 0; {last}")
+            if name.startswith("quickstart"):
+                counts = ast.literal_eval(last.split(": ", 1)[1])
+        if failed:
+            raise AssertionError("\n".join(failed))
+
+        results = {}
+        for cell, (r, line) in sweep.result().items():
+            results[cell] = r
+            notes.append(line)
+        sweep_s = time.perf_counter() - start
+    finally:
+        stop.set()
+        pool.shutdown(wait=True)
+        for proc, out, _ in list(jobs.values()) + sweep_jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    rows, statuses = [], collections.Counter()
+    for (arch, shape), r in sorted(results.items()):
+        ok, reason = shape_applicable(get_config(arch), SHAPES[shape])
+        want = ("ok", None) if ok else ("skipped", reason)
+        if (r["status"], r.get("reason")) != want:
+            raise AssertionError(f"dry run {r['cell']}: {r['status']} "
+                                 f"{r.get('reason') or r.get('error')}, want {want}")
+        statuses[r["status"]] += 1
+        if ok:
+            rows.append(roofline.analyze_cell(r))
+    if sum(counts.values()) <= 0:
+        raise AssertionError(f"the quickstart launched no kernel: {counts}")
+    notes.append(f"dry run: {len(cells)} cells (one shape of each arch) at full "
+                 f"width on the 16 x 16 mesh, {dict(statuses)}; the sweep "
+                 f"({DRYRUN_WORKERS} CLI processes at a time) and the "
+                 f"examples {sweep_s:.1f} s wall")
+    notes += ["roofline (H100: 989e12 bf16 FLOP/s, 3.35e12 B/s, 450e9 B/s "
+              "NVLink):"] + roofline.markdown_table(rows).splitlines()
+    return counts, notes
+
+
 def main() -> int:
     global PLANS
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3537,6 +3808,15 @@ def main() -> int:
         for name in _build.SOURCES:
             log(f"  ptxas {name}: " + " | ".join(
                 ptxas_summary((_build.BUILD_DIR / f"{name}.log").read_text())))
+
+        log("--- dryrun: every cell on meta at full width, held against the "
+            "card; the examples on the card")
+        t0 = time.perf_counter()
+        example_counts, notes = dryrun_phase(device, card)
+        for n in notes:
+            log(f"  {n}")
+        log(f"dryrun: {time.perf_counter() - t0:.1f} s; the quickstart's launches "
+            f"{example_counts}")
 
         log("--- dse: the port's DSE emits the plans")
         secs, searches = dse_phase(plan_dir)
@@ -3701,7 +3981,8 @@ def main() -> int:
                       "serve_families": family_counts[k["name"]],
                       "train_families": family_train_counts[k["name"]],
                       "serve_encdec": encdec_serve_counts[k["name"]],
-                      "train_encdec": encdec_train_counts[k["name"]]},
+                      "train_encdec": encdec_train_counts[k["name"]],
+                      "examples": example_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
          "ms": k["ms"], "graph_ms": k["graph_ms"],

@@ -6,10 +6,11 @@ module defining FULL (the exact assigned dims) and SMOKE (a reduced
 same-family variant for CPU tests).  ``get_config(name, tt=...,
 smoke=...)`` is the single entry point; the default is the TT-enabled
 deployment configuration (the paper's technique); ``tt=False`` gives the
-dense baseline.  The DSE plans every architecture; the port's model code
-serves every causal-LM family (dense, moe, hybrid, rwkv, vlm) and trains
-the dense one (``repro_torch.models.api`` names the ROADMAP.md item of
-the rest).
+dense baseline.  The DSE plans every architecture, and the port's model
+code serves and trains every family: the causal LMs (dense, moe, hybrid,
+rwkv, vlm) through ``launch.serve`` and ``launch.train``, the
+encoder-decoder through the step builders of ``launch.steps``
+(``examples/serve_decode_torch.py`` serves it).
 """
 
 from __future__ import annotations

@@ -204,8 +204,11 @@ def attention_apply(
             cache.v[lanes, idx] = v[:, 0].to(cache.v.dtype)
             vmask = (kv_pos[None, :] <= idx[:, None])[:, None, None, None, :]
         else:
-            cache.k[:, idx] = k[:, 0].to(cache.k.dtype)
-            cache.v[:, idx] = v[:, 0].to(cache.v.dtype)
+            # index_copy_, not ``cache.k[:, idx] =``: a 0-d tensor index is
+            # read on the host, which a meta tensor (the dry run) cannot do
+            at = idx.reshape(1).long()
+            cache.k.index_copy_(1, at, k.to(cache.k.dtype))
+            cache.v.index_copy_(1, at, v.to(cache.v.dtype))
             vmask = (kv_pos <= idx)[None, None, None, None, :]
         hkv = spec.n_kv_heads
         g = spec.n_heads // hkv

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.tensor_network import factorize
-from .linear import TTConfig
+from .linear import TTConfig, shape_only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +58,8 @@ class EmbeddingSpec:
 def embedding_init(spec: EmbeddingSpec, generator: torch.Generator,
                    dtype: torch.dtype = torch.float32, device="cuda") -> dict:
     def normal(shape, std):
+        if shape_only(device):
+            return torch.empty(shape, dtype=dtype, device="meta")
         t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
         return t.to(dtype=dtype, device=device)
 

@@ -146,6 +146,14 @@ class LinearSpec:
             ranks.append(min(self.tt.rank, left, right))
         return tuple(ranks)
 
+    def n_params(self) -> int:
+        if not self.tensorized:
+            return self.d_in * self.d_out + (self.d_out if self.bias else 0)
+        modes = self.out_modes + self.in_modes
+        ranks = (1,) + self.tt_ranks + (1,)
+        total = sum(ranks[k] * modes[k] * ranks[k + 1] for k in range(len(modes)))
+        return total + (self.d_out if self.bias else 0)
+
     def network(self, batch: int) -> TensorNetwork:
         return tt_linear_network(batch, self.in_modes, self.out_modes, self.tt_ranks)
 
@@ -292,15 +300,24 @@ def capture_activation_rms() -> Iterator[dict[str, float]]:
 # init / apply
 # ---------------------------------------------------------------------------
 
+def shape_only(device) -> bool:
+    """True on the ``meta`` device, where an init makes empty tensors of
+    the parameters' shapes and dtypes and draws nothing (the dry run's
+    ``jax.eval_shape``)."""
+    return torch.device(device).type == "meta"
+
+
 def linear_init(spec: LinearSpec, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
                 device="cuda") -> dict:
     """Parameters with the reference's shapes and standard deviations.
 
     Drawn on the CPU from ``generator`` (one seed gives the same weights on
-    every device), then moved to ``device``.
+    every device), then moved to ``device``; on ``meta``, shapes only.
     """
     def normal(shape, std):
+        if shape_only(device):
+            return torch.empty(shape, dtype=dtype, device="meta")
         t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
         return t.to(dtype=dtype, device=device)
 

@@ -28,7 +28,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .linear import LinearSpec, TTConfig, linear_apply, linear_init, planned_layer
+from .linear import (
+    LinearSpec,
+    TTConfig,
+    linear_apply,
+    linear_init,
+    planned_layer,
+    shape_only,
+)
 from .mlp import MLPSpec, mlp_apply, mlp_init
 
 
@@ -70,7 +77,11 @@ def moe_init(spec: MoESpec, generator: torch.Generator,
              dtype: torch.dtype = torch.float32, device="cuda") -> dict:
     """The router (always fp32), each expert projection stacked on a
     leading expert axis, and the merged shared FFN."""
-    router = torch.randn((spec.d_model, spec.n_experts), generator=generator) * 0.02
+    if shape_only(device):
+        router = torch.empty((spec.d_model, spec.n_experts), device="meta")
+    else:
+        router = torch.randn((spec.d_model, spec.n_experts),
+                             generator=generator) * 0.02
     params: dict = {"router": router.to(device)}
     specs = [("eu", spec.expert_up), ("ed", spec.expert_down)]
     if spec.kind == "swiglu":
@@ -159,10 +170,19 @@ def moe_apply(spec: MoESpec, params: dict,
     keep = slot < cap
 
     # dispatch: kept pair (gi, t, k) -> expert_in[gi, idx, slot] = x[gi, t]
-    gi, ti, ki = torch.nonzero(keep, as_tuple=True)
+    if x.device.type == "meta":
+        # shapes only (the dry run): which pairs are kept is data, so every
+        # pair is dispatched and every expert runs at full capacity, the
+        # work the reference's one-hot einsum does
+        gi, ti, ki = (t.reshape(-1) for t in torch.meshgrid(
+            *(torch.arange(n, device=x.device) for n in (n_groups, g, K)),
+            indexing="ij"))
+        active = list(range(E))
+    else:
+        gi, ti, ki = torch.nonzero(keep, as_tuple=True)
+        active = torch.unique(idx[gi, ti, ki]).tolist()
     expert_in = xg.new_zeros((n_groups, E, cap, d))
     expert_in[gi, idx[gi, ti, ki], slot[gi, ti, ki]] = xg[gi, ti]
-    active = torch.unique(idx[gi, ti, ki]).tolist()
 
     ein = expert_in.transpose(0, 1).reshape(E, -1, d)       # (E, G*C, D)
     eout = _experts_ffn(spec, params, ein, active)

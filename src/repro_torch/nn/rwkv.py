@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .linear import LinearSpec, TTConfig, linear_apply, linear_init
+from .linear import LinearSpec, TTConfig, linear_apply, linear_init, shape_only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +71,8 @@ def rwkv_init(spec: RWKVSpec, generator: torch.Generator,
     h, n = spec.n_heads, spec.head_dim
 
     def rand(shape, scale, shift=0.0, uniform=False):
+        if shape_only(device):
+            return torch.empty(shape, dtype=dtype, device="meta")
         t = (torch.rand(shape, generator=generator) if uniform
              else torch.randn(shape, generator=generator))
         return (t * scale + shift).to(dtype=dtype, device=device)
@@ -91,7 +93,8 @@ def rwkv_init(spec: RWKVSpec, generator: torch.Generator,
         "wo": lin(spec.proj("wo")),
         "decay_base": torch.full((d,), -6.0, dtype=torch.float32, device=device),
         "decay_lora": lora(d),
-        "bonus": (torch.randn((h, n), generator=generator) * 0.05).to(device),
+        "bonus": (torch.empty((h, n), device="meta") if shape_only(device) else
+                  (torch.randn((h, n), generator=generator) * 0.05).to(device)),
         "ln_x_scale": torch.ones((d,), dtype=dtype, device=device),
         # channel mix
         "cm_mix": rand((2, d), 0.5, 0.25, uniform=True),

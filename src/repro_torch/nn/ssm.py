@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .linear import LinearSpec, TTConfig, linear_apply, linear_init
+from .linear import LinearSpec, TTConfig, linear_apply, linear_init, shape_only
 from .norms import rmsnorm, rmsnorm_init
 
 
@@ -72,7 +72,9 @@ def ssm_init(spec: SSMSpec, generator: torch.Generator,
     # A in [1, 16), log-spaced (the mamba2 default)
     a_init = torch.log(1.0 + torch.arange(h, dtype=torch.float32) * 15.0
                        / max(h - 1, 1))
-    conv_w = torch.randn((spec.d_conv, spec.conv_channels), generator=generator) * 0.1
+    conv_w = (torch.empty((spec.d_conv, spec.conv_channels), device="meta")
+              if shape_only(device) else
+              torch.randn((spec.d_conv, spec.conv_channels), generator=generator) * 0.1)
     return {
         "win": linear_init(spec.in_spec, generator, dtype, device),
         "wout": linear_init(spec.out_spec, generator, dtype, device),
