@@ -26,17 +26,25 @@ they count the shared attention once where the model applies it
 ``n_layers // attn_every`` times, which the full-depth count does not.
 
 The layout is the port's (``repro_torch.sharding``): every rank holds the
-whole parameters and the whole batch and computes the whole step
-(activations are replicated); the AdamW moments of each leaf that
-``launch/mesh.py::param_shardings`` splits hold only the rank's block.  No
-plan is installed, as in the reference's cells, so no planned TT
-projection splits its tokens and no ``plan/sharded.py`` collective runs:
-prefill and decode steps move 0 bytes between ranks.  A train step
-all-gathers every split leaf back whole after its AdamW update
-(``optim/adamw.py`` through ``ParamShards.gather``), counted at the
-gathered (output) shape's bytes, as the reference counts.  The reference's
-``collective_bytes`` parses XLA HLO text, which the port never produces,
-and has no counterpart.
+whole parameters; where the cell's global batch divides the batch axes
+(``launch/mesh.py::batch_layout``), a rank's step is traced at its block
+of the batch, the block ``batch_shardings`` and ``cache_shardings`` give
+its inputs and caches, as the reference's partitioned step runs it, and
+where it does not, at the whole batch (replicated).  Heads, d_ff and
+experts are not split over the model axis yet: every rank of a model
+group computes the whole of its block.  The AdamW moments of each leaf
+that ``param_shardings`` splits hold only the rank's block.  No plan is
+installed, as in the reference's cells, so no planned TT projection runs.
+The collectives are the port's, counted at their bytes through
+``plan/sharded.py::collective`` on the shape-only mesh: a train step
+sums its gradients over the batch axes (one all-reduce a dtype, the
+gradients' bytes) and its loss (4 bytes); an MoE layer sums its router
+statistics, or gathers its input where a router group straddles ranks;
+a train step also all-gathers every split leaf back whole after its
+AdamW update (``optim/adamw.py`` through ``ParamShards.gather``), counted
+at the gathered (output) shape's bytes, as the reference counts.  The
+reference's ``collective_bytes`` parses XLA HLO text, which the port
+never produces, and has no counterpart.
 
 The mesh has no ranks: a shape-only :class:`~repro_torch.launch.mesh.Mesh`
 of the production shape (16 x 16, or 2 x 16 x 16 with ``--multi-pod``),
@@ -70,8 +78,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.mesh import (
+    BatchBlocks,
     Mesh,
     ParamShards,
+    batch_layout,
+    batch_shardings,
+    cache_shardings,
     make_rules,
     small_mesh_shape,
 )
@@ -79,8 +91,9 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_t
 from repro_torch.models import SHAPES, api, input_specs, shape_applicable
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw_init
-from repro_torch.sharding import use_rules
-from repro_torch.tree import leaves
+from repro_torch.plan import sharded
+from repro_torch.sharding import get_rules, use_rules
+from repro_torch.tree import leaves, map_tree
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun")
@@ -201,10 +214,11 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
 
     Returns ``{"flops", "bytes", "memory": {...}, "collectives": {...}}``
     per rank: FLOPs and op bytes of the whole step, the reference's memory
-    keys and its collective kinds plus ``total``.
+    keys and its collective kinds plus ``total``.  Under the installed
+    rules' ``batch_split`` the inputs and caches are the rank's block.
     """
     m = api(cfg, device="meta")
-    specs = input_specs(cfg, shape)
+    specs = _rank_block(cfg, input_specs(cfg, shape))
     params = m.init_params(0)
     shards = None
     if shape.step == "train":
@@ -223,6 +237,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
     else:
         raise ValueError(shape.step)
 
+    sharded.reset_collectives()
     counter = StepCounter()
     for t in tree_flatten(args)[0]:
         if isinstance(t, torch.Tensor):
@@ -235,7 +250,10 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
     in_args = _storage_sizes(args)
     out_bytes = sum(n for k, n in _storage_sizes(out).items() if k not in in_args)
     coll = {k: 0.0 for k in _COLLECTIVES}
-    coll["all-gather"] = float(shards.gathered if shards is not None else 0)
+    moved = sharded.COLLECTIVE_BYTES
+    coll["all-gather"] = float((shards.gathered if shards is not None else 0)
+                               + moved["all_gather"])
+    coll["all-reduce"] = float(moved["all_reduce"] + moved["grad_all_reduce"])
     coll["total"] = sum(coll[k] for k in _COLLECTIVES)
     return {
         "flops": float(flops.get_total_flops()),
@@ -252,6 +270,22 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
         },
         "collectives": coll,
     }
+
+
+def _rank_block(cfg: ModelConfig, specs: dict) -> dict:
+    """This rank's block of a cell's input specs under the installed rules'
+    ``batch_split`` (``batch_shardings`` of the inputs, ``cache_shardings``
+    of the caches), each a meta tensor of its own; else ``specs``."""
+    rules = get_rules()
+    if rules is None or not rules.batch_split:
+        return specs
+    specs = dict(specs)
+    caches = specs.pop("caches", None)
+    out = BatchBlocks(batch_shardings(specs, rules), rules).block(specs)
+    if caches is not None:
+        out["caches"] = BatchBlocks(cache_shardings(cfg, caches, rules),
+                                    rules).block(caches)
+    return map_tree(lambda t: t.clone(), out)
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +384,7 @@ def run_cell(
         return result
 
     mesh = shape_mesh(multi_pod=multi_pod, test_mesh=test_mesh)
-    rules = make_rules(cfg, shape, mesh)
+    rules = batch_layout(make_rules(cfg, shape, mesh), shape.global_batch)
     result["mesh"] = {k: int(v) for k, v in mesh.shape.items()}
     result["n_devices"] = int(math.prod(mesh.shape.values()))
     result["sp_enabled"] = rules.seq_axis is not None

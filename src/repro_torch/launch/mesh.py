@@ -19,12 +19,19 @@ importing this module touches no process group.
 ``param_shardings`` is the reference's FSDP/TP heuristic, one spec per
 leaf as a tuple of entries (an axis name or None per dim, ``()`` for a
 replicated leaf), the reference's ``PartitionSpec``.  Every rank computes
-with whole parameters (activations are replicated); what the specs split
-is the AdamW state: :class:`ParamShards` gives each rank its block of
-every split leaf and gathers an updated block back whole
-(:mod:`repro_torch.optim.adamw`).  The reference's ``cache_shardings``,
-``batch_shardings`` and ``replicated`` feed only its XLA dry run
-(``launch/dryrun.py``) and are not ported.
+with whole parameters; what the specs split is the AdamW state:
+:class:`ParamShards` gives each rank its block of every split leaf and
+gathers an updated block back whole (:mod:`repro_torch.optim.adamw`).
+
+``batch_shardings``, ``cache_shardings`` and ``replicated`` are the
+reference's specs of a step's inputs and decode caches, in the same form.
+The launchers (``launch/serve.py``, ``launch/train.py``) apply their
+batch-axis entries: where the batch axes divide a step's global batch
+(:func:`batch_layout`), :class:`BatchBlocks` hands each rank its block of
+the inputs (and each decode lane block its caches), and the rank computes
+the whole model on it (:mod:`repro_torch.sharding`).  Their model-axis entries (heads, channels,
+the SP sequence split of a cache) are kept for parity with the reference
+and not applied yet: along the model axis every rank holds the whole dim.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.sharding import ShardingRules, SpecEntry
+from repro_torch.sharding import ShapeGroup, ShardingRules, SpecEntry
 from repro_torch.tree import leaves, map_tree
 
 
@@ -63,7 +70,12 @@ class Mesh:
         return idx
 
     def group(self, axes: tuple[str, ...]) -> Any:
-        return self.groups[tuple(a for a in self.shape if a in axes)]
+        """The process group of ``axes``; on a mesh without ranks (no
+        groups: the dry run's) a :class:`~repro_torch.sharding.ShapeGroup`."""
+        key = tuple(a for a in self.shape if a in axes)
+        if not self.groups and math.prod(self.shape.values()) > 1:
+            return ShapeGroup(math.prod(self.shape[a] for a in key))
+        return self.groups[key]
 
 
 def _world() -> tuple[int, int]:
@@ -255,3 +267,164 @@ class ParamShards:
             coords = dict(zip(axes, (int(c) for c in np.unravel_index(g, sizes))))
             whole[self._index(i, coords)] = part
         return whole
+
+
+# ---------------------------------------------------------------------------
+# input and cache shardings
+# ---------------------------------------------------------------------------
+
+def _cache_pspec(path: str, shape: tuple[int, ...], cfg: ModelConfig,
+                 rules: ShardingRules) -> tuple[SpecEntry, ...]:
+    """The reference's spec of one decode-cache leaf, by leaf name, in its
+    stacked form ``shape = (L, B, ...)``.
+
+    KV-style (L, B, S, H, D): batch -> DP; heads -> model when divisible,
+    else sequence -> model (SP cache).  State-style: batch -> DP, the
+    channel/head dim -> model when divisible.
+    """
+    ax = rules.axis_sizes
+    tp = ax.get("model", 1)
+    dp = math.prod(ax.get(a, 1) for a in rules.batch_axes)
+    name = path.rsplit("/", 1)[-1].rsplit(".", 1)[-1]
+
+    def batch_spec(b):
+        return _entry(rules.batch_axes) if (dp > 1 and b % dp == 0) else None
+
+    if name in ("k", "v", "cross_k", "cross_v") and len(shape) == 5:
+        L, b, s, h, d = shape
+        bspec = batch_spec(b)
+        if tp > 1 and h % tp == 0:
+            return (None, bspec, None, "model", None)
+        # seq-shard only when the policy enabled SP (cache too big for
+        # batch sharding); otherwise replicate heads: collective-free
+        if rules.seq_axis and tp > 1 and s % tp == 0:
+            return (None, bspec, "model", None, None)
+        return (None, bspec, None, None, None)
+    if name == "conv" and len(shape) == 4:
+        L, b, k, c = shape
+        return (None, batch_spec(b), None,
+                "model" if (tp > 1 and c % tp == 0) else None)
+    if name in ("ssm", "wkv") and len(shape) == 5:
+        L, b, h = shape[:3]
+        return (None, batch_spec(b),
+                "model" if (tp > 1 and h % tp == 0) else None, None, None)
+    if name.startswith("shift") and len(shape) == 3:
+        L, b, d = shape
+        return (None, batch_spec(b),
+                "model" if (tp > 1 and d % tp == 0) else None)
+    # fallback: batch dim at index 1 if it matches, else replicate
+    if len(shape) >= 2:
+        return (None, batch_spec(shape[1]), *([None] * (len(shape) - 2)))
+    return ()
+
+
+def _entry(axes: tuple[str, ...]) -> SpecEntry:
+    """A spec entry of ``axes``, as ``PartitionSpec`` keeps it: one axis
+    by its name, several as a tuple."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _map_named(fn, tree, name: str = ""):
+    """``fn(name, leaf)`` over a cache or input tree (dicts, lists, named
+    tuples of tensors), ``name`` the nearest dict key or field name above
+    the leaf (a list index keeps its parent's)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(name, tree)
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, str(k)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_named(fn, v, f)
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    return tree
+
+
+def cache_shardings(cfg: ModelConfig, caches: Any, rules: ShardingRules) -> Any:
+    """Specs of the port's decode caches (per-layer leaves, batch first):
+    the reference's :func:`_cache_pspec` of the stacked leaf, less its
+    layer entry."""
+    return _map_named(lambda name, t: _cache_pspec(
+        name, (1,) + tuple(t.shape), cfg, rules)[1:], caches)
+
+
+def batch_shardings(batch: Any, rules: ShardingRules) -> Any:
+    """Input batches: leading dim -> the DP axes (when divisible), the rest
+    replicated."""
+    dp = rules.dp
+
+    def one(name, leaf):
+        if leaf.dim() >= 1 and dp > 1 and leaf.shape[0] % dp == 0:
+            return (_entry(rules.batch_axes), *([None] * (leaf.dim() - 1)))
+        return ()
+
+    return _map_named(one, batch)
+
+
+def replicated(tree: Any, mesh: Mesh) -> Any:
+    return _map_named(lambda name, t: (), tree)
+
+
+def batch_layout(rules: ShardingRules, batch: int) -> ShardingRules:
+    """``rules`` for a step of global batch ``batch``: with
+    :attr:`~repro_torch.sharding.ShardingRules.batch_split` set when the
+    batch axes divide it (each rank then holds its block of the batch),
+    as they are when they do not (the batch stays replicated)."""
+    dp = rules.dp
+    if rules.mesh is None or dp <= 1 or batch % dp:
+        return dataclasses.replace(rules, batch_split=False)
+    return dataclasses.replace(rules, batch_split=True)
+
+
+def describe_layout(rules: ShardingRules, batch: int, what: str) -> str:
+    """The report's words for a step's layout, e.g. ``batch split over
+    data=2: 4 of 8 sequences a rank`` or ``replicated: batch 1 does not
+    divide data=2``."""
+    axes = " x ".join(f"{a}={rules.axis_sizes[a]}" for a in rules.batch_axes
+                      if rules.axis_sizes.get(a, 1) > 1)
+    if rules.batch_split:
+        return (f"batch split over {axes}: {batch // rules.dp} of {batch} "
+                f"{what} a rank")
+    return f"replicated: batch {batch} does not divide {axes}"
+
+
+class BatchBlocks:
+    """A rank's block of an input or cache tree along the batch-axis entries
+    of ``specs`` (:func:`batch_shardings`, :func:`cache_shardings`), and the
+    whole tree back from every rank's block.  Model-axis entries are not
+    applied: along them every rank holds the whole dim."""
+
+    def __init__(self, specs: Any, rules: ShardingRules):
+        self.rules = rules
+        self.mesh = rules.mesh
+        self.specs = specs
+
+    def _dims(self, spec) -> list[tuple[int, tuple[str, ...]]]:
+        out = []
+        for d, e in enumerate(spec):
+            axes = e if isinstance(e, tuple) else (e,) if e else ()
+            if axes and all(a in self.rules.batch_axes for a in axes):
+                out.append((d, tuple(a for a in self.mesh.shape if a in axes)))
+        return out
+
+    def block(self, tree: Any) -> Any:
+        """This rank's block of every leaf of ``tree`` (the whole tree)."""
+        def one(t, spec):
+            for d, axes in self._dims(spec):
+                n = math.prod(self.mesh.shape[a] for a in axes)
+                size = t.shape[d] // n
+                t = t.narrow(d, self.mesh.index(axes) * size, size)
+            return t
+
+        return map_tree(one, tree, self.specs)
+
+    def gather(self, tree: Any) -> Any:
+        """The whole tree from every rank's block of it (``tree``)."""
+        from repro_torch.plan.sharded import collective
+
+        def one(t, spec):
+            for d, axes in self._dims(spec):
+                t = collective("all_gather", t, self.mesh.group(axes), dim=d)
+            return t
+
+        return map_tree(one, tree, self.specs)

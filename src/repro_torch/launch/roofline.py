@@ -11,10 +11,12 @@ shape):
 The dry run's figures are per rank, so dividing by one card's peaks is the
 "global / (cards x peak)" roofline.  Also reports MODEL_FLOPS = 6*N*D
 (dense) or 6*N_active*D (MoE) and the useful-compute ratio
-MODEL_FLOPS / counted FLOPs.  Under the port's layout every rank computes
-the whole step (activations are replicated, ``launch/dryrun.py``), so the
-counted FLOPs per rank are the whole step's and the ratio falls with the
-ranks.
+MODEL_FLOPS / counted FLOPs.  Under the port's layout a rank computes its
+block of the batch where the batch axes divide it, and the whole of that
+block on every rank of a model group (heads, d_ff and experts are not
+split over the model axis, ``launch/dryrun.py``), so the counted FLOPs
+per rank are the whole step's over the data-parallel degree and the
+ratio falls with the model axis's size.
 
   python -m repro_torch.launch.roofline --results results/dryrun
 """

@@ -11,10 +11,14 @@ kernel backend for every planned layer.
 
 Across ranks: under ``torchrun --nproc-per-node N`` (``WORLD_SIZE > 1``),
 or in a process whose ``torch.distributed`` group is already up, every
-rank serves the same requests under the sharding rules of
-``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`), and each planned
-TT projection splits its tokens over the ranks
-(:mod:`repro_torch.plan.sharded`).  A rank's card is
+rank runs the same scheduler on the same requests under the sharding
+rules of ``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`).  Where
+the batch axes divide ``--batch`` (the decode width), a rank holds and
+decodes only its block of the lanes and the logits of every lane are
+gathered (``serve/engine.py``); the batch-1 prefill stays replicated, as
+in the reference, and each planned TT projection splits its tokens over
+the ranks (:mod:`repro_torch.plan.sharded`).  The report names each
+phase's layout.  A rank's card is
 ``cuda:{local_rank % device_count}``; the backend is ``nccl`` when every
 rank has a card of its own and ``gloo`` when ranks share one (NCCL refuses
 two ranks on one card) or run on the CPU.  Rank 0 prints the report; every
@@ -47,7 +51,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import launches
-from repro_torch.launch.mesh import make_rules, make_test_mesh
+from repro_torch.launch.mesh import (batch_layout, describe_layout,
+                                     make_rules, make_test_mesh)
 from repro_torch.launch.ranks import Ranks, join_ranks, ranks_agree
 from repro_torch.models import api
 from repro_torch.models.config import ShapeConfig
@@ -221,6 +226,12 @@ def _serve(args, ap, device, ranks: Ranks, tt_model_reduce: bool) -> ServeRun:
     if tt_model_reduce:
         rules = dataclasses.replace(rules, tt_model_reduce=True)
 
+    if ranks.world > 1:
+        print("layout: prefill "
+              + describe_layout(batch_layout(rules, 1), 1, "prompts")
+              + "; decode "
+              + describe_layout(batch_layout(rules, args.batch), args.batch,
+                                "lanes"))
     reset_execution_log()
     t0 = time.perf_counter()
     with use_rules(rules):

@@ -21,18 +21,24 @@ backends of the execution log, and the fused chain runs.
 
 Across ranks: under ``torchrun --nproc-per-node N`` (``WORLD_SIZE > 1``),
 or in a process whose ``torch.distributed`` group is already up, every
-rank trains on the same batches under the sharding rules of
-``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`), as the reference
-does (``src/repro/launch/train.py:63-65,87``): each planned TT projection
+rank makes the same global batches from ``--seed`` under the sharding
+rules of ``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`).  Where the
+batch axes divide ``--batch``, each rank takes its block of every batch
+(``batch_shardings``) and computes the whole model on it, as the
+reference's partitioned step does (``src/repro/launch/train.py:63-65,87``):
+its loss is its share of the global mean, and the step sums every
+gradient over the batch axes before the clip (``launch/steps.py``).  Where
+they do not, the batch stays replicated and each planned TT projection
 splits its tokens over the ranks, forward and backward
-(:mod:`repro_torch.plan.sharded`), and each rank keeps the AdamW moments
-of its block of every leaf ``param_shardings`` splits.  Ranks join as in
-``launch.serve`` (:func:`repro_torch.launch.ranks.join_ranks`).  Rank 0
-writes the checkpoints (:class:`repro_torch.checkpoint.RankCheckpointManager`)
-and prints the report, with the reference's ``sharded planned execution:
-mesh ...`` line; every rank checks that all ranks reached the same losses
-and parameters (exit 5 if not).  ``run(..., tt_model_reduce=True)`` turns
-on the row-parallel reduction, a library switch as in the reference (no
+(:mod:`repro_torch.plan.sharded`).  The report names the layout.  Each
+rank keeps the AdamW moments of its block of every leaf
+``param_shardings`` splits.  Ranks join as in ``launch.serve``
+(:func:`repro_torch.launch.ranks.join_ranks`).  Rank 0 writes the
+checkpoints (:class:`repro_torch.checkpoint.RankCheckpointManager`) and
+prints the report, with the reference's ``sharded planned execution: mesh
+...`` line; every rank checks that all ranks reached the same losses and
+parameters (exit 5 if not).  ``run(..., tt_model_reduce=True)`` turns on
+the row-parallel reduction, a library switch as in the reference (no
 flag).
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
@@ -56,7 +62,15 @@ from repro_torch.checkpoint import CheckpointManager, RankCheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import make_pipeline
 from repro_torch.kernels import launches
-from repro_torch.launch.mesh import ParamShards, make_rules, make_test_mesh
+from repro_torch.launch.mesh import (
+    BatchBlocks,
+    ParamShards,
+    batch_layout,
+    batch_shardings,
+    describe_layout,
+    make_rules,
+    make_test_mesh,
+)
 from repro_torch.launch.ranks import Ranks, join_ranks, ranks_agree
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api
@@ -245,6 +259,9 @@ def _train(args, device, ranks: Ranks, tt_model_reduce: bool) -> TrainRun:
                        make_test_mesh())
     if tt_model_reduce:
         rules = dataclasses.replace(rules, tt_model_reduce=True)
+    rules = batch_layout(rules, args.batch)
+    if ranks.world > 1:
+        print("layout: " + describe_layout(rules, args.batch, "sequences"))
     with use_rules(rules):
         return _loop(args, cfg, device, ranks, rules)
 
@@ -279,8 +296,11 @@ def _loop(args, cfg, device, ranks: Ranks, rules) -> TrainRun:
     t_start = time.time()
 
     def one_step(state, step):
-        batch = {k: torch.from_numpy(v).long().to(device)
+        batch = {k: torch.from_numpy(v).long()
                  for k, v in pipe.batch(step).items()}
+        if rules.batch_split:
+            batch = BatchBlocks(batch_shardings(batch, rules), rules).block(batch)
+        batch = {k: v.to(device) for k, v in batch.items()}
         before = launches.snapshot()
         coll = dict(COLLECTIVES), dict(BWD_COLLECTIVES)
         t0 = time.perf_counter()

@@ -49,6 +49,7 @@ from .config import ModelConfig
 from .lm import (
     _dtype,
     _remat,
+    batch_share,
     chunked_cross_entropy,
     cross_entropy,
     embed_spec,
@@ -223,17 +224,19 @@ def _stacked_memory_kv(cfg: ModelConfig, params: dict, memory: torch.Tensor):
 def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Next-token loss of ``batch = {"tokens", "labels", "frontend"}``
     (tokens and labels (B, S), frames (B, S_enc, D)), chunked when
-    ``cfg.loss_chunk`` is set.  The cross K/V stay in the projections'
-    dtype, as in the reference."""
+    ``cfg.loss_chunk`` is set (the rank's share under ``batch_split``:
+    ``lm.batch_share``).  The cross K/V stay in the projections' dtype, as
+    in the reference."""
     memory = encode(cfg, params, batch["frontend"])
     mem_kv = _stacked_memory_kv(cfg, params, memory)
     if cfg.loss_chunk:
         hidden, _ = _decoder(cfg, params, batch["tokens"], mem_kv, None, None,
                              return_hidden=True)
-        return chunked_cross_entropy(lambda h: _head(cfg, params, h), hidden,
-                                     batch["labels"], cfg.loss_chunk)
+        return batch_share(chunked_cross_entropy(
+            lambda h: _head(cfg, params, h), hidden, batch["labels"],
+            cfg.loss_chunk))
     logits, _ = _decoder(cfg, params, batch["tokens"], mem_kv, None, None)
-    return cross_entropy(logits, batch["labels"])
+    return batch_share(cross_entropy(logits, batch["labels"]))
 
 
 def _self_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device) -> list:

@@ -302,20 +302,34 @@ def chunked_cross_entropy(head_fn, hidden: torch.Tensor, labels: torch.Tensor,
     return total / (b * s)
 
 
+def batch_share(loss: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a loss over the global batch: under the
+    installed rules' ``batch_split`` the rank's own mean over its block,
+    divided by the number of blocks (they are equal, the batch divides),
+    so the shares of the ranks sum to the global mean; else the loss."""
+    rules = get_rules()
+    dp = rules.split_dp if rules is not None else 1
+    return loss / dp if dp > 1 else loss
+
+
 def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Next-token loss of ``batch = {"tokens", "labels"[, "frontend"]}``
     (tokens and labels (B, S); a VLM's ``frontend`` prefix (B, P, D)):
     the cross-entropy, chunked when ``cfg.loss_chunk`` is set, plus
-    ``cfg.aux_loss_weight`` times the auxiliary (MoE load-balance) loss."""
+    ``cfg.aux_loss_weight`` times the auxiliary (MoE load-balance) loss.
+    Under ``batch_split`` the rank's share (:func:`batch_share`): the
+    batch is its block, and the aux loss, computed from global statistics
+    (``nn/moe.py``), is the same on every rank."""
     if cfg.loss_chunk:
         hidden, _, aux = forward(cfg, params, batch["tokens"],
                                  frontend=batch.get("frontend"), return_hidden=True)
         ce = chunked_cross_entropy(lambda h: apply_head(cfg, params, h), hidden,
                                    batch["labels"], cfg.loss_chunk)
-        return ce + cfg.aux_loss_weight * aux
+        return batch_share(ce + cfg.aux_loss_weight * aux)
     logits, _, aux = forward(cfg, params, batch["tokens"],
                              frontend=batch.get("frontend"))
-    return cross_entropy(logits, batch["labels"]) + cfg.aux_loss_weight * aux
+    return batch_share(cross_entropy(logits, batch["labels"])
+                       + cfg.aux_loss_weight * aux)
 
 
 def count_params(params) -> int:

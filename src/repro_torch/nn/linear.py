@@ -14,10 +14,12 @@ executor uses native autograd.
 Across ranks (``repro_torch.sharding`` rules with an axis over 1
 installed), a kernel-planned projection routes through
 :mod:`repro_torch.plan.sharded` whenever :func:`shard_decision` accepts
-it: each rank runs the plan's kernel on its token block, collectives
-rebuild the output.  Where it declines (tokens that do not divide), every
-rank runs the plan's kernel on the whole block, which it holds already,
-and the record carries no mesh.  (The reference falls back to the plain
+it: under the rules' ``batch_split`` each rank runs the plan's kernel on
+the rows it holds, its block of the batch, with no collective over the
+batch axes; on a replicated batch each rank runs it on its token block
+and collectives rebuild the output.  Where it declines (a replicated
+batch whose tokens do not divide), every rank runs the plan's kernel on
+the whole block, which it holds already, and the record carries no mesh.  (The reference falls back to the plain
 executor there, because a global array cannot feed its per-device
 kernel; here every rank has the whole activations.)  The reference's
 layout constraints on TT intermediates (``_constrain_tokens``) change no
@@ -160,8 +162,9 @@ class LinearSpec:
 
 def _shard_decision(tokens: int, in_modes: tuple):
     """The installed multi-rank rules and their decision for ``tokens``
-    rows, or ``None`` when a planned kernel runs locally: on one rank, or
-    where :func:`shard_decision` declines."""
+    rows (the rank's local rows under the rules' ``batch_split``), or
+    ``None`` when a planned kernel runs locally: on one rank, or where
+    :func:`shard_decision` declines."""
     from repro_torch.plan.sharded import shard_decision
     from repro_torch.sharding import get_rules
 

@@ -145,10 +145,44 @@ def moe_apply(spec: MoESpec, params: dict,
 
     aux_loss is the Switch/GShard load-balance loss ``E * sum_e f_e * p_e``
     (f = fraction of tokens routed to e, p = mean router prob of e).
+
+    Under the installed rules' ``batch_split`` ``x`` is the rank's block of
+    the batch, and the layer gives the reference's values on the global
+    batch.  Groups of ``g = min(router_group, global tokens)`` flattened
+    tokens are the reference's groups when the rank's tokens are a
+    multiple of ``g``: each rank routes its own groups, and the per-expert
+    sums of f and p and the row count are summed over the batch axes
+    before the product (f and p are global means).  Otherwise a group
+    straddles ranks: the rank gathers the whole batch over the batch axes,
+    routes it as one device does and keeps its block of the output.  The
+    shared experts run on the rank's block.
     """
+    from repro_torch.plan.sharded import batch_axes_split, gather_batch
+    from repro_torch.sharding import get_rules
+
+    b, s, d = x.shape
+    split = batch_axes_split(get_rules())
+    if split is None:
+        y, aux = _routed(spec, params, x, min(spec.router_group, b * s))
+    else:
+        group, index, n = split
+        g = min(spec.router_group, n * b * s)
+        if (b * s) % g:
+            y, aux = _routed(spec, params, gather_batch(x, group, index), g)
+            y = y.narrow(0, index * b, b)
+        else:
+            y, aux = _routed(spec, params, x, g, group)
+    if spec.shared_spec is not None:
+        y = y + mlp_apply(spec.shared_spec, params["shared"], x)
+    return y, aux
+
+
+def _routed(spec: MoESpec, params: dict, x: torch.Tensor, g: int,
+            group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts of :func:`moe_apply` on ``x`` in groups of ``g``
+    tokens; with ``group``, the aux loss's statistics summed over it."""
     b, s, d = x.shape
     E, K = spec.n_experts, spec.top_k
-    g = min(spec.router_group, b * s)
     total = b * s
     pad = (-total) % g
     xf = x.reshape(total, d)
@@ -196,12 +230,18 @@ def moe_apply(spec: MoESpec, params: dict,
     yg = torch.sum(w[..., None] * picked, dim=2)            # (G, g, D)
     y = yg.reshape(-1, d)[:total].reshape(b, s, d).to(x.dtype)
 
-    if spec.shared_spec is not None:
-        y = y + mlp_apply(spec.shared_spec, params["shared"], x)
-
     # load-balance aux loss (over the padded groups, as the reference)
-    frac_tokens = torch.mean(
-        torch.sum(expert_oh * keep[..., None], dim=2).reshape(-1, E), dim=0)
-    frac_probs = torch.mean(probs.reshape(-1, E), dim=0)
+    routed = torch.sum(expert_oh * keep[..., None], dim=2).reshape(-1, E)
+    probs = probs.reshape(-1, E)
+    if group is None:
+        frac_tokens = torch.mean(routed, dim=0)
+        frac_probs = torch.mean(probs, dim=0)
+    else:
+        from repro_torch.plan.sharded import sum_over_ranks
+
+        rows = probs.new_full((1,), float(probs.shape[0]))
+        sums = sum_over_ranks(torch.cat([torch.sum(routed, dim=0),
+                                         torch.sum(probs, dim=0), rows]), group)
+        frac_tokens, frac_probs = sums[:E] / sums[-1], sums[E:2 * E] / sums[-1]
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y, aux

@@ -1,16 +1,22 @@
-"""Planned TT execution across ranks: token-parallel and row-parallel.
+"""Planned TT execution across ranks: on local rows, token-parallel and
+row-parallel.
 
 Port of ``src/repro/plan/sharded.py``.  The reference runs each planned
 kernel per shard under ``shard_map`` and hands back a global array; here
-every rank is a ``torch.distributed`` process that holds the full
-activations (:mod:`repro_torch.sharding`), so a planned projection is
-split and rebuilt explicitly:
+every rank is a ``torch.distributed`` process, and what a planned
+projection is handed depends on the step's layout
+(:mod:`repro_torch.sharding`):
 
-* the flattened token dim is split over the installed rules' token axes
-  (DP, plus the SP axis when sequence parallelism is on), batch-major as
-  the reference's ``resolve("tokens")`` merges them: each rank runs the
-  *same* ``streaming_tt`` / ``tt_gemm`` route on its ``(tokens/n, d_in)``
-  rows, the shape the DSE searched under ``--shards n``, and an
+* under ``ShardingRules.batch_split`` the rows a rank holds are already
+  its block of the batch: the batch axes leave the token axes, and the
+  rank runs the plan's ``streaming_tt`` / ``tt_gemm`` route on its local
+  ``(tokens, d_in)`` rows with no collective over them (the shape the DSE
+  searched under ``--shards n``).  The records still carry the mesh;
+* where the batch stays replicated (it does not divide the batch axes:
+  a batch-1 prefill), the flattened token dim is split over the installed
+  rules' token axes (DP, plus the SP axis when sequence parallelism is
+  on), batch-major as the reference's ``resolve("tokens")`` merges them:
+  each rank runs the same route on its ``(tokens/n, d_in)`` rows, and an
   ``all_gather`` over the token axes' group rebuilds ``(tokens, d_out)``;
 * under ``ShardingRules.tt_model_reduce`` each rank of a model group also
   takes its ``1/tp`` column block of x and the matching slice of the
@@ -21,10 +27,10 @@ split and rebuilt explicitly:
   bit-identical to the single-device route wherever the kernels' rows do
   not depend on the token count, which the CUDA kernels guarantee.
 
-Training.  Every rank computes the same loss on the same activations, so
-each split and each collective is a ``torch.autograd.Function`` whose
-backward hands every rank the *whole* gradient (what the reference's
-``shard_map`` transpose gives):
+Training.  The ranks that share a block of rows compute the same loss on
+it, so each split and each collective is a ``torch.autograd.Function``
+whose backward hands every such rank the *whole* gradient of that block
+(what the reference's ``shard_map`` transpose gives):
 
 * the token ``all_gather`` of y: the backward takes this rank's row block
   of dy (no sum: dy is the same on every rank);
@@ -32,10 +38,16 @@ backward hands every rank the *whole* gradient (what the reference's
 * the row (and column) block take of x: the backward ``all_gather``s the
   dx blocks over the token group (and over the model group);
 * the cores other than j1: the backward ``all_reduce``s their gradients
-  over the token axes (and the model axis under the reduce), all of them
-  in one flat buffer;
+  over the axes the projection itself split (the token axes, and the
+  model axis under the reduce), all of them in one flat buffer; over
+  none, no collective;
 * core j1's column slice: the backward ``all_reduce``s it over the token
   axes, then ``all_gather``s the slices along dim 1 over the model axis.
+
+Under ``batch_split`` each block of the batch has its own loss, and the
+train step sums every gradient over the batch axes once, after the
+backward (``launch/steps.py``): a core gradient summed here over the data
+axes too would count ``dp`` times.
 
 ``torch.distributed.nn.functional``'s collectives are not used: their
 backward reduce-scatters (``all_gather``) or all-reduces (``all_reduce``),
@@ -44,11 +56,16 @@ kernel's own backward (the executor's autograd Function) re-enters the
 rank's :func:`~repro_torch.plan.executor.shard_execution`, so gradient
 records carry the mesh and the per-shard shape.
 
-Collectives go through :func:`_collective`, which counts them
-(:data:`COLLECTIVES`, forward and backward; :data:`BWD_COLLECTIVES`, the
-backward's alone).  Gloo runs ``all_gather`` and ``all_reduce`` on CUDA
-tensors itself (copying through the host inside the backend), which is
-what lets several ranks share one card.
+Every collective of the port goes through :func:`collective`, which
+counts them (:data:`COLLECTIVES`, forward and backward;
+:data:`BWD_COLLECTIVES`, the backward's alone; :data:`COLLECTIVE_BYTES`,
+the bytes of each kind: an all-gather's output, an all-reduce's buffer).
+``grad_all_reduce`` is the train step's sum of every gradient over the
+batch axes.  Over a :class:`~repro_torch.sharding.ShapeGroup` (the dry
+run's mesh, tensors on ``meta``) a collective moves nothing and is
+counted all the same.  Gloo runs ``all_gather`` and ``all_reduce`` on
+CUDA tensors itself (copying through the host inside the backend), which
+is what lets several ranks share one card.
 """
 
 from __future__ import annotations
@@ -60,18 +77,24 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.sharding import ShapeGroup
+
 from .executor import planned_tt_linear, shard_execution
 from .schema import LayerPlan
 
-#: collectives the sharded route issued since the last
-#: :func:`reset_collectives`, forward and backward
-COLLECTIVES: dict[str, int] = {"all_gather": 0, "all_reduce": 0}
-#: the part of :data:`COLLECTIVES` issued by backward passes
-BWD_COLLECTIVES: dict[str, int] = {"all_gather": 0, "all_reduce": 0}
+#: collectives sent since the last :func:`reset_collectives`, forward
+#: and backward; ``grad_all_reduce`` is the train step's gradient sum
+COLLECTIVES: dict[str, int] = {"all_gather": 0, "all_reduce": 0,
+                               "grad_all_reduce": 0}
+#: the part of :data:`COLLECTIVES` sent by backward passes (the gradient
+#: sum counts here: it finishes the backward)
+BWD_COLLECTIVES: dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+#: bytes of the collectives of :data:`COLLECTIVES`, by kind
+COLLECTIVE_BYTES: dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 
 
 def reset_collectives() -> None:
-    for counts in (COLLECTIVES, BWD_COLLECTIVES):
+    for counts in (COLLECTIVES, BWD_COLLECTIVES, COLLECTIVE_BYTES):
         for k in counts:
             counts[k] = 0
 
@@ -80,13 +103,16 @@ def reset_collectives() -> None:
 class ShardDecision:
     """How one planned projection maps onto the installed mesh."""
 
-    axes: tuple[str, ...]     # mesh axes sharding the flattened token dim
+    axes: tuple[str, ...]     # mesh axes the route splits the token dim over
     n_shards: int             # product of those axis sizes (1 = replicated)
     model_reduce: bool = False  # split leading input mode over model axis
     tp: int = 1               # model-axis size when model_reduce
+    #: batch axes the rows a rank holds are already split over
+    #: (``batch_split``): no collective over them
+    local: tuple[str, ...] = ()
 
     def describe(self, axis_sizes: dict, model_axis: Optional[str]) -> str:
-        parts = ",".join(f"{a}={axis_sizes[a]}" for a in self.axes)
+        parts = ",".join(f"{a}={axis_sizes[a]}" for a in self.local + self.axes)
         if self.model_reduce:
             red = f"reduce({model_axis}={self.tp})"
             return f"{parts}+{red}" if parts else red
@@ -97,15 +123,19 @@ def shard_decision(rules, tokens: int,
                    in_modes: Sequence[int]) -> Optional[ShardDecision]:
     """Route choice for a planned projection under ``rules``, or ``None``.
 
-    ``None`` means the mesh cannot take this problem (no mesh object, or
-    the token count does not divide the DP axes and no model reduction
-    applies): the caller runs the planned kernel on the whole block on
-    every rank (the reference falls back to the plain executor there).
-    Under autograd that needs no collective: every rank computes the
-    whole core gradients itself.
+    Under ``batch_split`` the ``tokens`` are a rank's local rows: the batch
+    axes are recorded as ``local`` and split nothing more.  ``None`` means
+    the mesh cannot take this problem (no mesh object, or a replicated
+    batch whose token count does not divide the DP axes and no model
+    reduction applies): the caller runs the planned kernel on the whole
+    block on every rank (the reference falls back to the plain executor
+    there).  Under autograd that needs no collective: every rank computes
+    the whole core gradients itself.
     """
     if rules is None or rules.mesh is None:
         return None
+    local = tuple(a for a in rules.batch_axes if rules.axis_sizes.get(a, 1) > 1
+                  ) if rules.batch_split else ()
     axes = rules.token_shard_axes(tokens)
     model_reduce, tp = False, 1
     ma = rules.model_axis
@@ -115,24 +145,33 @@ def shard_decision(rules, tokens: int,
             model_reduce = True
         else:
             tp = 1
-    if not axes and not model_reduce:
+    if not axes and not model_reduce and not local:
         return None
     n = math.prod(rules.axis_sizes[a] for a in axes) if axes else 1
-    return ShardDecision(tuple(axes), int(n), model_reduce, tp)
+    return ShardDecision(tuple(axes), int(n), model_reduce, tp, local)
 
 
-def _collective(kind: str, t: torch.Tensor, group, dim: int = 0,
+def collective(kind: str, t: torch.Tensor, group, dim: int = 0,
                 backward: bool = False) -> torch.Tensor:
     """``all_gather`` (blocks concatenated along ``dim``, in group-rank
-    order) or ``all_reduce(SUM)`` of ``t`` over ``group``, counted."""
+    order) or ``all_reduce(SUM)`` (``kind`` ``all_reduce`` or
+    ``grad_all_reduce``) of ``t`` over ``group``, counted."""
     COLLECTIVES[kind] += 1
     if backward:
         BWD_COLLECTIVES[kind] += 1
     t = t.contiguous()
-    if kind == "all_reduce":
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    shape_only = isinstance(group, ShapeGroup)
+    n = group.size if shape_only else dist.get_world_size(group)
+    nbytes = t.numel() * t.element_size()
+    if kind != "all_gather":
+        COLLECTIVE_BYTES[kind] += nbytes
+        if not shape_only:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    COLLECTIVE_BYTES[kind] += n * nbytes
+    if shape_only:
+        return torch.cat([t] * n, dim=dim)
+    parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -153,9 +192,9 @@ class _TakeBlock(torch.autograd.Function):
     def backward(ctx, g):
         if ctx.sum_group is not None:
             # a copy: the all-reduce works in place, ``g`` is autograd's
-            g = _collective("all_reduce", g.clone(), ctx.sum_group,
+            g = collective("all_reduce", g.clone(), ctx.sum_group,
                             backward=True)
-        g = _collective("all_gather", g, ctx.group, dim=ctx.dim, backward=True)
+        g = collective("all_gather", g, ctx.group, dim=ctx.dim, backward=True)
         return g, None, None, None, None, None
 
 
@@ -166,7 +205,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, index: int, group: Any):
         ctx.index, ctx.rows = index, t.shape[0]
-        return _collective("all_gather", t, group)
+        return collective("all_gather", t, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -181,7 +220,7 @@ class _SumPartials(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group: Any):
         ctx.mark_dirty(t)  # the all-reduce sums in place (``t`` contiguous)
-        return _collective("all_reduce", t, group)
+        return collective("all_reduce", t, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -206,7 +245,7 @@ class _Replicated(torch.autograd.Function):
         flat = torch.cat([
             (g if g is not None else like.new_zeros(s)).reshape(-1)
             for g, like, s in zip(grads, ctx.like, ctx.shapes)])
-        flat = _collective("all_reduce", flat, ctx.group, backward=True)
+        flat = collective("all_reduce", flat, ctx.group, backward=True)
         return (None, *(part.reshape(s).clone() for part, s in zip(
             flat.split([math.prod(s) for s in ctx.shapes]), ctx.shapes)))
 
@@ -225,8 +264,9 @@ def sharded_tt_linear(
     """Planned TT projection over the ranks: per-shard kernel execution.
 
     ``x2d: (tokens, d_in)`` -> ``(tokens, d_out)`` on every rank, and under
-    autograd the whole dx and core gradients on every rank.  This rank
-    streams its token block through the plan's backend at the per-shard
+    autograd the whole dx and core gradients of these rows on every rank
+    that holds them.  This rank streams its token block (its local rows,
+    under ``batch_split``) through the plan's backend at the per-shard
     shape; cores are replicated, except the leading input core under
     ``model_reduce``, of which each rank of the model group takes its
     slice.
@@ -262,9 +302,10 @@ def sharded_tt_linear(
         rest = [k for k in range(len(cores)) if k != j1]
     else:
         rest = list(range(len(cores)))
-    for k, c in zip(rest, _Replicated.apply(mesh.group(shared),
-                                            *(cores[k] for k in rest))):
-        cores[k] = c
+    if shared:
+        for k, c in zip(rest, _Replicated.apply(mesh.group(shared),
+                                                *(cores[k] for k in rest))):
+            cores[k] = c
     desc = decision.describe(rules.axis_sizes, rules.model_axis)
     with shard_execution(desc, (shard_tokens, xs.shape[1])):
         y = planned_tt_linear(lp, xs, cores, local_in, out_modes, ranks)
@@ -274,3 +315,59 @@ def sharded_tt_linear(
     if decision.axes:
         y = _GatherRows.apply(y, index, token_group)
     return y
+
+
+# ---------------------------------------------------------------------------
+# the batch axes, for layers that need more than their block of the batch
+# ---------------------------------------------------------------------------
+
+def batch_axes_split(rules) -> Optional[tuple[Any, int, int]]:
+    """``(group, index, n)`` of the batch axes when ``rules`` split the
+    step's batch over them (``batch_split``): their process group, this
+    rank's block and the number of blocks; else None."""
+    if rules is None or rules.split_dp <= 1:
+        return None
+    axes = tuple(a for a in rules.batch_axes if rules.axis_sizes.get(a, 1) > 1)
+    return rules.mesh.group(axes), rules.mesh.index(axes), rules.split_dp
+
+
+class _GatherBatch(torch.autograd.Function):
+    """Every rank's block of the batch (dim 0) over ``group``; the backward
+    sums the gradients of the whole batch over the ranks (each rank's loss
+    reads the whole of it) and takes this rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, index: int, group: Any):
+        ctx.index, ctx.rows, ctx.group = index, t.shape[0], group
+        return collective("all_gather", t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = collective("all_reduce", g.clone(), ctx.group, backward=True)
+        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of every rank's ``t`` over ``group``; the backward sums the
+    gradients over the ranks too, so each rank gets the gradient of the
+    ranks' summed loss with respect to its own term, and the train step's
+    gradient sum counts it once."""
+
+    @staticmethod
+    def forward(ctx, t, group: Any):
+        ctx.group = group
+        return collective("all_reduce", t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective("all_reduce", g.clone(), ctx.group, backward=True), None
+
+
+def gather_batch(t: torch.Tensor, group: Any, index: int) -> torch.Tensor:
+    """The whole batch from every rank's block ``t``, differentiable."""
+    return _GatherBatch.apply(t, index, group)
+
+
+def sum_over_ranks(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group``, differentiable."""
+    return _SumOverRanks.apply(t, group)

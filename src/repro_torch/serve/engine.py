@@ -19,6 +19,20 @@ own plan and inside :func:`repro_torch.plan.execution_stream`.  Plans are
 validated against the model config (and their ``phase`` stamp) at
 construction.
 
+Across ranks
+------------
+Built under sharding rules whose batch axes divide ``n_slots``
+(``launch/mesh.py::batch_layout``), a rank holds the lanes ``[r n/dp,
+(r+1) n/dp)`` of every cache leaf (the batch entries of
+``cache_shardings``), and :meth:`ServeEngine.decode` runs those lanes
+under the rules' ``batch_split`` and returns the whole ``(n_slots, V)``
+logits through one all-gather over the batch axes, so the host scheduler,
+which every rank runs the same way, samples identically.  The batch-1
+prefill runs on every rank, replicated as in the reference (a planned
+projection splits its tokens), and :meth:`ServeEngine.admit` keeps a
+lane only on the rank that owns it.  Where the batch axes do not divide
+``n_slots`` every rank holds every lane.
+
 Caches: where the JAX engine donated its cache buffers to each jitted
 step, attention layers here write new K/V rows into the cache tensors in
 place, recurrent layers (Mamba2, RWKV6) return new state tensors, and a
@@ -28,15 +42,20 @@ tree into a decode lane.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import BatchBlocks, batch_layout, cache_shardings
 from repro_torch.models import ModelConfig, api
 from repro_torch.nn import plan_context
 from repro_torch.plan import ExecutionPlan, execution_stream
 from repro_torch.plan.compiler import check_plan_for_config
+from repro_torch.plan.sharded import batch_axes_split, collective
+from repro_torch.sharding import get_rules, use_rules
+from repro_torch.tree import leaves
 
 
 class ServeEngine:
@@ -118,6 +137,18 @@ class ServeEngine:
         self.decode_plan = decode_plan
         self._plan_backend = plan_backend
         self._m = api(cfg, device=self.device)  # leaves the installed plan alone
+        # the decode lanes of this rank: [lo, hi) under the rules' batch
+        # split of n_slots, every lane otherwise
+        rules = get_rules()
+        self._decode_rules = (batch_layout(rules, self.n_slots)
+                              if rules is not None else None)
+        split = batch_axes_split(self._decode_rules)
+        self._group = None
+        self.lanes = (0, self.n_slots)
+        if split is not None:
+            self._group, index, n = split
+            per = self.n_slots // n
+            self.lanes = (index * per, (index + 1) * per)
 
     def padded_len(self, prompt_len: int) -> int:
         b = self.prompt_bucket
@@ -145,13 +176,30 @@ class ServeEngine:
         return logits[0, p - 1].float().cpu().numpy(), caches
 
     def fresh_caches(self):
-        """Zeroed width-``n_slots`` decode caches."""
-        return self._m.init_caches(self.n_slots, self.max_seq)
+        """Zeroed decode caches of this rank's lanes (every lane on one
+        rank), the rank's block of the width-``n_slots`` caches'
+        ``cache_shardings``."""
+        lo, hi = self.lanes
+        caches = self._m.init_caches(hi - lo, self.max_seq)
+        if self._group is not None:
+            whole = api(self.cfg, device="meta").init_caches(self.n_slots,
+                                                             self.max_seq)
+            blocks = BatchBlocks(cache_shardings(self.cfg, whole, self._decode_rules),
+                                 self._decode_rules)
+            want = [t.shape for t in leaves(blocks.block(whole))]
+            got = [t.shape for t in leaves(caches)]
+            if want != got:
+                raise ValueError(f"lanes {self.lanes} of {self.n_slots}: cache "
+                                 f"leaves {got} are not the layout's blocks {want}")
+        return caches
 
     def admit(self, caches, small, slot: int):
         """Copy a prefilled batch-1 cache tree into decode lane ``slot``:
-        every leaf (K/V rows, SSM and RWKV states), in place."""
-        _copy_lane(caches, small, slot)
+        every leaf (K/V rows, SSM and RWKV states), in place, on the rank
+        that holds the lane."""
+        lo, hi = self.lanes
+        if lo <= slot < hi:
+            _copy_lane(caches, small, slot - lo)
         return caches
 
     def decode(self, tok: np.ndarray, pos: np.ndarray, caches):
@@ -160,16 +208,23 @@ class ServeEngine:
         ``tok``/``pos`` are ``(n_slots,)`` host arrays (free lanes pass 0).
         Returns ``(logits (n_slots, V) np.ndarray, caches)``: K/V rows are
         written in place, recurrent states are new, so the caller uses the
-        returned tree.
+        returned tree.  A rank runs its lanes; the logits of every lane
+        are gathered over the batch axes.
         """
+        lo, hi = self.lanes
         with plan_context(self.decode_plan, force_backend=self._plan_backend):
-            with execution_stream("decode"):
+            with execution_stream("decode"), (
+                    use_rules(self._decode_rules) if self._decode_rules is not None
+                    else contextlib.nullcontext()):
                 logits, caches = self._m.decode_step(
                     self.params,
-                    torch.as_tensor(np.asarray(tok, np.int64)[:, None],
+                    torch.as_tensor(np.asarray(tok, np.int64)[lo:hi, None],
                                     device=self.device),
                     caches,
-                    torch.as_tensor(np.asarray(pos, np.int64), device=self.device))
+                    torch.as_tensor(np.asarray(pos, np.int64)[lo:hi],
+                                    device=self.device))
+        if self._group is not None:
+            logits = collective("all_gather", logits, self._group)
         return logits.float().cpu().numpy(), caches
 
 

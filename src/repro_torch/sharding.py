@@ -14,13 +14,21 @@ Resolution rules, as in the reference:
   * a dim is only sharded if its size divides the mesh-axes product.
 
 Execution model.  Every rank (a ``torch.distributed`` process) runs the
-same host code on the same requests and holds the full parameters, caches
-and activations.  Only a planned TT projection is split, by
-:mod:`repro_torch.plan.sharded`: each rank contracts its rows of the
-token dim (and, under ``tt_model_reduce``, its column block of the input)
-and collectives rebuild the full output.  The reference's GSPMD layout
-constraints change layouts, not values, so :func:`shard` checks its axes
-and returns its input unchanged.
+same host code and holds the whole parameters.  Where the batch axes
+divide a step's global batch, the launcher hands each rank only its block of
+the batch (``launch/mesh.py::batch_shardings``, ``cache_shardings``) and
+installs rules with :attr:`ShardingRules.batch_split` set: the inputs,
+every activation, the decode caches and recurrent states and the loss
+terms are the rank's block, and the rank computes the whole model on it,
+as the reference's GSPMD partitioning of a step does.  A planned TT
+projection then runs its kernel on the local rows with no collective over
+the batch axes (:mod:`repro_torch.plan.sharded`); under
+``tt_model_reduce`` it still splits its input columns over the model axis.
+Where the batch does not divide, the dim stays replicated, as in the
+reference: every rank holds the whole batch, and only a planned TT
+projection splits its flattened tokens over the batch axes and gathers
+them back.  Heads, d_ff and experts are not split over the model axis
+yet, so :func:`shard` checks its axes and returns its input unchanged.
 """
 
 from __future__ import annotations
@@ -53,6 +61,21 @@ class ShardingRules:
     #: (see repro_torch.plan.sharded).  Changes float summation order:
     #: outputs are equivalent, not bit-identical.
     tt_model_reduce: bool = False
+    #: the tensors a step is handed hold only this rank's block of the
+    #: batch, split over ``batch_axes`` (set by the launchers for a step whose
+    #: global batch divides them: ``launch/mesh.py::batch_layout``)
+    batch_split: bool = False
+
+    @property
+    def dp(self) -> int:
+        """The product of the batch axes' sizes."""
+        return math.prod(self.axis_sizes.get(a, 1) for a in self.batch_axes)
+
+    @property
+    def split_dp(self) -> int:
+        """How many blocks the step's batch is split into: :attr:`dp` under
+        :attr:`batch_split`, else 1."""
+        return self.dp if self.batch_split else 1
 
     def resolve(self, logical: Optional[str]) -> tuple[str, ...]:
         if logical is None:
@@ -75,10 +98,12 @@ class ShardingRules:
 
         The resolved "tokens" axes, kept only when every axis has size > 1
         and ``tokens`` divides their product (each rank takes an exact
-        block of rows).
+        block of rows).  Under :attr:`batch_split` the batch axes are
+        already split in the rows a rank holds and are not among them.
         """
+        done = self.batch_axes if self.batch_split else ()
         axes = tuple(a for a in self.resolve("tokens")
-                     if self.axis_sizes.get(a, 1) > 1)
+                     if self.axis_sizes.get(a, 1) > 1 and a not in done)
         prod = math.prod(self.axis_sizes[a] for a in axes)
         if not axes or prod <= 1 or tokens % prod != 0:
             return ()
@@ -108,6 +133,14 @@ class ShardingRules:
         return tuple(spec)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeGroup:
+    """The process group of a mesh without ranks (the dry run's): its size
+    only.  A collective over it moves nothing and keeps shapes."""
+
+    size: int
+
+
 _tls = threading.local()
 
 
@@ -133,7 +166,9 @@ def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """The reference's sharding constraint: one logical name per dim.
 
     Checks the names against the rank of ``x`` when rules are installed and
-    returns ``x`` unchanged: activations are replicated on every rank.
+    returns ``x`` unchanged: a tensor a rank holds is already its block of
+    the batch under ``batch_split`` (the launcher split the inputs), and the
+    model axis does not split activations yet.
     """
     if get_rules() is not None and len(logical_axes) != x.dim():
         raise ValueError(f"{len(logical_axes)} axes for rank-{x.dim()} array")

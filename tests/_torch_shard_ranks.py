@@ -333,6 +333,40 @@ def body_train_layers(spec: dict) -> dict:
             grads(f"{route[0]}:{tokens}", lambda x, *cs, w=w, lp=lp: (
                 _dispatch(lp, x, list(cs), geometry, rules)
                 * torch.from_numpy(w)).sum(), [x, *cores])
+    # local rows (batch_split): each rank its block of the 8 rows and of
+    # w, no collective over data in the route; the step's sum over data
+    # (here by hand: core gradients and the loss summed, dx gathered)
+    # must give the whole-batch gradients, each core's counted once
+    import dataclasses
+
+    import torch.distributed as dist
+
+    split = dataclasses.replace(rules, batch_split=True)
+    mesh = rules.mesh
+    group, index = mesh.group(("data",)), mesh.index(("data",))
+    for route in TRAIN_ROUTES:
+        lp = train_layer_plan(port_plan, route)
+        x, cores, w = train_layer_inputs(TRAIN_LAYER, 8, seed=8)
+        rows = slice(4 * index, 4 * index + 4)
+        reset_execution_log()
+        reset_collectives()
+        ts = [torch.from_numpy(x[rows]).requires_grad_(True)] + [
+            torch.from_numpy(c).requires_grad_(True) for c in cores]
+        loss = (_dispatch(lp, ts[0], ts[1:], geometry, split)
+                * torch.from_numpy(w[rows])).sum()
+        loss.backward()
+        done = {"records": [dict(r) for r in execution_log()],
+                "collectives": dict(COLLECTIVES),
+                "bwd_collectives": dict(BWD_COLLECTIVES)}
+        got = _leaves_grad(ts)
+        parts = [torch.empty_like(got[0]) for _ in range(2)]
+        dist.all_gather(parts, got[0], group=group)
+        for g in got[1:]:
+            dist.all_reduce(g, group=group)
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=group)
+        out[f"{route[0]}:split"] = {"loss": total, "grads": [torch.cat(parts)] + got[1:],
+                                    **done}
     route = TRAIN_ROUTES[0]
     first = train_layer_plan(port_plan, route, TRAIN_LAYER)
     second = train_layer_plan(port_plan, route, MIXED_LAYER)
@@ -362,27 +396,44 @@ def _model_rules(cfg, key: str, reduce: bool):
     from repro_torch.launch.mesh import make_rules, make_test_mesh
     from repro_torch.models.config import ShapeConfig
 
+    from repro_torch.launch.mesh import batch_layout
+
     b, s = MODEL_BATCHES[key]
     rules = make_rules(cfg, ShapeConfig("t", s, b, "train"), make_test_mesh())
-    return dataclasses.replace(rules, tt_model_reduce=reduce)
+    return batch_layout(dataclasses.replace(rules, tt_model_reduce=reduce), b)
+
+
+def rank_block(batch: dict, rules) -> dict:
+    """This rank's block of ``batch`` under ``rules``' batch layout (the
+    whole batch where it stays replicated)."""
+    from repro_torch.launch.mesh import BatchBlocks, batch_shardings
+
+    if not rules.batch_split:
+        return batch
+    return BatchBlocks(batch_shardings(batch, rules), rules).block(batch)
 
 
 def body_train_model(spec: dict) -> dict:
     """tt-lm-smoke's loss and every gradient leaf under each smoke train
-    plan and batch, on the weights saved at ``spec["params"]``; then one
-    ``remat="full"`` step whose backward runs on a thread of its own (where
-    this thread's sharding rules are not installed, as on the card's
-    autograd device thread)."""
+    plan and batch, on the weights saved at ``spec["params"]``, through
+    the train step's ``loss_and_grads`` under the batch layout (the split
+    batch: each rank its block, the gradients summed over ``data``; the
+    declined one replicated); then one ``remat="full"`` step whose
+    backward runs on a thread of its own (where this thread's sharding
+    rules are not installed, as on the card's autograd device thread)."""
     import dataclasses
     import threading
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (global_loss, loss_and_grads,
+                                          sum_batch_grads)
     from repro_torch.models import api
     from repro_torch.nn import plan_context
     from repro_torch.plan import execution_log, load_plan, reset_execution_log
-    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
     from repro_torch.sharding import use_rules
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, map_tree
 
     cfg = get_config("tt-lm-100m", smoke=True)
     out = {}
@@ -391,22 +442,28 @@ def body_train_model(spec: dict) -> dict:
         params = torch.load(spec["params"], weights_only=False)
         for p in leaves(params):
             p.requires_grad_(True)
-        batch = {k: torch.from_numpy(v) for k, v in _model_batch(cfg, key).items()}
+        rules = _model_rules(cfg, key, spec["reduce"])
+        batch = rank_block({k: torch.from_numpy(v) for k, v in
+                            _model_batch(cfg, key).items()}, rules)
         reset_execution_log()
         reset_collectives()
-        with plan_context(load_plan(str(PLANS / plan_file))), \
-                use_rules(_model_rules(cfg, key, spec["reduce"])):
-            loss = api(cfg, device="cpu").train_loss(params, batch)
+        with plan_context(load_plan(str(PLANS / plan_file))), use_rules(rules):
+            m = api(cfg, device="cpu")
             if threaded:
+                loss = m.train_loss(params, batch)
                 t = threading.Thread(target=loss.backward)
                 t.start()
                 t.join(SPAWN_TIMEOUT_S)
                 assert not t.is_alive()
+                loss = global_loss(loss)
+                grads = sum_batch_grads(map_tree(lambda p: p.grad, params))
             else:
-                loss.backward()
-        return {"loss": float(loss), "grads": flat_grads(params),
+                loss, grads = loss_and_grads(m, params, batch)
+        return {"loss": float(loss), "grads": named_leaves(grads),
+                "rows": int(batch["tokens"].shape[0]),
                 "records": [dict(r) for r in execution_log()],
-                "collectives": dict(COLLECTIVES)}
+                "collectives": dict(COLLECTIVES),
+                "bwd_collectives": dict(BWD_COLLECTIVES)}
 
     for plan_file in TRAIN_PLANS:
         for key in MODEL_BATCHES:
@@ -416,16 +473,16 @@ def body_train_model(spec: dict) -> dict:
     return out
 
 
-def flat_grads(params) -> dict:
-    """``{key path: gradient}`` of a parameter tree (lists by index)."""
+def named_leaves(tree) -> dict:
+    """``{key path: leaf}`` of a tree of tensors (lists by index), cloned."""
     def walk(t, prefix):
         if isinstance(t, dict):
             return {k: v for key in t for k, v in walk(t[key], f"{prefix}/{key}").items()}
         if isinstance(t, list):
             return {k: v for i, x in enumerate(t)
                     for k, v in walk(x, f"{prefix}[{i}]").items()}
-        return {prefix: t.grad.clone()}
-    return walk(params, "")
+        return {prefix: t.detach().clone()}
+    return walk(tree, "")
 
 
 def adamw_tree(seed: int) -> dict:
@@ -490,10 +547,13 @@ def body_train_cli(spec: dict) -> dict:
 
 def smoke_step0(plan_file: str, device, rules=None) -> dict:
     """tt-lm-smoke's step 0 (seed-0 weights, the split batch) on ``device``
-    under ``plan_file`` and ``rules``: the loss, every gradient leaf (on the
-    CPU), the kernel launches and the planned records' meshes."""
+    under ``plan_file`` and ``rules`` (this rank's block of the batch where
+    their layout splits it) through the train step's ``loss_and_grads``:
+    the loss, every gradient leaf (on the CPU), the kernel launches and
+    the planned records' meshes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launches
+    from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import api
     from repro_torch.nn import plan_context
     from repro_torch.plan import execution_log, load_plan, reset_execution_log
@@ -501,8 +561,10 @@ def smoke_step0(plan_file: str, device, rules=None) -> dict:
     from repro_torch.tree import leaves
 
     cfg = get_config("tt-lm-100m", smoke=True)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in _model_batch(cfg, "split").items()}
+    batch = {k: torch.from_numpy(v) for k, v in _model_batch(cfg, "split").items()}
+    if rules is not None:
+        batch = rank_block(batch, rules)
+    batch = {k: v.to(device) for k, v in batch.items()}
     with plan_context(load_plan(str(PLANS / plan_file))), use_rules(rules):
         m = api(cfg, device=device)
         params = m.init_params(0)
@@ -510,10 +572,9 @@ def smoke_step0(plan_file: str, device, rules=None) -> dict:
             p.requires_grad_(True)
         reset_execution_log()
         launches.reset()
-        loss = m.train_loss(params, batch)
-        loss.backward()
+        loss, grads = loss_and_grads(m, params, batch)
     return {"loss": loss.item(),
-            "grads": {k: g.cpu() for k, g in flat_grads(params).items()},
+            "grads": {k: g.cpu() for k, g in named_leaves(grads).items()},
             "launches": launches.snapshot(),
             "meshes": sorted({r["mesh"] for r in execution_log()
                               if r["backend"] != "jnp"})}
@@ -521,7 +582,8 @@ def smoke_step0(plan_file: str, device, rules=None) -> dict:
 
 def body_cuda_train(spec: dict) -> dict:
     """:func:`smoke_step0` on the card the ranks share, under each smoke
-    train plan and the ranks' rules."""
+    train plan and the ranks' rules (the batch of 2 split: a sequence a
+    rank)."""
     device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
                           % torch.cuda.device_count())
     torch.cuda.set_device(device)
@@ -534,6 +596,180 @@ def body_cuda_train(spec: dict) -> dict:
             for f in TRAIN_PLANS}
 
 
+# ---------------------------------------------------------------------------
+# the batch layout: serving lanes, the MoE's global statistics, recurrent
+# states
+# ---------------------------------------------------------------------------
+
+#: the two prompts the lanes body admits (8 tokens each, no bucket padding)
+LANE_PROMPTS_SEED, LANE_PROMPT_LEN, LANE_MAX_SEQ = 3, 8, 16
+
+
+def lane_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(LANE_PROMPTS_SEED).integers(
+        0, vocab, size=(2, LANE_PROMPT_LEN))
+
+
+def body_lanes(spec: dict) -> dict:
+    """A 2-lane ``ServeEngine`` of tt-lm-smoke under the smoke pair on the
+    saved weights: two prompts prefilled (batch 1: replicated) and
+    admitted, then one decode step on this rank's lanes.  The whole
+    ``(2, V)`` logits, the greedy first tokens, the rank's lanes and
+    cache rows, and the decode step's collectives."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_rules, make_test_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+
+    cfg = get_config("tt-lm-100m", smoke=True)
+    rules = dataclasses.replace(
+        make_rules(cfg, ShapeConfig("t", LANE_MAX_SEQ, 2, "decode"), make_test_mesh()),
+        tt_model_reduce=spec["reduce"])
+    params = torch.load(spec["params"], weights_only=False)
+    with use_rules(rules), torch.no_grad():
+        eng = ServeEngine(cfg, params, n_slots=2, max_seq=LANE_MAX_SEQ,
+                          prompt_bucket=8, prefill_plan=load_plan(spec["prefill_plan"]),
+                          decode_plan=load_plan(spec["decode_plan"]))
+        caches = eng.fresh_caches()
+        first = []
+        for lane, prompt in enumerate(lane_prompts(cfg.vocab)):
+            row, small = eng.prefill_request(prompt.tolist())
+            caches = eng.admit(caches, small, lane)
+            first.append(int(np.argmax(row)))
+        reset_collectives()
+        logits, caches = eng.decode(np.array(first), np.full(2, LANE_PROMPT_LEN),
+                                    caches)
+    return {"logits": torch.from_numpy(logits), "first": first, "lanes": eng.lanes,
+            "cache_rows": int(caches[0].k.shape[0]), "collectives": dict(COLLECTIVES)}
+
+
+#: the MoE layer of the moe body: (B, S) tokens and the router groups of
+#: each case: 4 (a rank's 8 tokens hold two whole groups), 16 (one group
+#: straddles the ranks) and 6 (groups straddle, the last one padded)
+MOE_BATCH = (4, 4)
+MOE_GROUPS = {"inside": 4, "straddle": 16, "padded": 6}
+
+
+def moe_spec(router_group: int):
+    from repro_torch.nn.moe import MoESpec
+
+    return MoESpec(name="moe", d_model=16, d_ff=8, n_experts=4, top_k=2,
+                   n_shared=1, shared_d_ff=16, router_group=router_group)
+
+
+def moe_inputs():
+    """numpy ``x (B, S, 16)`` and the output weights ``w`` of
+    ``loss = sum(y * w) + aux``."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal(MOE_BATCH + (16,)).astype(np.float32)
+    return x, rng.standard_normal(MOE_BATCH + (16,)).astype(np.float32)
+
+
+def body_moe(spec: dict) -> dict:
+    """``moe_apply`` on this rank's block of the batch (``batch_split``) in
+    each router-group case of :data:`MOE_GROUPS`, on the weights saved at
+    ``spec["moe_params"]``: the output and the aux loss gathered and
+    summed as the train step does, and the gradients of ``sum(y w) +
+    aux`` (dx gathered, every parameter's summed over ``data``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.nn.moe import moe_apply
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.sharding import ShardingRules, use_rules
+    from repro_torch.tree import leaves, map_tree
+
+    mesh = make_test_mesh()
+    rules = ShardingRules(axis_sizes=dict(mesh.shape), mesh=mesh, batch_split=True)
+    group, index = mesh.group(("data",)), mesh.index(("data",))
+    x, w = moe_inputs()
+    rows = slice(2 * index, 2 * index + 2)
+    out = {}
+    for case, g in MOE_GROUPS.items():
+        params = torch.load(spec["moe_params"], weights_only=False)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        xs = torch.from_numpy(x[rows]).requires_grad_(True)
+        reset_collectives()
+        with use_rules(rules):
+            y, aux = moe_apply(moe_spec(g), params, xs)
+            loss = (y * torch.from_numpy(w[rows])).sum() + aux / 2
+        loss.backward()
+        coll = dict(COLLECTIVES)
+        grads = map_tree(lambda p: p.grad, params)
+        for t in leaves(grads):
+            dist.all_reduce(t, group=group)
+        parts = [torch.empty_like(y) for _ in range(2)]
+        dist.all_gather(parts, y.detach().contiguous(), group=group)
+        dxs = [torch.empty_like(xs.grad) for _ in range(2)]
+        dist.all_gather(dxs, xs.grad, group=group)
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=group)
+        out[case] = {"y": torch.cat(parts), "aux": float(aux), "loss": float(total),
+                     "dx": torch.cat(dxs), "grads": named_leaves(grads),
+                     "collectives": coll}
+    return out
+
+
+#: rwkv6-smoke's batch in the rwkv body: 2 sequences of 8 tokens
+RWKV_BATCH = (2, 8)
+
+
+def rwkv_tokens(vocab: int) -> dict:
+    rng = np.random.default_rng(23)
+    return {k: rng.integers(0, vocab, size=RWKV_BATCH).astype(np.int64)
+            for k in ("tokens", "labels", "next")}
+
+
+def body_rwkv(spec: dict) -> dict:
+    """rwkv6-smoke (no plan) under the batch layout of 2 sequences on the
+    weights saved at ``spec["rwkv_params"]``: the train step's loss and
+    gradients (``loss_and_grads``), and a prefill of the rank's block then
+    one decode step: the logits and every recurrent state gathered back
+    over ``data`` (``BatchBlocks.gather``), and the rank's state rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (BatchBlocks, batch_layout, cache_shardings,
+                                         make_rules, make_test_mesh)
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config("rwkv6-7b", smoke=True)
+    b, s = RWKV_BATCH
+    rules = batch_layout(make_rules(cfg, ShapeConfig("t", s, b, "train"),
+                                    make_test_mesh()), b)
+    data = {k: torch.from_numpy(v) for k, v in rwkv_tokens(cfg.vocab).items()}
+    local = rank_block(data, rules)
+    m = api(cfg, device="cpu")
+    params = torch.load(spec["rwkv_params"], weights_only=False)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    with use_rules(rules):
+        loss, grads = loss_and_grads(m, params, {k: local[k] for k in ("tokens", "labels")})
+        with torch.no_grad():
+            logits, caches = m.prefill_full(params, {"tokens": local["tokens"]}, s + 1)
+            step, caches = m.decode_step(params, local["next"][:, :1], caches,
+                                         torch.tensor(s))
+        whole = api(cfg, device="meta").init_caches(b, s + 1)
+        blocks = BatchBlocks(cache_shardings(cfg, whole, rules), rules)
+        states = blocks.gather(caches)
+        gathered = BatchBlocks(((rules.batch_axes, None),), rules).gather(
+            (torch.cat([logits[:, -1], step], dim=1),))[0]
+    return {"loss": float(loss), "grads": named_leaves(grads),
+            "batch_split": rules.batch_split,
+            "state_rows": [int(t.shape[0]) for t in leaves(caches)],
+            "states": [t.clone() for t in leaves(states)],
+            "logits": gathered}
+
+
 BODIES = {"linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
-          "train_adamw": body_train_adamw, "train_cli": body_train_cli}
+          "train_adamw": body_train_adamw, "train_cli": body_train_cli,
+          "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}

@@ -1487,11 +1487,11 @@ def test_encdec_smoke_train_step_cuda_matches_plain(cuda_device, backend, tmp_pa
 @pytest.mark.cuda
 def test_two_ranks_sharing_the_card_train_as_one_device(cuda_device, tmp_path):
     """tt-lm-smoke's step 0 on 2 ``gloo`` ranks sharing the card
-    (``data=2``: 16 of the 32 tokens a rank) against one device, under the
-    K1 train plan and the tt_gemm one (K5 segments): the loss and every
-    gradient leaf but the TT cores bit for bit (the kernels' rows do not
-    depend on the token count), the TT cores within rel 1e-4 (the ranks
-    sum the token blocks' weight gradients in another order)."""
+    (``data=2``: one of the 2 sequences, 16 of the 32 tokens, a rank, the
+    gradients summed over the ranks) against one device, under the K1
+    train plan and the tt_gemm one (K5 segments): the loss within rel
+    1e-4 and every gradient leaf within rel 1e-4 of its norm (the ranks
+    sum the two blocks' gradients in another order)."""
     from _torch_shard_ranks import TRAIN_PLANS, smoke_step0, spawn
 
     ranks = spawn("cuda_train", 2, {}, tmp_path)
@@ -1503,14 +1503,11 @@ def test_two_ranks_sharing_the_card_train_as_one_device(cuda_device, tmp_path):
         assert all(want["launches"][k] > 0 for k in need)
         for rank in ranks:
             got = rank["cuda_train"][plan_file]
-            assert got["loss"] == want["loss"]
+            assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
             assert got["meshes"] == ["data=2"]
             assert all(got["launches"][k] > 0 for k in need), got["launches"]
             assert sorted(got["grads"]) == sorted(want["grads"])
             for name, g in got["grads"].items():
                 w = want["grads"][name]
-                if name.rsplit("/", 1)[-1].startswith("core"):
-                    gap = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
-                    assert gap <= 1e-4, (plan_file, name, gap)
-                else:
-                    assert torch.equal(g, w), (plan_file, name)
+                gap = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+                assert gap <= 1e-4, (plan_file, name, gap)

@@ -1,7 +1,7 @@
 """The port's sharded planned execution across ranks, on the CPU.
 
-``repro_torch.plan.sharded`` on a ``gloo`` process group: 2 ranks
-(``data=2``: token-parallel) and 4 ranks (``data=2 x model=2`` with
+``repro_torch.plan.sharded`` and the serve engine on a ``gloo`` process
+group: 2 ranks (``data=2``) and 4 ranks (``data=2 x model=2`` with
 ``tt_model_reduce``: row-parallel too), each rank a process of its own
 (``tests/_torch_shard_ranks.py``, 60 s limit a spawn).  The oracle is the
 port's own single-device route: the reference's own sharded harnesses
@@ -24,6 +24,10 @@ unsharded ``prefill_full`` on the same weights (``params_from_jax``):
 * tokens that do not divide over the mesh run the planned kernel on the
   whole block on every rank (a record without a mesh), so ``--strict-plan``
   passes and the tokens equal the single-device run's;
+* the decode lanes split over ``data``: a 2-lane engine's rank holds and
+  decodes one lane, and one decode step's gathered logits equal the
+  reference's decode of both prompts at 1e-4 x max |logit|, with the
+  logits' gather as its only collective on 2 ranks;
 * under autograd the sharded route's gradients equal the single-device
   route's (``tests/test_torch_shard_train.py`` trains across ranks).
 """
@@ -31,6 +35,7 @@ unsharded ``prefill_full`` on the same weights (``params_from_jax``):
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import os
 import pathlib
@@ -47,9 +52,9 @@ from repro.models import api as ref_api
 from repro.nn import install_plan as ref_install_plan
 from repro.plan import load_plan as ref_load_plan
 
-from _torch_shard_ranks import (GEOMETRIES, ROUTES, SRC, TOKENS,
-                                autograd_weights, layer_plan, linear_inputs,
-                                spawn)
+from _torch_shard_ranks import (GEOMETRIES, LANE_MAX_SEQ, LANE_PROMPT_LEN, ROUTES,
+                                SRC, TOKENS, autograd_weights, lane_prompts,
+                                layer_plan, linear_inputs, spawn)
 from repro_torch import dse_cli
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
@@ -104,18 +109,18 @@ def _spec(pair, weights, reduce: bool) -> dict:
     if not reduce:
         runs["decline"] = pair + SERVE + ["--prompt-bucket", "1"]
     return {"reduce": reduce, "runs": runs, "prefill_plan": pair[1],
-            "params": weights}
+            "decode_plan": pair[3], "params": weights}
 
 
 @pytest.fixture(scope="module")
 def two(pair, weights, tmp_path_factory) -> list[dict]:
-    return spawn("linear,serve", 2, _spec(pair, weights, False),
+    return spawn("linear,serve,lanes", 2, _spec(pair, weights, False),
                  tmp_path_factory.mktemp("two"))
 
 
 @pytest.fixture(scope="module")
 def four(pair, weights, tmp_path_factory) -> list[dict]:
-    return spawn("linear,serve", 4, _spec(pair, weights, True),
+    return spawn("linear,serve,lanes", 4, _spec(pair, weights, True),
                  tmp_path_factory.mktemp("four"))
 
 
@@ -153,8 +158,8 @@ def test_token_parallel_records_per_shard_shapes(two, key):
         assert recs and all(r["mesh"] == "data=2" for r in recs), recs
         assert all(r["shard_shape"] == [TOKENS // 2, d_in]
                    and r["tokens"] == TOKENS // 2 for r in recs), recs
-        assert rank["linear"]["collectives"][key] == {"all_gather": 1,
-                                                      "all_reduce": 0}
+        assert rank["linear"]["collectives"][key] == {
+            "all_gather": 1, "all_reduce": 0, "grad_all_reduce": 0}
 
 
 @pytest.mark.parametrize("key", KEYS)
@@ -169,8 +174,8 @@ def test_model_reduce_within_1e5_of_single_device(four, key):
         assert recs and all(r["mesh"] == "data=2+reduce(model=2)"
                             and r["shard_shape"] == [TOKENS // 2, d_in // 2]
                             for r in recs), recs
-        assert rank["linear"]["collectives"][key] == {"all_gather": 1,
-                                                      "all_reduce": 1}
+        assert rank["linear"]["collectives"][key] == {
+            "all_gather": 1, "all_reduce": 1, "grad_all_reduce": 0}
     # the two model ranks of a data group hold the same sum
     assert torch.equal(four[0]["linear"]["y"][key], four[1]["linear"]["y"][key])
 
@@ -329,6 +334,55 @@ def test_four_ranks_reduce_serves_close_to_single_device(four, pair, weights):
             assert "data=2+reduce(model=2)" in meshes
     assert all(r["serve"]["continuous"]["tokens"]
                == four[0]["serve"]["continuous"]["tokens"] for r in four)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_decode() -> tuple[list, np.ndarray]:
+    """The reference's greedy first tokens of both lane prompts and its
+    logits of one decode step on them (its plain path, one device)."""
+    rm = ref_api(ref_get_config("tt-lm-100m", smoke=True))
+    params = rm.init_params(jax.random.PRNGKey(0))
+    prompts = jnp.asarray(lane_prompts(rm_vocab()))
+
+    @jax.jit
+    def run(params, prompts):
+        logits, caches = rm.prefill_full(params, {"tokens": prompts}, LANE_MAX_SEQ)
+        first = jnp.argmax(logits[:, -1], axis=-1)
+        step, _ = rm.decode_step(params, first[:, None].astype(jnp.int32), caches,
+                                 jnp.full((2,), LANE_PROMPT_LEN, jnp.int32))
+        return first, step
+
+    first, step = run(params, prompts)
+    return [int(t) for t in first], np.asarray(step)
+
+
+def rm_vocab() -> int:
+    return ref_get_config("tt-lm-100m", smoke=True).vocab
+
+
+@pytest.mark.parametrize("world", ["two", "four"])
+def test_decode_lanes_split_over_data(world, request):
+    """A 2-lane engine: each rank of a ``data`` group holds and decodes one
+    lane (its cache rows), and the step's logits of both lanes, gathered
+    over ``data``, match the reference's decode at 1e-4 x max |logit|;
+    the greedy first tokens of both prefills are the reference's.  On 2
+    ranks the logits' all-gather is the step's only collective."""
+    first, want = _ref_decode()
+    ranks = request.getfixturevalue(world)
+    for rank in ranks:
+        got = rank["lanes"]
+        assert got["first"] == first
+        assert got["cache_rows"] == 1
+        lo = rank["linear"]["coords"]["data"]
+        assert tuple(got["lanes"]) == (lo, lo + 1)
+        assert got["logits"].shape == want.shape
+        assert np.abs(got["logits"].numpy() - want).max() <= 1e-4 * np.abs(want).max()
+        if world == "two":
+            assert got["collectives"] == {"all_gather": 1, "all_reduce": 0,
+                                          "grad_all_reduce": 0}
+    # every rank holds the same gathered logits
+    for rank in ranks[1:]:
+        assert torch.equal(rank["lanes"]["logits"], ranks[0]["lanes"]["logits"])
 
 
 def test_torchrun_serves_on_two_ranks(pair):

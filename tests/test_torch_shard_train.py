@@ -2,30 +2,36 @@
 the reference's unsharded ``jax.grad``.
 
 ``repro_torch.plan.sharded`` under autograd on a ``gloo`` process group:
-2 ranks (``data=2``: token-parallel) and 4 ranks (``data=2 x model=2``
-with ``tt_model_reduce``: row-parallel too), each rank a process of its
-own (``tests/_torch_shard_ranks.py``, 60 s limit a spawn).  Every rank
-computes the same loss, so every rank must end with the whole gradient:
+2 ranks (``data=2``) and 4 ranks (``data=2 x model=2`` with
+``tt_model_reduce``: row-parallel too), each rank a process of its own
+(``tests/_torch_shard_ranks.py``, 60 s limit a spawn):
 
 * one planned projection (tt-lm-smoke's mlp.wg) on the plain versions of
-  K1 (dx on K1), K2-K4 (OS, WS, IS) and K5 (fused segments), at 8 tokens
-  (split) and 7 (they do not divide over ``data=2``: every rank runs the
-  kernel whole; on 4 ranks the columns still split), and a mixed pair
-  (mlp.wg split, then mlp.wd on 7 of its rows): y, dx and every core
-  gradient against the reference's ``jax.grad`` through its
+  K1 (dx on K1), K2-K4 (OS, WS, IS) and K5 (fused segments).  On a
+  replicated batch every rank computes the same loss and must end with
+  the whole gradient: at 8 tokens (token-parallel) and 7 (they do not
+  divide over ``data=2``: every rank runs the kernel whole; on 4 ranks the
+  columns still split), and a mixed pair (mlp.wg split, then mlp.wd on 7
+  of its rows).  On local rows (``batch_split``) each rank holds 4 of the
+  8 rows and its own loss, and the sum of the ranks' gradients over
+  ``data`` must be the whole batch's, each core's counted once.  y, dx and
+  every core gradient against the reference's ``jax.grad`` through its
   ``planned_tt_linear`` (Pallas interpret mode), one device;
-* tt-lm-smoke's loss and every gradient leaf under both smoke train plans
-  (32 tokens split, 15 declined) against the reference's single-device
-  ``jax.value_and_grad`` of ``train_loss`` (its plain path) on the same
-  weights (``params_from_jax``); a ``remat="full"`` step whose backward
-  runs on another thread (the recompute must still split);
+* tt-lm-smoke's loss and every gradient leaf under both smoke train plans,
+  through the train step's ``loss_and_grads``: a batch of 2 that splits
+  (each rank one sequence, the gradients summed over ``data``) and one of
+  3 that does not (replicated; its 15 tokens decline too), against the
+  reference's single-device ``jax.value_and_grad`` of ``train_loss`` (its
+  plain path) on the same weights (``params_from_jax``); a
+  ``remat="full"`` step whose backward runs on another thread (the
+  recompute must find the layout);
 * three AdamW steps with the state split by ``param_shardings`` against
   the unsplit steps, bit for bit; ``_param_pspec`` against the
   reference's at every leaf of every arch.
 
 Tolerance 1e-4 (rtol and atol), the reference's gradcheck tolerance: the
-ranks sum the token blocks' core gradients in another order, and the CPU
-plain K1 is not row-independent (ROADMAP.md, port conventions).
+ranks sum the blocks' gradients in another order, and the CPU plain K1 is
+not row-independent (ROADMAP.md, port conventions).
 ``tests/test_torch_shard_train_cli.py`` runs the train driver on ranks.
 """
 
@@ -56,6 +62,8 @@ from repro_torch.launch.mesh import (ParamShards, _param_pspec,
 TOL = dict(rtol=1e-4, atol=1e-4)
 WORLDS = ("two", "four")
 LAYER_KEYS = [f"{r[0]}:{t}" for r in TRAIN_ROUTES for t in TRAIN_TOKENS]
+SPLIT_KEYS = [f"{r[0]}:split" for r in TRAIN_ROUTES]
+NONE = {"all_gather": 0, "all_reduce": 0, "grad_all_reduce": 0}
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +155,19 @@ def test_layer_gradients_match_the_reference(world, key, request):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("key", SPLIT_KEYS)
+def test_local_rows_sum_each_core_gradient_once(world, key, request):
+    """Each rank holds 4 of the 8 rows and its own loss; with no collective
+    over ``data`` in the route, the ranks' core gradients summed over
+    ``data`` (the train step's gradient sum) and their dx blocks gathered
+    equal the reference's whole-batch gradients.  A route that also summed
+    the core gradients over ``data`` would give twice them."""
+    want = _ref_layer(key.split(":")[0] + ":8")
+    for rank in request.getfixturevalue(world):
+        _assert_grads(rank["train_layers"][key], want)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_a_split_and_a_declined_projection_train_together(world, request):
     """mlp.wg splits its 8 tokens; mlp.wd, on 7 of its output rows, runs
     whole on every rank of 2 (7 do not divide) and splits its columns on 4:
@@ -165,25 +186,30 @@ def test_a_split_and_a_declined_projection_train_together(world, request):
 
 #: (world, tokens) -> (mesh, per-shard d_in, forward, backward collectives)
 LAYER_PLACEMENT = {
-    ("two", 8): ("data=2", 128, {"all_gather": 1, "all_reduce": 0},
-                 {"all_gather": 1, "all_reduce": 1}),
-    ("two", 7): ("", None, {"all_gather": 0, "all_reduce": 0},
-                 {"all_gather": 0, "all_reduce": 0}),
+    ("two", 8): ("data=2", 128, {**NONE, "all_gather": 1},
+                 {**NONE, "all_gather": 1, "all_reduce": 1}),
+    ("two", 7): ("", None, NONE, NONE),
     # dx gathered over rows and columns, j1's slice summed over the token
     # axis and gathered over the model axis, the other cores summed once
-    ("four", 8): ("data=2+reduce(model=2)", 64, {"all_gather": 1, "all_reduce": 1},
-                  {"all_gather": 3, "all_reduce": 2}),
-    ("four", 7): ("reduce(model=2)", 64, {"all_gather": 0, "all_reduce": 1},
-                  {"all_gather": 2, "all_reduce": 1}),
+    ("four", 8): ("data=2+reduce(model=2)", 64, {**NONE, "all_gather": 1, "all_reduce": 1},
+                  {**NONE, "all_gather": 3, "all_reduce": 2}),
+    ("four", 7): ("reduce(model=2)", 64, {**NONE, "all_reduce": 1},
+                  {**NONE, "all_gather": 2, "all_reduce": 1}),
+    # local rows: no collective over data; under the reduce, the model
+    # axis's alone (dx and j1's slice gathered, the other cores summed)
+    ("two", "split"): ("data=2", 128, NONE, NONE),
+    ("four", "split"): ("data=2+reduce(model=2)", 64, {**NONE, "all_reduce": 1},
+                        {**NONE, "all_gather": 2, "all_reduce": 1}),
 }
 
 
 @pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("key", LAYER_KEYS)
+@pytest.mark.parametrize("key", LAYER_KEYS + SPLIT_KEYS)
 def test_gradient_records_carry_the_mesh_and_per_shard_shape(world, key, request):
-    tokens = int(key.split(":")[1])
+    tokens = key.split(":")[1]
+    tokens = tokens if tokens == "split" else int(tokens)
     mesh, d_in, fwd, bwd = LAYER_PLACEMENT[(world, tokens)]
-    rows = tokens // 2 if tokens % 2 == 0 else tokens
+    rows = 4 if tokens == "split" else tokens // 2 if tokens % 2 == 0 else tokens
     for rank in request.getfixturevalue(world):
         got = rank["train_layers"][key]
         recs = got["records"]
@@ -242,11 +268,23 @@ def test_smoke_loss_and_every_gradient_match_the_reference(world, key, plan_file
         assert {r["phase"] for r in planned} == {"fwd", "bwd"}
         meshes = {r["mesh"] for r in planned}
         if key == "split":
+            # one of the 2 sequences a rank, its 16 rows local
+            assert got["rows"] == 1
             assert meshes == {"data=2" if world == "two" else "data=2+reduce(model=2)"}
+            assert all(r["shard_shape"][0] == 16 for r in planned)
+            assert got["collectives"]["grad_all_reduce"] == 1
+            assert got["bwd_collectives"]["grad_all_reduce"] == 1
+            assert got["collectives"]["all_gather"] == (
+                0 if world == "two" else got["bwd_collectives"]["all_gather"])
+            if world == "two":
+                # the reported loss's sum, and no collective of a projection
+                assert got["collectives"] == {**NONE, "all_reduce": 1,
+                                              "grad_all_reduce": 1}
         elif world == "two":
-            # 15 tokens do not divide: every rank runs the kernels whole
-            assert meshes == {""} and got["collectives"] == {
-                "all_gather": 0, "all_reduce": 0}
+            # 3 sequences do not divide: replicated, and 15 tokens do not
+            # divide either: every rank runs the kernels whole
+            assert got["rows"] == 3
+            assert meshes == {""} and got["collectives"] == NONE
         else:
             assert meshes == {"reduce(model=2)"}
     # every rank ends with the same gradients
