@@ -93,7 +93,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (whether bit for bit is printed); 4 ranks: prefill logits within
    1e-4 x max |logit| (the all-reduce and the repeated-KV attention
    reorder sums; tokens are reported).  A decode step on 2 ranks under
-   the pair's own backends sends the logits' gather alone.  Every rank's
+   the pair's own backends sends the logits' gather alone.  On 4 ranks
+   each rank of a model group holds 2 of the 4 kv heads (its KV-cache
+   bytes exactly half the 2-rank run's), half of d_ff and half of the
+   vocab; a decode step's collectives equal :func:`step_collectives`
+   (PERF.md's formula) and rank 0's layout line names the split.  Every rank's
    records sit at their mesh and per-shard shapes (the local rows), no
    kernel layer runs on the plain executor, every rank launches K1
    (auto) and K2, K3, K4 (tt_gemm); wall seconds and gen tok/s per run
@@ -112,9 +116,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seed: the step-0 loss and grad norm within rel 1e-4 and every leaf
    within the per-leaf bound of 4c; on 2 ranks the losses of steps 1-2
    within rel 1e-4 and, under (a), a step's collectives the loss's
-   all-reduce and the gradients' alone.  A rank's peak
-   ``max_memory_allocated`` over its train run is at most 0.65x the
-   single device's.  Every record of a kernel layer (forward, the remat
+   all-reduce and the gradients' alone; on 4 ranks (the model axis
+   splitting heads, d_ff and the vocab) a step's collectives equal
+   :func:`step_collectives` and the layout line names the split.  A
+   rank's peak ``max_memory_allocated`` over its train run is at most
+   0.65x the single device's, and on 4 ranks below the 2-rank run's.  Every record of a kernel layer (forward, the remat
    recompute, backward) sits at its mesh and per-shard shape, no kernel
    layer runs on the plain executor, every step launches K1 forward and
    dx and K3 (K3 and K5 under tt_gemm); collectives a step, step ms a
@@ -1532,6 +1538,84 @@ def _expected_shards(cfg, reduce: bool) -> dict:
     return out
 
 
+def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
+                     reduce: bool = True) -> dict:
+    """PERF.md's count (section 6) of the collectives of one step of
+    ``cfg`` under ``plan`` (its backends forced to ``backend`` when given)
+    on ``data=2 x model=2``, with ``tt_model_reduce`` or without: a decode
+    step of ``batch`` lanes, or a train step of ``batch`` x ``seq`` (no
+    remat; a ``{"fwd", "bwd"}`` pair).  The layout and each projection's
+    route come from the port's own decisions (``head_layout``,
+    ``ff_split``, ``vocab_split``, ``nn.linear.sharded_route``); the
+    counts a route sends are this formula's.
+
+    Forward all-gathers: each layer's attention output (``kv_major``), its
+    ``wo`` input (``q_block``) and ``wd`` input (d_ff blocks) where the
+    projection does not take its column block; the vocab and the lanes
+    (decode) or the loss's per-token terms (train).  Backward all-gathers:
+    the gradient of every block a rank took (q, k, v under ``kv_major``; q
+    under ``q_block``; up and gate under the d_ff split; the logits).
+    ``q_block`` sums K and V's gradients (one all-reduce a layer).  A
+    row-parallel projection all-reduces its partial output and, backward,
+    all-gathers its input columns (unless it took its block) and its
+    leading core's slice and all-reduces its other cores; a projection
+    whose rows split over ``model`` (SP) all-gathers its output, and
+    backward its rows, and all-reduces its cores.  A train step sums the
+    loss and the gradients over ``data``."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import Mesh, batch_layout, make_rules
+    from repro_torch.models.blocks import attn_spec, mlp_spec
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import head_spec
+    from repro_torch.nn.linear import sharded_route
+    from repro_torch.sharding import ff_split, head_layout, use_rules, vocab_split
+
+    train = step == "train"
+    mesh = Mesh({"data": 2, "model": 2}, {"data": 0, "model": 0}, {})
+    rules = batch_layout(dataclasses.replace(make_rules(
+        cfg, ShapeConfig("cli", seq, batch, step), mesh), tt_model_reduce=reduce), batch)
+    rows = batch // rules.split_dp
+    tokens = rows * seq if train else rows
+    a, m = attn_spec(cfg), mlp_spec(cfg)
+    L = cfg.n_layers
+    specs = [(sp, L) for sp in (a.q_spec, a.k_spec, a.v_spec, a.o_spec, m.up_spec,
+                                m.gate_spec, m.down_spec)]
+    if not cfg.tie_embeddings:
+        specs.append((head_spec(cfg), 1))
+
+    def route(sp) -> str:
+        lp = plan.layer(sp.name) if sp.tensorized else None
+        if lp is not None and backend:
+            lp = lp.with_backend(backend)
+        r = sharded_route(sp, lp, tokens)
+        return "" if r is None else "reduce" if r[1].model_reduce else "tokens" if r[1].axes else ""
+
+    with use_rules(rules):
+        layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
+        ff = ff_split((rows, seq if train else 1), cfg.d_ff)
+        vocab = vocab_split((rows, 1), cfg.vocab)
+        routes = {sp.name: route(sp) for sp, _ in specs}
+    takes = {a.o_spec.name: layout == "q_block", m.down_spec.name: ff}
+    fwd = {"all_gather": L * (layout == "kv_major") + (1 if train else 2) * vocab,
+           "all_reduce": int(train), "grad_all_reduce": 0}
+    bwd = {"all_gather": L * {"kv_major": 3, "q_block": 1, "whole": 0}[layout]
+           + 2 * L * ff + vocab, "all_reduce": L * (layout == "q_block"),
+           "grad_all_reduce": int(train)}
+    for name, owned in takes.items():
+        fwd["all_gather"] += L * (owned and routes[name] != "reduce")
+    for sp, n in specs:
+        if routes[sp.name] == "reduce":
+            fwd["all_reduce"] += n
+            bwd["all_gather"] += n * (2 - takes.get(sp.name, False))
+            bwd["all_reduce"] += n
+        elif routes[sp.name] == "tokens":
+            fwd["all_gather"] += n
+            bwd["all_gather"] += n
+            bwd["all_reduce"] += n
+    return {"fwd": fwd, "bwd": bwd} if train else fwd
+
+
 def shard_rank(out_dir: str) -> int:
     """One rank of the shard phase (``chip_smoke.py --shard-rank DIR``):
     joins the ``gloo`` group, serves through ``launch.serve.run`` under
@@ -1554,10 +1638,12 @@ def shard_rank(out_dir: str) -> int:
     from repro_torch.launch.mesh import make_rules, make_test_mesh
     from repro_torch.models import api
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import whole_logits
     from repro_torch.plan import execution_log, load_plan
     from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
     from repro_torch.serve import ServeEngine
     from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1615,6 +1701,7 @@ def shard_rank(out_dir: str) -> int:
                 m = api(cfg, plan=pre, plan_backend=backend, device=device)
                 params = m.init_params(0)
                 got, _ = m.prefill_full(params, {"tokens": toks}, 48)
+                got = whole_logits(got, cfg.vocab)   # a rank's vocab block, gathered
                 eng = ServeEngine(cfg, params, n_slots=4, max_seq=48,
                                   prompt_bucket=8, prefill_plan=pre,
                                   decode_plan=dec, arch="tt-lm-100m",
@@ -1623,6 +1710,7 @@ def shard_rank(out_dir: str) -> int:
                 reset_collectives()
                 first, step, caches, per_prefill, per_decode = _lane_decode(eng, toks)
                 lanes, rows = eng.lanes, int(caches[0].k.shape[0])
+                cache_bytes = sum(t.numel() * t.element_size() for t in leaves(caches))
             torch.cuda.synchronize(device)
             want = torch.load(spec["logits"][label]).to(device)
             want_dec = torch.load(spec["decode"][label])
@@ -1634,7 +1722,8 @@ def shard_rank(out_dir: str) -> int:
                 "scale": float(want.abs().max())}
             step = torch.from_numpy(step)
             out["decode"][label] = {
-                "lanes": list(lanes), "cache_rows": rows,
+                "lanes": list(lanes), "cache_rows": rows, "cache_bytes": cache_bytes,
+                "kv_heads": int(caches[0].k.shape[2]),
                 "first_equal": first == want_dec["first"],
                 "finite": bool(torch.isfinite(step).all()),
                 "equal": bool(torch.equal(step, want_dec["logits"])),
@@ -1755,9 +1844,13 @@ def shard_phase(device, card: str) -> tuple[dict, list[str]]:
             for stream, plan in (("prefill", pre), ("decode", dec))}
             for label, backend in SHARD_BACKENDS}
         totals = {k: 0 for k in launches.COUNTS}
+        cache_bytes = {}
         for world, reduce in SHARD_RUNS:
             ranks, wall = _spawn_ranks(world, {**spec, "reduce": reduce},
                                        os.path.join(work, f"w{world}"))
+            cache_bytes[world] = {label: [res["decode"][label]["cache_bytes"]
+                                          for res in ranks]
+                                  for label, _ in SHARD_BACKENDS}
             expect = _expected_shards(cfg, reduce)
             for res in ranks:
                 r = res["rank"]
@@ -1816,6 +1909,15 @@ def shard_phase(device, card: str) -> tuple[dict, list[str]]:
                             "all_gather": 1, "all_reduce": 0, "grad_all_reduce": 0}:
                         raise AssertionError(f"2 ranks, rank {r}: a decode step sent "
                                              f"{pc}, not the logits' gather alone")
+                    # the model split: 2 of the 4 kv heads a rank, and the
+                    # decode step's collectives as PERF.md counts them
+                    if world == 4:
+                        want_pc = step_collectives(cfg, dec, dict(SHARD_BACKENDS)[label],
+                                                   "decode", 4, 1)
+                        if dc["kv_heads"] != 2 or pc != want_pc:
+                            raise AssertionError(
+                                f"4 ranks, rank {r}, {label}: {dc['kv_heads']} kv "
+                                f"heads a rank; a decode step sent {pc}, not {want_pc}")
             r0 = ranks[0]
             said = [ln for ln in r0["auto"]["report"].splitlines()
                     if ln.startswith("sharded execution:")]
@@ -1824,7 +1926,9 @@ def shard_phase(device, card: str) -> tuple[dict, list[str]]:
             if not said or f"{world} ranks share one card" not in said[0]:
                 raise AssertionError(f"{world} ranks: rank 0's report lacks the "
                                      f"sharded-execution line: {said}")
-            if not layout or "decode batch split over data=2: 2 of 4 lanes" not in layout[0]:
+            if not layout or "decode batch split over data=2: 2 of 4 lanes" not in layout[0] \
+                    or (world == 4) != ("heads kv_major over model=2: 2 of 4 kv heads a "
+                                        "rank" in layout[0]):
                 raise AssertionError(f"{world} ranks: rank 0's layout line {layout}")
             notes.append(f"{world} ranks sharing one card, not a scaling figure "
                          f"({card}; mesh {'data=2 x model=2, tt_model_reduce' if reduce else 'data=2'}, "
@@ -1854,13 +1958,23 @@ def shard_phase(device, card: str) -> tuple[dict, list[str]]:
                     f"{max(x['max_abs_diff'] for x in dcs):.3e} (max |logit| "
                     f"{dcs[0]['scale']:.3e}); first tokens equal on "
                     f"{sum(x['first_equal'] for x in dcs)}/{len(dcs)}")
-                notes.append(f"    per-shard (mesh, (tokens, d_in)): {shapes}")
+                notes.append(f"    per-shard (mesh, (tokens, d_in)): {shapes}; KV-cache "
+                             f"bytes a rank {cache_bytes[world][label]}")
                 notes.append(
                     f"    gloo collectives: {got['collectives']} in the serve run; "
                     f"per prefill {pc['prefill'][1]}, per decode step "
                     f"{pc['decode'][1]}; launches per prefill "
                     f"{ {k: v for k, v in pc['prefill'][0].items() if v} }, per decode "
                     f"step { {k: v for k, v in pc['decode'][0].items() if v} }")
+        for label, _ in SHARD_BACKENDS:
+            if any(4 * b != 2 * w for b in cache_bytes[4][label]
+                   for w in cache_bytes[2][label]):
+                raise AssertionError(f"{label}: KV-cache bytes a rank on 4 ranks "
+                                     f"{cache_bytes[4][label]} are not half the 2-rank "
+                                     f"run's {cache_bytes[2][label]}")
+        notes.append(f"  KV-cache bytes a rank, 4 ranks / 2 ranks: "
+                     f"{cache_bytes[4]['auto'][0] / cache_bytes[2]['auto'][0]:.3f} "
+                     f"(the kv heads over model=2)")
         return totals, notes
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2030,7 +2144,7 @@ def _layout_step0(cfg, plan, device, batch, rules) -> tuple[float, dict]:
     ``loss_and_grads`` (the loss over the global batch; every gradient
     summed over the batch axes).  Returns the loss and ``{path: fp64
     gradient}``."""
-    from repro_torch.launch.mesh import BatchBlocks, batch_shardings
+    from repro_torch.launch.mesh import LayoutBlocks, batch_shardings
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import api
     from repro_torch.sharding import use_rules
@@ -2041,7 +2155,7 @@ def _layout_step0(cfg, plan, device, batch, rules) -> tuple[float, dict]:
     for p in leaves(params):
         p.requires_grad_(True)
     if rules.batch_split:
-        batch = BatchBlocks(batch_shardings(batch, rules), rules).block(batch)
+        batch = LayoutBlocks(batch_shardings(batch, rules), rules).block(batch)
     with use_rules(rules):
         loss, grads = loss_and_grads(m, params, batch)
     return loss.item(), {k: g.double() for k, g in _named_leaves(grads).items()}
@@ -2121,6 +2235,7 @@ def shard_train_phase(device, card: str) -> tuple[dict, list[str]]:
             single[plan_file] = {"oracle": oracle, "bounds": bounds, "loss0": loss,
                                  "losses": out.losses, "step_s": out.step_s,
                                  "peak_gib": peak}
+        peaks = {}
         for label, world, reduce, plan_file, remat in SHARD_TRAIN_RUNS:
             path = os.path.join(PLANS, plan_file)
             expect = _expected_shards(cfg, reduce)
@@ -2162,6 +2277,11 @@ def shard_train_phase(device, card: str) -> tuple[dict, list[str]]:
                         raise AssertionError(f"{where}: collectives a step "
                                              f"{tr['collectives']}: not the loss's "
                                              "and the gradients' sums alone")
+                if world == 4:
+                    want_c = step_collectives(cfg, load_plan(path), None, "train", 8, 256)
+                    if any(c != want_c for c in tr["collectives"]):
+                        raise AssertionError(f"{where}: collectives a step "
+                                             f"{tr['collectives']}, not {want_c}")
                 share = tr["peak_gib"] / single[plan_file]["peak_gib"]
                 if share > SHARD_TRAIN_PEAK:
                     raise AssertionError(
@@ -2172,6 +2292,11 @@ def shard_train_phase(device, card: str) -> tuple[dict, list[str]]:
                     if not rm["loss_equal"] or rm["n_fwd"] != 2 * rm["n_fwd_plain"] \
                             or rm["n_bwd"] <= 0:
                         raise AssertionError(f"{where}: remat step {rm}")
+            peaks[label] = [res["run"]["peak_gib"] for res in ranks]
+            if world == 4 and max(peaks[label]) >= min(peaks["a"]):
+                raise AssertionError(
+                    f"({label}) the 4-rank peak a rank {peaks[label]} GiB is not below "
+                    f"the 2-rank run's {peaks['a']} GiB")
             r0 = ranks[0]
             tr, s0 = r0["run"], r0["step0"]
             said = [ln for ln in tr["report"].splitlines()
@@ -2179,7 +2304,10 @@ def shard_train_phase(device, card: str) -> tuple[dict, list[str]]:
             layout = [ln for ln in tr["report"].splitlines() if ln.startswith("layout:")]
             if not said or f"{world} ranks share one card" not in said[0]:
                 raise AssertionError(f"({label}) rank 0's report lacks the mesh line: {said}")
-            if layout != ["layout: batch split over data=2: 4 of 8 sequences a rank"]:
+            want_layout = "layout: batch split over data=2: 4 of 8 sequences a rank" + (
+                "; heads kv_major over model=2: 2 of 4 kv heads a rank, d_ff 1024 of "
+                "2048 a rank, vocab 16000 of 32000 a rank" if world == 4 else "")
+            if layout != [want_layout]:
                 raise AssertionError(f"({label}) rank 0's layout line {layout}")
             steady = tr["step_s"][1:]
             notes.append(

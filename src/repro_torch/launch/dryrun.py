@@ -28,17 +28,30 @@ they count the shared attention once where the model applies it
 The layout is the port's (``repro_torch.sharding``): every rank holds the
 whole parameters; where the cell's global batch divides the batch axes
 (``launch/mesh.py::batch_layout``), a rank's step is traced at its block
-of the batch, the block ``batch_shardings`` and ``cache_shardings`` give
-its inputs and caches, as the reference's partitioned step runs it, and
-where it does not, at the whole batch (replicated).  Heads, d_ff and
-experts are not split over the model axis yet: every rank of a model
-group computes the whole of its block.  The AdamW moments of each leaf
+of the batch, the block ``batch_shardings`` and ``applied_cache_shardings``
+give its inputs and caches, as the reference's partitioned step runs it,
+and where it does not, at the whole batch (replicated).  Along the model
+axis the rank computes its block of the attention heads, the KV cache,
+d_ff and the vocab (``repro_torch.sharding``: ``head_layout``,
+``model_dim``), through the same functions as on ranks, their collectives
+over the shape-only group; the SP sequence split, the SSM and WKV heads,
+the encoder-decoder's own sites and the experts stay whole.  The
+projections stay whole too: every rank computes each projection's whole
+output, the LM head's all V logits included, and keeps its block, so a
+rank's FLOPs count the whole head and only the loss is per vocab block.
+So FLOPs, peak and collective bytes are a rank's under the batch and
+model layout as the port runs it, not as the reference's column-split
+projections would.
+The AdamW moments of each leaf
 that ``param_shardings`` splits hold only the rank's block.  No plan is
 installed, as in the reference's cells, so no planned TT projection runs.
 The collectives are the port's, counted at their bytes through
 ``plan/sharded.py::collective`` on the shape-only mesh: a train step
 sums its gradients over the batch axes (one all-reduce a dtype, the
-gradients' bytes) and its loss (4 bytes); an MoE layer sums its router
+gradients' bytes) and its loss (4 bytes); a model group gathers the
+attention output (``kv_major``), the loss's per-token terms and, in the
+backward, the gradients of the blocks it took (``plan/sharded.py``:
+``model_block``, ``model_gather``, ``model_copy``); an MoE layer sums its router
 statistics, or gathers its input where a router group straddles ranks;
 a train step also all-gathers every split leaf back whole after its
 AdamW update (``optim/adamw.py`` through ``ParamShards.gather``), counted
@@ -78,12 +91,12 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.mesh import (
-    BatchBlocks,
+    LayoutBlocks,
     Mesh,
     ParamShards,
+    applied_cache_shardings,
     batch_layout,
     batch_shardings,
-    cache_shardings,
     make_rules,
     small_mesh_shape,
 )
@@ -215,7 +228,9 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
     Returns ``{"flops", "bytes", "memory": {...}, "collectives": {...}}``
     per rank: FLOPs and op bytes of the whole step, the reference's memory
     keys and its collective kinds plus ``total``.  Under the installed
-    rules' ``batch_split`` the inputs and caches are the rank's block.
+    rules the inputs and caches are the rank's block (the batch under
+    ``batch_split``, the kv heads of a KV cache), and the model axis
+    splits the heads, d_ff and the vocab as on ranks.
     """
     m = api(cfg, device="meta")
     specs = _rank_block(cfg, input_specs(cfg, shape))
@@ -273,18 +288,19 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
 
 
 def _rank_block(cfg: ModelConfig, specs: dict) -> dict:
-    """This rank's block of a cell's input specs under the installed rules'
-    ``batch_split`` (``batch_shardings`` of the inputs, ``cache_shardings``
-    of the caches), each a meta tensor of its own; else ``specs``."""
+    """This rank's block of a cell's input specs under the installed rules
+    (``batch_shardings`` of the inputs under ``batch_split``,
+    ``applied_cache_shardings`` of the caches: the batch and the kv heads),
+    each a meta tensor of its own; ``specs`` without a mesh."""
     rules = get_rules()
-    if rules is None or not rules.batch_split:
+    if rules is None or rules.mesh is None:
         return specs
     specs = dict(specs)
     caches = specs.pop("caches", None)
-    out = BatchBlocks(batch_shardings(specs, rules), rules).block(specs)
+    out = LayoutBlocks(batch_shardings(specs, rules), rules).block(specs)
     if caches is not None:
-        out["caches"] = BatchBlocks(cache_shardings(cfg, caches, rules),
-                                    rules).block(caches)
+        out["caches"] = LayoutBlocks(applied_cache_shardings(cfg, caches, rules),
+                                     rules).block(caches)
     return map_tree(lambda t: t.clone(), out)
 
 

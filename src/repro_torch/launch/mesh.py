@@ -27,11 +27,13 @@ gathers an updated block back whole (:mod:`repro_torch.optim.adamw`).
 reference's specs of a step's inputs and decode caches, in the same form.
 The launchers (``launch/serve.py``, ``launch/train.py``) apply their
 batch-axis entries: where the batch axes divide a step's global batch
-(:func:`batch_layout`), :class:`BatchBlocks` hands each rank its block of
+(:func:`batch_layout`), :class:`LayoutBlocks` hands each rank its block of
 the inputs (and each decode lane block its caches), and the rank computes
-the whole model on it (:mod:`repro_torch.sharding`).  Their model-axis entries (heads, channels,
-the SP sequence split of a cache) are kept for parity with the reference
-and not applied yet: along the model axis every rank holds the whole dim.
+the model on it (:mod:`repro_torch.sharding`).  Of the caches' model-axis
+entries the KV caches' heads are applied (:func:`applied_cache_shardings`:
+a rank holds its block of the kv heads, as its attention computes them);
+the SP sequence split of a cache and the recurrent states' and the
+encoder-decoder's cross K/V channels stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -348,6 +350,22 @@ def cache_shardings(cfg: ModelConfig, caches: Any, rules: ShardingRules) -> Any:
         name, (1,) + tuple(t.shape), cfg, rules)[1:], caches)
 
 
+def applied_cache_shardings(cfg: ModelConfig, caches: Any,
+                            rules: ShardingRules) -> Any:
+    """The entries of :func:`cache_shardings` the port applies: the batch
+    entries, and the model entry of a KV cache's heads (the ``kv_major``
+    head layout, ``nn/attention.py``).  The other model entries (the SP
+    sequence split, the SSM and WKV heads, conv channels, token shifts,
+    the encoder-decoder's cross K/V) are held whole: ``None``."""
+    def one(name, t):
+        spec = _cache_pspec(name, (1,) + tuple(t.shape), cfg, rules)[1:]
+        heads = name in ("k", "v") and len(spec) == 4
+        return tuple(None if e == "model" and not (heads and d == 2) else e
+                     for d, e in enumerate(spec))
+
+    return _map_named(one, caches)
+
+
 def batch_shardings(batch: Any, rules: ShardingRules) -> Any:
     """Input batches: leading dim -> the DP axes (when divisible), the rest
     replicated."""
@@ -376,23 +394,58 @@ def batch_layout(rules: ShardingRules, batch: int) -> ShardingRules:
     return dataclasses.replace(rules, batch_split=True)
 
 
-def describe_layout(rules: ShardingRules, batch: int, what: str) -> str:
+def describe_layout(rules: ShardingRules, batch: int, what: str,
+                    cfg: Optional[ModelConfig] = None, seq: int = 1) -> str:
     """The report's words for a step's layout, e.g. ``batch split over
     data=2: 4 of 8 sequences a rank`` or ``replicated: batch 1 does not
-    divide data=2``."""
+    divide data=2``; with ``cfg`` and a model axis over 1, the model split
+    of a step of ``seq`` positions too (:func:`describe_model_split`)."""
     axes = " x ".join(f"{a}={rules.axis_sizes[a]}" for a in rules.batch_axes
                       if rules.axis_sizes.get(a, 1) > 1)
     if rules.batch_split:
-        return (f"batch split over {axes}: {batch // rules.dp} of {batch} "
-                f"{what} a rank")
-    return f"replicated: batch {batch} does not divide {axes}"
+        out = (f"batch split over {axes}: {batch // rules.dp} of {batch} "
+               f"{what} a rank")
+    else:
+        out = f"replicated: batch {batch} does not divide {axes}"
+    if cfg is not None and rules.tp > 1:
+        out += "; " + describe_model_split(cfg, rules, seq)
+    return out
 
 
-class BatchBlocks:
-    """A rank's block of an input or cache tree along the batch-axis entries
-    of ``specs`` (:func:`batch_shardings`, :func:`cache_shardings`), and the
-    whole tree back from every rank's block.  Model-axis entries are not
-    applied: along them every rank holds the whole dim."""
+def describe_model_split(cfg: ModelConfig, rules: ShardingRules,
+                         seq: int = 1) -> str:
+    """What a rank of a model group holds of the heads, d_ff and the
+    vocab in a step of ``seq`` positions (SP's sequence split takes the
+    axis from d_ff), e.g. ``heads kv_major over model=2: 2 of 4 kv heads a
+    rank, d_ff 1024 of 2048 a rank, vocab 16000 of 32000 a rank``."""
+    from repro_torch.sharding import ff_split, head_layout, use_rules, vocab_split
+
+    tp = rules.tp
+    with use_rules(rules):
+        layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
+        ff = ff_split((1, seq), cfg.d_ff)
+        vocab = vocab_split((1, 1), cfg.vocab)
+    where = f"over {rules.model_axis}={tp}"
+    if layout == "kv_major":
+        parts = [f"heads kv_major {where}: {cfg.n_kv_heads // tp} of "
+                 f"{cfg.n_kv_heads} kv heads a rank"]
+    elif layout == "q_block":
+        parts = [f"heads q_block {where}: {cfg.n_heads // tp} of "
+                 f"{cfg.n_heads} query heads a rank"]
+    else:
+        parts = [f"heads whole {where}"]
+    parts.append(f"d_ff {cfg.d_ff // tp} of {cfg.d_ff} a rank" if ff
+                 else "d_ff whole")
+    parts.append(f"vocab {cfg.vocab // tp} of {cfg.vocab} a rank" if vocab
+                 else "vocab whole")
+    return ", ".join(parts)
+
+
+class LayoutBlocks:
+    """A rank's block of an input or cache tree along the entries of
+    ``specs`` it applies (:func:`batch_shardings`,
+    :func:`applied_cache_shardings`: the batch axes, and the model axis),
+    and the whole tree back from every rank's block."""
 
     def __init__(self, specs: Any, rules: ShardingRules):
         self.rules = rules
@@ -401,9 +454,11 @@ class BatchBlocks:
 
     def _dims(self, spec) -> list[tuple[int, tuple[str, ...]]]:
         out = []
+        applied = self.rules.batch_axes + ((self.rules.model_axis,)
+                                           if self.rules.model_axis else ())
         for d, e in enumerate(spec):
             axes = e if isinstance(e, tuple) else (e,) if e else ()
-            if axes and all(a in self.rules.batch_axes for a in axes):
+            if axes and all(a in applied for a in axes):
                 out.append((d, tuple(a for a in self.mesh.shape if a in axes)))
         return out
 

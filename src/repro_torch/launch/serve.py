@@ -17,8 +17,10 @@ the batch axes divide ``--batch`` (the decode width), a rank holds and
 decodes only its block of the lanes and the logits of every lane are
 gathered (``serve/engine.py``); the batch-1 prefill stays replicated, as
 in the reference, and each planned TT projection splits its tokens over
-the ranks (:mod:`repro_torch.plan.sharded`).  The report names each
-phase's layout.  A rank's card is
+the ranks (:mod:`repro_torch.plan.sharded`).  On a model axis over 1
+each rank of a model group computes and caches its block of the heads,
+d_ff and the vocab (:mod:`repro_torch.sharding`).  The report names each
+phase's layout and the model split.  A rank's card is
 ``cuda:{local_rank % device_count}``; the backend is ``nccl`` when every
 rank has a card of its own and ``gloo`` when ranks share one (NCCL refuses
 two ranks on one card) or run on the CPU.  Rank 0 prints the report; every
@@ -231,7 +233,7 @@ def _serve(args, ap, device, ranks: Ranks, tt_model_reduce: bool) -> ServeRun:
               + describe_layout(batch_layout(rules, 1), 1, "prompts")
               + "; decode "
               + describe_layout(batch_layout(rules, args.batch), args.batch,
-                                "lanes"))
+                                "lanes", cfg))
     reset_execution_log()
     t0 = time.perf_counter()
     with use_rules(rules):

@@ -24,8 +24,11 @@ or in a process whose ``torch.distributed`` group is already up, every
 rank makes the same global batches from ``--seed`` under the sharding
 rules of ``make_test_mesh()`` (:mod:`repro_torch.launch.mesh`).  Where the
 batch axes divide ``--batch``, each rank takes its block of every batch
-(``batch_shardings``) and computes the whole model on it, as the
-reference's partitioned step does (``src/repro/launch/train.py:63-65,87``):
+(``batch_shardings``) and computes the model on it, as the reference's
+partitioned step does (``src/repro/launch/train.py:63-65,87``); on a model
+axis over 1 each rank of a model group computes its block of the heads,
+d_ff and the vocab (:mod:`repro_torch.sharding`), the loss is the same on
+every rank of it, and no gradient is summed over it after the backward:
 its loss is its share of the global mean, and the step sums every
 gradient over the batch axes before the clip (``launch/steps.py``).  Where
 they do not, the batch stays replicated and each planned TT projection
@@ -63,7 +66,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import make_pipeline
 from repro_torch.kernels import launches
 from repro_torch.launch.mesh import (
-    BatchBlocks,
+    LayoutBlocks,
     ParamShards,
     batch_layout,
     batch_shardings,
@@ -261,7 +264,8 @@ def _train(args, device, ranks: Ranks, tt_model_reduce: bool) -> TrainRun:
         rules = dataclasses.replace(rules, tt_model_reduce=True)
     rules = batch_layout(rules, args.batch)
     if ranks.world > 1:
-        print("layout: " + describe_layout(rules, args.batch, "sequences"))
+        print("layout: " + describe_layout(rules, args.batch, "sequences", cfg,
+                                           args.seq))
     with use_rules(rules):
         return _loop(args, cfg, device, ranks, rules)
 
@@ -299,7 +303,7 @@ def _loop(args, cfg, device, ranks: Ranks, rules) -> TrainRun:
         batch = {k: torch.from_numpy(v).long()
                  for k, v in pipe.batch(step).items()}
         if rules.batch_split:
-            batch = BatchBlocks(batch_shardings(batch, rules), rules).block(batch)
+            batch = LayoutBlocks(batch_shardings(batch, rules), rules).block(batch)
         batch = {k: v.to(device) for k, v in batch.items()}
         before = launches.snapshot()
         coll = dict(COLLECTIVES), dict(BWD_COLLECTIVES)

@@ -16,6 +16,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.sharding import use_rules
+
 from . import encdec as _encdec
 from . import lm as _lm
 from .config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
@@ -130,11 +132,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
         return batch
     if shape.step == "decode":
         max_seq = s + (cfg.n_frontend_tokens or (256 if cfg.family == "vlm" else 0))
-        return {
-            "token": spec((gb, 1)),
-            "cache_pos": spec(()),
-            "caches": api(cfg, device="meta").init_caches(gb, max_seq),
-        }
+        with use_rules(None):   # the whole caches, as the reference's specs
+            caches = api(cfg, device="meta").init_caches(gb, max_seq)
+        return {"token": spec((gb, 1)), "cache_pos": spec(()), "caches": caches}
     raise ValueError(shape.step)
 
 

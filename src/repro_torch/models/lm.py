@@ -45,7 +45,7 @@ from repro_torch.nn import (
     rmsnorm,
     rmsnorm_init,
 )
-from repro_torch.sharding import get_rules, use_rules
+from repro_torch.sharding import get_rules, use_rules, vocab_split
 from repro_torch.tree import leaves
 from .blocks import (
     attn_spec,
@@ -234,7 +234,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``(B,)`` ``cache_pos``.  VLM: the ``frontend`` prefix (B, P, D) is
     prepended to the token embeddings (prefill only) and its positions are
     cut from the logits.  ``return_hidden`` returns the final-norm hidden
-    states (B, S, D) in place of the logits (the chunked-loss path).
+    states (B, S, D) in place of the logits (the chunked-loss path).  Under
+    rules that split the vocab the logits are this rank's block of it
+    (:func:`apply_head`; :func:`whole_logits` gathers them).
     """
     x = embedding_apply(embed_spec(cfg), params["embed"], tokens)
     n_prefix = 0
@@ -256,22 +258,76 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return apply_head(cfg, params, x), caches, aux
 
 
+def _vocab_split(lead: tuple[int, ...], vocab: int):
+    """:func:`~repro_torch.plan.sharded.model_axis_split` when the installed
+    rules split the vocab of logits ``lead + (vocab,)`` over the model
+    axis (:func:`~repro_torch.sharding.vocab_split`), else None."""
+    from repro_torch.plan.sharded import model_axis_split
+
+    return model_axis_split(get_rules()) if vocab_split(lead, vocab) else None
+
+
 def apply_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The logits of hidden states ``x``: under the installed rules' vocab
+    split this rank's block of the vocab (the head stays whole: the rank
+    takes its block of the output)."""
+    from repro_torch.plan.sharded import model_block
+
     if cfg.tie_embeddings:
-        return head_apply(embed_spec(cfg), params["embed"], x)
-    return linear_apply(head_spec(cfg), params["head"], x)
+        logits = head_apply(embed_spec(cfg), params["embed"], x)
+    else:
+        logits = linear_apply(head_spec(cfg), params["head"], x)
+    split = _vocab_split(tuple(x.shape[:-1]), cfg.vocab)
+    return logits if split is None else model_block(logits, -1, split)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy, in fp32."""
-    logits = logits.to(torch.float32)
+def whole_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Logits of the whole vocab from every rank's block of it (the vocab
+    split of :func:`apply_head`, all-gathered over the model axis), or
+    ``logits`` as they are where they hold the whole vocab already."""
+    from repro_torch.plan.sharded import collective, model_axis_split
+
+    if logits.shape[-1] == vocab:
+        return logits
+    group, _, _ = model_axis_split(get_rules())
+    return collective("all_gather", logits, group, dim=-1)
+
+
+def _token_terms(logits: torch.Tensor, labels: torch.Tensor, vocab: Optional[int]):
+    """Per-token ``(logsumexp, label logit)`` of fp32 ``logits``.  Where the
+    logits are this rank's block of a split vocab of ``vocab``, each rank
+    takes its block's logsumexp and, where it holds the label, its logit;
+    the two are all-gathered over the model axis (2 floats a token a rank)
+    and combined: a logsumexp of the blocks' logsumexps, a sum of the
+    label's logit (0 on the ranks without it).  The loss is then the same
+    on every rank of the group, and the gather's backward hands each rank
+    its block's share."""
+    from repro_torch.plan.sharded import model_axis_split, model_gather
+
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    n = logits.shape[-1]
+    if vocab is None or n == vocab:
+        return lse, torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    split = model_axis_split(get_rules())
+    local = labels.long() - split[1] * n
+    held = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, local.clamp(0, n - 1).unsqueeze(-1)).squeeze(-1)
+    ll = torch.where(held, ll, torch.zeros_like(ll))
+    both = model_gather(torch.stack([lse, ll], dim=-1), -1, split)
+    both = both.unflatten(-1, (split[2], 2))
+    return torch.logsumexp(both[..., 0], dim=-1), both[..., 1].sum(dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean token cross-entropy, in fp32.  ``vocab``: the whole vocab, when
+    ``logits`` may be this rank's block of it (:func:`apply_head`)."""
+    lse, ll = _token_terms(logits.to(torch.float32), labels, vocab)
     return torch.mean(lse - ll)
 
 
 def chunked_cross_entropy(head_fn, hidden: torch.Tensor, labels: torch.Tensor,
-                          chunk: int) -> torch.Tensor:
+                          chunk: int, vocab: Optional[int] = None) -> torch.Tensor:
     """Fused head + cross-entropy over sequence chunks (the reference's
     scan): the live logits are bounded at (B * chunk, V).
 
@@ -280,6 +336,7 @@ def chunked_cross_entropy(head_fn, hidden: torch.Tensor, labels: torch.Tensor,
     and loss run under checkpoint (recomputed in the backward pass, the
     reference's ``jax.checkpoint`` on its scan body), its ``lse - ll``
     summed in fp32 and accumulated chunk by chunk, then divided by B * S.
+    ``vocab`` as for :func:`cross_entropy`.
     """
     b, s, d = hidden.shape
     c = min(chunk, s)
@@ -291,9 +348,7 @@ def chunked_cross_entropy(head_fn, hidden: torch.Tensor, labels: torch.Tensor,
     ls = labels.reshape(tokens // n, n).transpose(0, 1)
 
     def body(h, lab):
-        logits = head_fn(h).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lab.long().unsqueeze(-1)).squeeze(-1)
+        lse, ll = _token_terms(head_fn(h).to(torch.float32), lab, vocab)
         return torch.sum(lse - ll)
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -324,11 +379,11 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
         hidden, _, aux = forward(cfg, params, batch["tokens"],
                                  frontend=batch.get("frontend"), return_hidden=True)
         ce = chunked_cross_entropy(lambda h: apply_head(cfg, params, h), hidden,
-                                   batch["labels"], cfg.loss_chunk)
+                                   batch["labels"], cfg.loss_chunk, cfg.vocab)
         return batch_share(ce + cfg.aux_loss_weight * aux)
     logits, _, aux = forward(cfg, params, batch["tokens"],
                              frontend=batch.get("frontend"))
-    return batch_share(cross_entropy(logits, batch["labels"])
+    return batch_share(cross_entropy(logits, batch["labels"], cfg.vocab)
                        + cfg.aux_loss_weight * aux)
 
 

@@ -9,9 +9,29 @@ over the kv heads (head j serves kv head j % Hkv).
 Under sharding rules with a model axis that the group size does not
 divide, prefill takes the reference's other form, repeated-KV flat heads
 (:func:`_repeat_kv`), as the reference does; the two forms compute the
-same function in another order of operations.  The reference's head and
-sequence layout constraints (``_shard_heads``) change no value and are not
-ported: every rank holds all heads.
+same function in another order of operations.
+
+On a mesh whose model axis splits the heads (the reference's
+``_shard_heads``; :func:`repro_torch.sharding.head_layout`) each rank of
+a model group computes only its block of them; the q/k/v projections
+stay whole and the rank takes its block of their output:
+
+* ``kv_major`` (the kv heads divide the axis): the rank's contiguous block
+  of the kv heads, of K and V and of the KV cache (``_cache_pspec``'s
+  split), and the query heads those kv heads serve, head ``j`` serving kv
+  head ``j % n_kv_heads``: a block along the kv-minor axis of the
+  ``(g, n_kv_heads)`` head grid.  Prefill and decode attention send no
+  collective; the output is all-gathered over the model axis back into
+  head order before ``wo``.  The reference's GSPMD layout gives q
+  contiguous head blocks instead and gathers K and V (or the cache) to
+  serve them; the port holds the same cache blocks and computes the same
+  values without that gather.
+* ``q_block`` (only the query heads divide it): the rank's contiguous
+  block of the query heads, K and V whole on every rank
+  (:func:`~repro_torch.plan.sharded.model_copy`: their partial gradients
+  are summed once).  The output block is ``wo``'s input column block, so
+  ``wo`` takes it as it is under the model reduction.
+* ``whole``: every rank computes every head.
 
 The caches are updated in place: the JAX reference returned new cache
 arrays (donated by the engine), this port writes the new K/V rows into
@@ -26,7 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.sharding import get_rules
+from repro_torch.sharding import get_rules, head_layout
 
 from .linear import LinearSpec, TTConfig, linear_apply, linear_init
 from .rope import apply_rope, rope_for
@@ -93,19 +113,30 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, n_rep * h, d)
 
 
+def _grouped_form(n_heads: int, n_kv_heads: int) -> bool:
+    """The reference's choice of form: grouped when the group size divides
+    the installed rules' model axis (its head sharding can take it), else
+    repeated-KV flat heads."""
+    rules = get_rules()
+    tp = rules.axis_sizes.get(rules.model_axis or "", 1) if rules else 1
+    g = n_heads // n_kv_heads
+    return g > 1 and (tp <= 1 or g % tp == 0)
+
+
 def _chunked_attention(
     q: torch.Tensor,            # (B, Sq, H, Dh)
     k: torch.Tensor,            # (B, Sk, Hkv, Dh) - kv heads not repeated
     v: torch.Tensor,
     causal: bool,
     q_chunk: int,
+    grouped: bool,
     q_offset: int = 0,
 ) -> torch.Tensor:
     """GQA attention over query chunks, fp32 scores.
 
-    Grouped (q heads contract against the raw K/V per kv head) unless the
-    installed rules' model axis does not divide the group size; then, as in
-    the reference, repeated-KV flat heads.
+    ``grouped`` (the layer's :func:`_grouped_form`, which a rank's block of
+    its heads keeps): q heads contract against the raw K/V per kv head;
+    else, as in the reference, repeated-KV flat heads.
     """
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -116,11 +147,7 @@ def _chunked_attention(
         chunk = sq  # a single chunk for ragged sizes
     n_chunks = sq // chunk
     kv_pos = torch.arange(sk, device=q.device)
-    # the reference picks the form its head sharding can take: grouped
-    # when g divides the model axis, else repeated-KV flat heads
-    rules = get_rules()
-    tp = rules.axis_sizes.get(rules.model_axis or "", 1) if rules else 1
-    grouped = g > 1 and (tp <= 1 or g % tp == 0)
+    grouped = grouped and g > 1
     if not grouped and g > 1:
         k = _repeat_kv(k, g)
         v = _repeat_kv(v, g)
@@ -145,6 +172,36 @@ def _chunked_attention(
     return torch.cat(outs, dim=1)
 
 
+def _local_heads(spec: AttentionSpec, layout: str, split, q, k, v):
+    """This rank's heads under ``layout``: q ``(B, S, Hl, Dh)`` and k, v
+    ``(B, S, Hkv_l, Dh)``, local query head ``i`` serving local kv head
+    ``i % Hkv_l``."""
+    from repro_torch.plan.sharded import model_block, model_copy
+
+    if layout == "kv_major":
+        b, s, h, dh = q.shape
+        hkv = spec.n_kv_heads
+        q = model_block(q.reshape(b, s, h // hkv, hkv, dh), 3, split)
+        return (q.reshape(b, s, -1, dh), model_block(k, 2, split),
+                model_block(v, 2, split))
+    if layout == "q_block":
+        k, v = model_copy(split, k, v)
+        return model_block(q, 2, split), k, v
+    return q, k, v
+
+
+def _kv_for_heads(spec: AttentionSpec, layout: str, split, n_local: int, k, v):
+    """K and V for a block of ``n_local`` query heads under ``q_block`` whose
+    heads do not cycle through the kv heads whole: the kv head of each
+    query head (global head ``j`` serves ``j % n_kv_heads``), so that local
+    head ``i`` serves local kv head ``i``; else ``k, v`` as they are."""
+    hkv = spec.n_kv_heads
+    if layout != "q_block" or n_local % hkv == 0:
+        return k, v
+    idx = (split[1] * n_local + torch.arange(n_local, device=k.device)) % hkv
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention_apply(
     spec: AttentionSpec,
     params: dict,
@@ -159,8 +216,12 @@ def attention_apply(
     ``cache_pos``: the prompt's K/V are written at ``cache_pos``).
     Decode: ``x`` is (B, 1, D); each lane writes its new K/V at its own
     ``cache_pos`` entry and attends over its valid prefix, so a lane's
-    output depends only on that lane's cache, token and position.
+    output depends only on that lane's cache, token and position.  Under a
+    model-axis head layout the cache holds this rank's kv heads
+    (:func:`init_kv_cache`).
     """
+    from repro_torch.plan.sharded import model_axis_split, model_gather
+
     b, s, _ = x.shape
     if positions is None:
         base = cache_pos if cache_pos is not None else torch.zeros((), dtype=torch.long)
@@ -169,9 +230,14 @@ def attention_apply(
         positions = base[:, None] + ar[None, :] if base.dim() == 1 else base + ar[None, :]
         positions = torch.broadcast_to(positions, (b, s))
 
+    layout = head_layout(spec.n_heads, spec.n_kv_heads)
+    split = model_axis_split(get_rules()) if layout != "whole" else None
+    grouped = _grouped_form(spec.n_heads, spec.n_kv_heads)   # the layer's form
     q = linear_apply(spec.q_spec, params["wq"], x).reshape(b, s, spec.n_heads, spec.head_dim)
     k = linear_apply(spec.k_spec, params["wk"], x).reshape(b, s, spec.n_kv_heads, spec.head_dim)
     v = linear_apply(spec.v_spec, params["wv"], x).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    q, k, v = _local_heads(spec, layout, split, q, k, v)
+    n_local = q.shape[2]
 
     rp = rope_for(spec.rope)
     if rp is not None:
@@ -179,9 +245,7 @@ def attention_apply(
         q = apply_rope(q, positions, base=base_f, rotary_fraction=frac)
         k = apply_rope(k, positions, base=base_f, rotary_fraction=frac)
 
-    if cache is None:
-        out = _chunked_attention(q, k, v, spec.causal, spec.q_chunk)
-    elif s > 1:
+    if cache is not None and s > 1:
         # prefill-with-cache: write the prompt's K/V at cache_pos and attend
         # over the just-computed K/V
         idx = torch.as_tensor(cache_pos if cache_pos is not None else 0)
@@ -193,7 +257,9 @@ def attention_apply(
         start = int(idx)
         cache.k[:, start:start + s] = k.to(cache.k.dtype)
         cache.v[:, start:start + s] = v.to(cache.v.dtype)
-        out = _chunked_attention(q, k, v, spec.causal, spec.q_chunk)
+    if cache is None or s > 1:
+        out = _chunked_attention(q, *_kv_for_heads(spec, layout, split, n_local, k, v),
+                                 spec.causal, spec.q_chunk, grouped)
     else:
         idx = torch.as_tensor(cache_pos if cache_pos is not None else 0,
                               device=x.device)
@@ -210,24 +276,32 @@ def attention_apply(
             cache.k.index_copy_(1, at, k.to(cache.k.dtype))
             cache.v.index_copy_(1, at, v.to(cache.v.dtype))
             vmask = (kv_pos <= idx)[None, None, None, None, :]
-        hkv = spec.n_kv_heads
-        g = spec.n_heads // hkv
+        ck, cv = _kv_for_heads(spec, layout, split, n_local, cache.k, cache.v)
+        hkv = ck.shape[2]
         scale = 1.0 / math.sqrt(spec.head_dim)
-        qg = q.reshape(b, 1, g, hkv, spec.head_dim)   # interleaved grouping
-        scores = torch.einsum("bqghd,bkhd->bghqk", qg.float(),
-                              cache.k.float()) * scale
+        qg = q.reshape(b, 1, n_local // hkv, hkv, spec.head_dim)   # interleaved
+        scores = torch.einsum("bqghd,bkhd->bghqk", qg.float(), ck.float()) * scale
         scores = torch.where(vmask, scores, torch.full_like(scores, _NEG_INF))
-        probs = torch.softmax(scores, dim=-1).to(cache.v.dtype)
-        out = torch.einsum("bghqk,bkhd->bqghd", probs, cache.v)
-        out = out.reshape(b, 1, spec.n_heads, spec.head_dim)
+        probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+        out = torch.einsum("bghqk,bkhd->bqghd", probs, cv)
 
-    out = out.reshape(b, s, spec.n_heads * spec.head_dim)
-    y = linear_apply(spec.o_spec, params["wo"], out)
+    if layout == "kv_major":
+        # back into head order: (g, Hkv_l) blocks gathered along Hkv
+        out = model_gather(out.reshape(b, s, spec.n_heads // spec.n_kv_heads, -1,
+                                       spec.head_dim), 3, split)
+    out = out.reshape(b, s, -1)
+    y = linear_apply(spec.o_spec, params["wo"], out,
+                     x_split=split if layout == "q_block" else None)
     return y, cache
 
 
 def init_kv_cache(spec: AttentionSpec, batch: int, max_seq: int,
                   dtype: torch.dtype = torch.float32, device="cuda") -> KVCache:
-    shape = (batch, max_seq, spec.n_kv_heads, spec.head_dim)
+    """Zeroed K/V of ``batch`` lanes: under the installed rules' ``kv_major``
+    head layout this rank's block of the kv heads, else all of them."""
+    hkv = spec.n_kv_heads
+    if head_layout(spec.n_heads, hkv) == "kv_major":
+        hkv //= get_rules().tp
+    shape = (batch, max_seq, hkv, spec.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -17,7 +17,11 @@ installed), a kernel-planned projection routes through
 it: under the rules' ``batch_split`` each rank runs the plan's kernel on
 the rows it holds, its block of the batch, with no collective over the
 batch axes; on a replicated batch each rank runs it on its token block
-and collectives rebuild the output.  Where it declines (a replicated
+and collectives rebuild the output.  A caller holding only its column
+block of the input along the model axis (the attention's head block, the
+MLP's d_ff block) passes ``x_split``: the sharded route under the model
+reduction takes that block as its own column block, any other route
+gathers the columns first.  Where it declines (a replicated
 batch whose tokens do not divide), every rank runs the plan's kernel on
 the whole block, which it holds already, and the record carries no mesh.  (The reference falls back to the plain
 executor there, because a global array cannot feed its per-device
@@ -173,6 +177,27 @@ def _shard_decision(tokens: int, in_modes: tuple):
         return None
     decision = shard_decision(rules, tokens, in_modes)
     return None if decision is None else (rules, decision)
+
+
+def runs_on_kernels(lp) -> bool:
+    """Whether a projection planned as ``lp`` runs on the plan's kernels,
+    forward or backward (a ``jnp`` forward with kernel backward ops too),
+    rather than on the plain executor."""
+    from repro_torch.plan.executor import has_kernel_backward
+
+    return lp is not None and (lp.backend != "jnp" or has_kernel_backward(lp))
+
+
+def sharded_route(spec: LinearSpec, lp, tokens: int):
+    """The installed rules and their decision for the sharded route that
+    ``spec``, planned as ``lp``, takes on ``tokens`` rows, or ``None``
+    where it takes none: on the plain executor, on one rank, or where
+    :func:`shard_decision` declines.  Under ``decision.model_reduce`` the
+    route takes a caller's column block of ``d_in`` (``x_split``) as its
+    own; every other projection gathers it first."""
+    if not (spec.tensorized and runs_on_kernels(lp)):
+        return None
+    return _shard_decision(tokens, spec.in_modes)
 
 
 # ---------------------------------------------------------------------------
@@ -353,33 +378,45 @@ def linear_apply(
     x: torch.Tensor,
     *,
     path_index: Optional[int] = None,
+    x_split=None,
 ) -> torch.Tensor:
     """y = x @ W + b with x: (..., d_in) -> (..., d_out).
 
     An explicit ``path_index`` bypasses the installed plan: the plain
     executor contracts that entry of the top-K list.
+
+    ``x_split`` (:func:`repro_torch.plan.sharded.model_axis_split`): ``x``
+    is this rank's contiguous block of the ``d_in`` columns along the
+    model axis, ``(..., d_in / tp)``.  A kernel-planned projection under
+    the model reduction whose column block is exactly that block takes it
+    as it is (no gather; its gradient stays the block's); any other
+    projection, a dense one included, all-gathers the columns first.
     """
     lead = tuple(x.shape[:-1])
+    tokens = math.prod(lead)
+    lp = (planned_layer(spec.name) if spec.tensorized and path_index is None
+          else None)
+    sharded = sharded_route(spec, lp, tokens)
+    if x_split is not None and not (sharded is not None and sharded[1].model_reduce):
+        from repro_torch.plan.sharded import model_gather
+
+        x, x_split = model_gather(x, -1, x_split), None
     if not spec.tensorized:
         y = torch.einsum("...i,io->...o", x, params["w"])
     else:
         if _CAPTURE is not None:
             _CAPTURE.setdefault(spec.name, []).append(float(torch.sqrt(
                 torch.mean(torch.square(x.detach().to(torch.float32))))))
-        lp = planned_layer(spec.name) if path_index is None else None
         n_cores = len(spec.out_modes) + len(spec.in_modes)
-        from repro_torch.plan.executor import (has_kernel_backward,
-                                               planned_tt_linear)
-
-        if lp is not None and (lp.backend != "jnp" or has_kernel_backward(lp)):
+        if runs_on_kernels(lp):
             # planned kernel execution, forward or backward (a jnp forward
             # with kernel backward ops too): flatten to (tokens, d_in) and
             # route through the plan's CUDA kernels, differentiable; locally
             # on one rank, per token block across ranks
-            tokens = math.prod(lead) if lead else 1
+            from repro_torch.plan.executor import planned_tt_linear
+
             cores = [params[f"core{k}"] for k in range(n_cores)]
-            x2d = x.reshape(tokens, spec.d_in)
-            sharded = _shard_decision(tokens, spec.in_modes)
+            x2d = x.reshape(tokens, x.shape[-1])
             if sharded is None:
                 y2d = planned_tt_linear(
                     lp, x2d, cores, spec.in_modes, spec.out_modes, spec.tt_ranks,
@@ -390,7 +427,7 @@ def linear_apply(
                 rules, decision = sharded
                 y2d = sharded_tt_linear(
                     lp, x2d, cores, spec.in_modes, spec.out_modes, spec.tt_ranks,
-                    rules=rules, decision=decision,
+                    rules=rules, decision=decision, x_block=x_split is not None,
                 )
             y = y2d.reshape(lead + (spec.d_out,)).to(x.dtype)
             if spec.bias:

@@ -1,5 +1,14 @@
 """Feed-forward blocks: SwiGLU / GELU, dense or TT-factorized (port of
-``nn/mlp.py``)."""
+``nn/mlp.py``).
+
+Where the installed rules split d_ff over the model axis (the reference's
+``("batch", "seq", "model")`` on the up and gate outputs;
+:func:`repro_torch.sharding.ff_split`: not under SP, whose sequence
+takes the axis first), each rank of a model group takes its block of the
+up and gate outputs, runs the activation on it, and hands the block to
+``wd``, which takes it as its column block under the model reduction and
+gathers it otherwise (:func:`repro_torch.nn.linear.linear_apply`).
+"""
 
 from __future__ import annotations
 
@@ -8,6 +17,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import ff_split, get_rules
 
 from .linear import LinearSpec, TTConfig, linear_apply, linear_init
 
@@ -44,13 +55,22 @@ def mlp_init(spec: MLPSpec, generator: torch.Generator,
 
 
 def mlp_apply(spec: MLPSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
-    up = linear_apply(spec.up_spec, params["wu"], x)
+    from repro_torch.plan.sharded import model_axis_split, model_block
+
+    split = None
+    if ff_split(x.shape[:-1], spec.d_ff):
+        split = model_axis_split(get_rules())
+
+    def block(t):
+        return t if split is None else model_block(t, -1, split)
+
+    up = block(linear_apply(spec.up_spec, params["wu"], x))
     if spec.kind == "swiglu":
-        gate = linear_apply(spec.gate_spec, params["wg"], x)
+        gate = block(linear_apply(spec.gate_spec, params["wg"], x))
         h = F.silu(gate) * up
     elif spec.kind == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(spec.kind)
-    return linear_apply(spec.down_spec, params["wd"], h)
+    return linear_apply(spec.down_spec, params["wd"], h, x_split=split)

@@ -34,6 +34,7 @@ from .linear import (
     linear_apply,
     linear_init,
     planned_layer,
+    runs_on_kernels,
     shape_only,
 )
 from .mlp import MLPSpec, mlp_apply, mlp_init
@@ -97,10 +98,7 @@ def moe_init(spec: MoESpec, generator: torch.Generator,
 
 
 def _runs_a_kernel(spec: LinearSpec) -> bool:
-    from repro_torch.plan.executor import has_kernel_backward
-
-    lp = planned_layer(spec.name)
-    return lp is not None and (lp.backend != "jnp" or has_kernel_backward(lp))
+    return runs_on_kernels(planned_layer(spec.name))
 
 
 def _experts_linear(spec: LinearSpec, stacked: dict, x: torch.Tensor,

@@ -44,6 +44,14 @@ whose backward hands every such rank the *whole* gradient of that block
 * core j1's column slice: the backward ``all_reduce``s it over the token
   axes, then ``all_gather``s the slices along dim 1 over the model axis.
 
+The model axis's own splits (:func:`model_block`, :func:`model_gather`,
+:func:`model_copy`: a rank's block of the heads, d_ff and the vocab) follow
+the same rule: taking a block all-gathers its gradient, gathering the
+blocks takes the rank's block of the gradient, and a tensor every rank of
+the group uses whole but differentiates only in part sums its gradient
+once.  A projection handed its column block (``x_block``) returns that
+block's dx and gathers nothing over the model axis.
+
 Under ``batch_split`` each block of the batch has its own loss, and the
 train step sums every gradient over the batch axes once, after the
 backward (``launch/steps.py``): a core gradient summed here over the data
@@ -198,18 +206,19 @@ class _TakeBlock(torch.autograd.Function):
         return g, None, None, None, None, None
 
 
-class _GatherRows(torch.autograd.Function):
-    """The row blocks of every rank of ``group``, concatenated; the
-    backward takes this rank's rows of the (replicated) gradient."""
+class _GatherBlocks(torch.autograd.Function):
+    """The blocks along ``dim`` of every rank of ``group``, concatenated;
+    the backward takes this rank's block of the (replicated) gradient,
+    with no sum: every rank's loss reads the whole of it."""
 
     @staticmethod
-    def forward(ctx, t, index: int, group: Any):
-        ctx.index, ctx.rows = index, t.shape[0]
-        return collective("all_gather", t, group)
+    def forward(ctx, t, dim: int, index: int, group: Any):
+        ctx.dim, ctx.index, ctx.size = dim, index, t.shape[dim]
+        return collective("all_gather", t, group, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
 
 
 class _SumPartials(torch.autograd.Function):
@@ -260,6 +269,7 @@ def sharded_tt_linear(
     *,
     rules,
     decision: ShardDecision,
+    x_block: bool = False,
 ) -> torch.Tensor:
     """Planned TT projection over the ranks: per-shard kernel execution.
 
@@ -270,10 +280,17 @@ def sharded_tt_linear(
     shape; cores are replicated, except the leading input core under
     ``model_reduce``, of which each rank of the model group takes its
     slice.
+
+    ``x_block``: ``x2d`` is already this rank's column block along the
+    model axis, ``(tokens, d_in / tp)``, the leading input mode's slice
+    (``decision.model_reduce`` must hold): it is taken as it is, and its
+    gradient is this block's alone (nothing gathered over the model axis).
     """
+    if x_block and not decision.model_reduce:
+        raise ValueError("a column block of x needs the model reduction")
     in_modes, out_modes, ranks = tuple(in_modes), tuple(out_modes), tuple(ranks)
     mesh = rules.mesh
-    tokens, d_in = int(x2d.shape[0]), int(x2d.shape[1])
+    tokens = int(x2d.shape[0])
     shard_tokens = tokens // decision.n_shards
     token_group = mesh.group(decision.axes) if decision.axes else None
     index = mesh.index(decision.axes)
@@ -295,7 +312,8 @@ def sharded_tt_linear(
         # ordered out_modes then in_modes, so j1's core sits at index
         # len(out_modes), its mode along dim 1 (interior (r, m, r) and
         # final (r, m) cores alike)
-        xs = _TakeBlock.apply(xs, 1, m, tp, model_group)
+        if not x_block:
+            xs = _TakeBlock.apply(xs, 1, m, tp, model_group)
         j1 = len(out_modes)
         cores[j1] = _TakeBlock.apply(cores[j1], 1, m, tp, model_group,
                                      token_group)
@@ -313,7 +331,7 @@ def sharded_tt_linear(
     if decision.model_reduce:
         y = _SumPartials.apply(y, model_group)
     if decision.axes:
-        y = _GatherRows.apply(y, index, token_group)
+        y = _GatherBlocks.apply(y, 0, index, token_group)
     return y
 
 
@@ -371,3 +389,43 @@ def gather_batch(t: torch.Tensor, group: Any, index: int) -> torch.Tensor:
 def sum_over_ranks(t: torch.Tensor, group: Any) -> torch.Tensor:
     """The sum of ``t`` over the ranks of ``group``, differentiable."""
     return _SumOverRanks.apply(t, group)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: a rank's block of heads, d_ff and the vocab
+# ---------------------------------------------------------------------------
+
+def model_axis_split(rules) -> Optional[tuple[Any, int, int]]:
+    """``(group, index, tp)`` of the model axis when ``rules`` have a mesh
+    and a model axis over 1: its process group (a
+    :class:`~repro_torch.sharding.ShapeGroup` on the dry run's mesh), this
+    rank's coordinate on it (the block of a split dim it holds, the same
+    coordinate the reduce's column block takes) and its size; else None."""
+    if rules is None or rules.mesh is None or rules.tp <= 1:
+        return None
+    ma = rules.model_axis
+    return rules.mesh.group((ma,)), int(rules.mesh.coords[ma]), rules.tp
+
+
+def model_block(t: torch.Tensor, dim: int, split) -> torch.Tensor:
+    """This rank's contiguous block of ``t`` along ``dim`` (``split``:
+    :func:`model_axis_split`); the backward all-gathers the blocks'
+    gradients over the model axis, so every rank holds the whole one."""
+    group, index, tp = split
+    return _TakeBlock.apply(t, dim, index, tp, group)
+
+
+def model_gather(t: torch.Tensor, dim: int, split) -> torch.Tensor:
+    """Every rank's block ``t`` along ``dim``, all-gathered over the model
+    axis; the backward takes this rank's block, with no sum (the loss is
+    the same on every rank of the group)."""
+    group, index, _ = split
+    return _GatherBlocks.apply(t, dim, index, group)
+
+
+def model_copy(split, *ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``ts`` as they are, for tensors every rank of the model group uses
+    whole but whose gradients each rank computes only in part (K and V
+    under a block of the query heads): the backward sums them over the
+    model axis, all in one flat all-reduce."""
+    return _Replicated.apply(split[0], *ts)

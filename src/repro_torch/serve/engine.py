@@ -31,7 +31,12 @@ which every rank runs the same way, samples identically.  The batch-1
 prefill runs on every rank, replicated as in the reference (a planned
 projection splits its tokens), and :meth:`ServeEngine.admit` keeps a
 lane only on the rank that owns it.  Where the batch axes do not divide
-``n_slots`` every rank holds every lane.
+``n_slots`` every rank holds every lane.  On a model axis over 1 a rank's
+caches hold its block of the kv heads where they divide the axis (the
+model entry of ``cache_shardings``: ``applied_cache_shardings``), the
+prefill writes that block and ``admit`` copies it; the logits, a block of
+the vocab on each rank, are gathered over the model axis before the
+host samples them, so the scheduler still sees ``(n_slots, V)``.
 
 Caches: where the JAX engine donated its cache buffers to each jitted
 step, attention layers here write new K/V rows into the cache tensors in
@@ -48,8 +53,9 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import BatchBlocks, batch_layout, cache_shardings
+from repro_torch.launch.mesh import LayoutBlocks, applied_cache_shardings, batch_layout
 from repro_torch.models import ModelConfig, api
+from repro_torch.models.lm import whole_logits
 from repro_torch.nn import plan_context
 from repro_torch.plan import ExecutionPlan, execution_stream
 from repro_torch.plan.compiler import check_plan_for_config
@@ -173,19 +179,23 @@ class ServeEngine:
                 logits, caches = self._m.prefill_full(
                     self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
                     self.max_seq)
-        return logits[0, p - 1].float().cpu().numpy(), caches
+                row = whole_logits(logits[:, p - 1], self.cfg.vocab)
+        return row[0].float().cpu().numpy(), caches
 
     def fresh_caches(self):
         """Zeroed decode caches of this rank's lanes (every lane on one
-        rank), the rank's block of the width-``n_slots`` caches'
-        ``cache_shardings``."""
+        rank) and kv heads, the rank's block of the width-``n_slots``
+        caches' ``applied_cache_shardings``."""
         lo, hi = self.lanes
-        caches = self._m.init_caches(hi - lo, self.max_seq)
-        if self._group is not None:
-            whole = api(self.cfg, device="meta").init_caches(self.n_slots,
-                                                             self.max_seq)
-            blocks = BatchBlocks(cache_shardings(self.cfg, whole, self._decode_rules),
-                                 self._decode_rules)
+        rules = self._decode_rules
+        with use_rules(rules):
+            caches = self._m.init_caches(hi - lo, self.max_seq)
+        if rules is not None and rules.mesh is not None:
+            with use_rules(None):
+                whole = api(self.cfg, device="meta").init_caches(self.n_slots,
+                                                                 self.max_seq)
+            blocks = LayoutBlocks(applied_cache_shardings(self.cfg, whole, rules),
+                                  rules)
             want = [t.shape for t in leaves(blocks.block(whole))]
             got = [t.shape for t in leaves(caches)]
             if want != got:
@@ -208,8 +218,9 @@ class ServeEngine:
         ``tok``/``pos`` are ``(n_slots,)`` host arrays (free lanes pass 0).
         Returns ``(logits (n_slots, V) np.ndarray, caches)``: K/V rows are
         written in place, recurrent states are new, so the caller uses the
-        returned tree.  A rank runs its lanes; the logits of every lane
-        are gathered over the batch axes.
+        returned tree.  A rank runs its lanes; the logits are gathered
+        over the model axis (the vocab) and over the batch axes (every
+        lane).
         """
         lo, hi = self.lanes
         with plan_context(self.decode_plan, force_backend=self._plan_backend):
@@ -223,6 +234,7 @@ class ServeEngine:
                     caches,
                     torch.as_tensor(np.asarray(pos, np.int64)[lo:hi],
                                     device=self.device))
+                logits = whole_logits(logits, self.cfg.vocab)
         if self._group is not None:
             logits = collective("all_gather", logits, self._group)
         return logits.float().cpu().numpy(), caches

@@ -27,8 +27,20 @@ the batch axes (:mod:`repro_torch.plan.sharded`); under
 Where the batch does not divide, the dim stays replicated, as in the
 reference: every rank holds the whole batch, and only a planned TT
 projection splits its flattened tokens over the batch axes and gathers
-them back.  Heads, d_ff and experts are not split over the model axis
-yet, so :func:`shard` checks its axes and returns its input unchanged.
+them back.
+
+Along the model axis (a mesh with ``model > 1``) each rank of a model
+group holds and computes only its block of the dims the reference tags
+``"model"``, where :meth:`ShardingRules.partition_spec` gives them the
+axis: the attention heads (:func:`head_layout`: the KV cache's kv-head
+block, or a block of the query heads), the MLP's d_ff and the vocab of
+the logits (:func:`model_dim`).  The projections that make those dims
+stay whole on every rank (the reference's planned routes have no
+column-parallel matmul): the rank takes its block of their output, and
+the blocks are gathered where a whole dim is needed again.  The SP
+sequence split (``"seq"``), the SSM and WKV heads, the encoder-decoder's
+own sites and the experts stay whole, so :func:`shard` checks its axes
+and returns its input unchanged.
 """
 
 from __future__ import annotations
@@ -70,6 +82,11 @@ class ShardingRules:
     def dp(self) -> int:
         """The product of the batch axes' sizes."""
         return math.prod(self.axis_sizes.get(a, 1) for a in self.batch_axes)
+
+    @property
+    def tp(self) -> int:
+        """The model axis's size (1 without one)."""
+        return int(self.axis_sizes.get(self.model_axis, 1)) if self.model_axis else 1
 
     @property
     def split_dp(self) -> int:
@@ -162,13 +179,59 @@ def use_rules(rules: Optional[ShardingRules]):
         set_rules(prev)
 
 
+def model_dim(shape: Sequence[int], *logical_axes) -> Optional[int]:
+    """The dim of a tensor of ``shape`` (the rank's block along the batch
+    axes under ``batch_split``) that the installed rules split over the
+    model axis, as :meth:`ShardingRules.partition_spec` places the
+    reference's logical names, or None.  Only rules with a mesh split."""
+    rules = get_rules()
+    if rules is None or rules.mesh is None or rules.tp <= 1:
+        return None
+    shape = list(shape)
+    if shape and logical_axes[0] in ("batch", "tokens"):
+        shape[0] *= rules.split_dp      # the global batch decides, as there
+    spec = rules.partition_spec(shape, logical_axes)
+    return next((d for d, e in enumerate(spec) if e == rules.model_axis), None)
+
+
+def ff_split(lead: Sequence[int], d_ff: int) -> bool:
+    """Whether the installed rules split the d_ff dim of MLP activations
+    ``lead + (d_ff,)`` over the model axis: the reference's ``("batch",
+    "seq", "model")`` (``nn/mlp.py``), whole under SP, whose sequence
+    takes the axis first."""
+    return model_dim((*lead, d_ff), "batch", "seq", "model") == len(lead)
+
+
+def vocab_split(lead: Sequence[int], vocab: int) -> bool:
+    """Whether the installed rules split the vocab of logits ``lead +
+    (vocab,)`` over the model axis: the reference's ``("batch", None,
+    "model")``, or ``("tokens", "model")`` on the chunked loss's 2-d
+    logits."""
+    names = ("tokens", "model") if len(lead) == 1 else ("batch", None, "model")
+    return model_dim((*lead, vocab), *names) == len(lead)
+
+
+def head_layout(n_heads: int, n_kv_heads: int) -> str:
+    """How a layer's attention heads go over the installed rules' model
+    axis: ``"kv_major"`` when the kv heads divide it (each rank its block
+    of the kv heads, the KV cache's own split, and the query heads they
+    serve), ``"q_block"`` when only the query heads do (each rank its
+    block of them, K and V whole), ``"whole"`` otherwise (the reference's
+    ``_shard_heads``: ``("batch", None, "model", None)`` on q, k, v)."""
+    if model_dim((1, 1, n_kv_heads, 1), "batch", None, "model", None) == 2:
+        return "kv_major"
+    if model_dim((1, 1, n_heads, 1), "batch", None, "model", None) == 2:
+        return "q_block"
+    return "whole"
+
+
 def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """The reference's sharding constraint: one logical name per dim.
 
     Checks the names against the rank of ``x`` when rules are installed and
     returns ``x`` unchanged: a tensor a rank holds is already its block of
     the batch under ``batch_split`` (the launcher split the inputs), and the
-    model axis does not split activations yet.
+    model axis is applied where a dim is split (:func:`model_dim`).
     """
     if get_rules() is not None and len(logical_axes) != x.dim():
         raise ValueError(f"{len(logical_axes)} axes for rank-{x.dim()} array")

@@ -190,6 +190,7 @@ def body_serve(spec: dict) -> dict:
     from repro_torch.launch.mesh import make_rules, make_test_mesh
     from repro_torch.models import api
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import whole_logits
     from repro_torch.nn import plan_context
     from repro_torch.plan import execution_log, load_plan
     from repro_torch.sharding import use_rules
@@ -214,7 +215,9 @@ def body_serve(spec: dict) -> dict:
     m = api(cfg, device="cpu")
     params = torch.load(spec["params"], weights_only=False)
     with use_rules(rules), plan_context(plan), torch.no_grad():
-        out["logits"], _ = m.prefill_full(params, {"tokens": toks}, 16)
+        logits, _ = m.prefill_full(params, {"tokens": toks}, 16)
+        # on a model axis a rank holds its block of the vocab
+        out["logits"] = whole_logits(logits, cfg.vocab)
     return out
 
 
@@ -406,11 +409,11 @@ def _model_rules(cfg, key: str, reduce: bool):
 def rank_block(batch: dict, rules) -> dict:
     """This rank's block of ``batch`` under ``rules``' batch layout (the
     whole batch where it stays replicated)."""
-    from repro_torch.launch.mesh import BatchBlocks, batch_shardings
+    from repro_torch.launch.mesh import LayoutBlocks, batch_shardings
 
     if not rules.batch_split:
         return batch
-    return BatchBlocks(batch_shardings(batch, rules), rules).block(batch)
+    return LayoutBlocks(batch_shardings(batch, rules), rules).block(batch)
 
 
 def body_train_model(spec: dict) -> dict:
@@ -583,7 +586,8 @@ def smoke_step0(plan_file: str, device, rules=None) -> dict:
 def body_cuda_train(spec: dict) -> dict:
     """:func:`smoke_step0` on the card the ranks share, under each smoke
     train plan and the ranks' rules (the batch of 2 split: a sequence a
-    rank)."""
+    rank; on 4 ranks the model axis splits the heads, d_ff and the vocab,
+    with ``tt_model_reduce`` as ``spec["reduce"]`` says)."""
     device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
                           % torch.cuda.device_count())
     torch.cuda.set_device(device)
@@ -592,7 +596,7 @@ def body_cuda_train(spec: dict) -> dict:
     from repro_torch.configs import get_config
 
     cfg = get_config("tt-lm-100m", smoke=True)
-    return {f: smoke_step0(f, device, _model_rules(cfg, "split", False))
+    return {f: smoke_step0(f, device, _model_rules(cfg, "split", spec.get("reduce", False)))
             for f in TRAIN_PLANS}
 
 
@@ -731,9 +735,9 @@ def body_rwkv(spec: dict) -> dict:
     weights saved at ``spec["rwkv_params"]``: the train step's loss and
     gradients (``loss_and_grads``), and a prefill of the rank's block then
     one decode step: the logits and every recurrent state gathered back
-    over ``data`` (``BatchBlocks.gather``), and the rank's state rows."""
+    over ``data`` (``LayoutBlocks.gather``), and the rank's state rows."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import (BatchBlocks, batch_layout, cache_shardings,
+    from repro_torch.launch.mesh import (LayoutBlocks, batch_layout, cache_shardings,
                                          make_rules, make_test_mesh)
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import api
@@ -758,9 +762,9 @@ def body_rwkv(spec: dict) -> dict:
             step, caches = m.decode_step(params, local["next"][:, :1], caches,
                                          torch.tensor(s))
         whole = api(cfg, device="meta").init_caches(b, s + 1)
-        blocks = BatchBlocks(cache_shardings(cfg, whole, rules), rules)
+        blocks = LayoutBlocks(cache_shardings(cfg, whole, rules), rules)
         states = blocks.gather(caches)
-        gathered = BatchBlocks(((rules.batch_axes, None),), rules).gather(
+        gathered = LayoutBlocks(((rules.batch_axes, None),), rules).gather(
             (torch.cat([logits[:, -1], step], dim=1),))[0]
     return {"loss": float(loss), "grads": named_leaves(grads),
             "batch_split": rules.batch_split,
@@ -769,7 +773,138 @@ def body_rwkv(spec: dict) -> dict:
             "logits": gathered}
 
 
-BODIES = {"linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
+# ---------------------------------------------------------------------------
+# the model axis: heads, KV cache, d_ff and vocab split over ``model``
+# ---------------------------------------------------------------------------
+
+#: tt-lm-smoke's overrides of each head layout on ``model=2``: kv_major (1
+#: of 2 kv heads a rank), q_block (1 kv head: 2 of 4 query heads a rank)
+#: and whole (one head)
+MODEL_AXIS_CONFIGS = {"kv_major": {}, "q_block": {"n_kv_heads": 1},
+                      "whole": {"n_heads": 1, "n_kv_heads": 1, "head_dim": 256}}
+#: (head layout, pair, tt_model_reduce) of each case
+MODEL_AXIS_CASES = tuple(("kv_major", pair, reduce) for pair in ("auto", "tt_gemm")
+                         for reduce in (False, True)) + (
+    ("q_block", "auto", True), ("whole", "auto", True))
+#: the serving plan (prefill and decode) and the train plan of each pair
+MODEL_AXIS_PLANS = {"auto": ("tt-lm-smoke.json", TRAIN_PLANS[0]),
+                    "tt_gemm": ("tt-lm-smoke.tt_gemm.json", TRAIN_PLANS[1])}
+#: the families whose one forward runs on the model axis: (B, S) tokens and,
+#: for the encoder-decoder, its frames
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "seamless-m4t-medium")
+FAMILY_BATCH, FAMILY_FRAMES = (2, 8), 12
+
+
+def model_axis_cfg(label: str):
+    from repro_torch.configs import get_config
+
+    return get_config("tt-lm-100m", smoke=True).with_(**MODEL_AXIS_CONFIGS[label])
+
+
+def family_inputs(cfg) -> dict:
+    rng = np.random.default_rng(31)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=FAMILY_BATCH))}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (FAMILY_BATCH[0], FAMILY_FRAMES, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def family_logits(arch: str, params: dict) -> torch.Tensor:
+    """One forward of ``arch``'s smoke config on ``params`` (no plan, the
+    batch replicated) under the installed rules: the prefill's logits,
+    the vocab whole (every position for the causal LMs, the last for the
+    encoder-decoder)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.lm import whole_logits
+
+    cfg = get_config(arch, smoke=True)
+    m = api(cfg, device="cpu")
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            return m.prefill(params, family_inputs(cfg), FAMILY_BATCH[1])[0]
+        logits, _ = m.prefill_full(params, family_inputs(cfg), FAMILY_BATCH[1])
+        return whole_logits(logits, cfg.vocab)
+
+
+def body_model_axis(spec: dict) -> dict:
+    """Each case of :data:`MODEL_AXIS_CASES` on the weights saved at
+    ``spec["params"][layout]``: a 2-lane ``ServeEngine`` (two prompts
+    prefilled at batch 1 and admitted, one decode step of this rank's lane;
+    the whole logits, the first tokens, the rank's cache leaf shapes and
+    the step's collectives), then step 0 of training on the split batch
+    through ``loss_and_grads`` (loss, every gradient leaf, the step's
+    collectives).  Then one forward of each of :data:`FAMILY_ARCHS` on the
+    weights saved at ``spec["params"][arch]``."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import batch_layout, make_rules, make_test_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    mesh = make_test_mesh()
+    out = {"coords": dict(mesh.coords), "cases": {}, "families": {}}
+    for label, pair, reduce in MODEL_AXIS_CASES:
+        cfg = model_axis_cfg(label)
+        serve_plan, train_plan = (load_plan(str(PLANS / f))
+                                  for f in MODEL_AXIS_PLANS[pair])
+        params = torch.load(spec["params"][label], weights_only=False)
+        rules = dataclasses.replace(make_rules(
+            cfg, ShapeConfig("t", LANE_MAX_SEQ, 2, "decode"), mesh),
+            tt_model_reduce=reduce)
+        case = {}
+        with use_rules(rules), torch.no_grad():
+            eng = ServeEngine(cfg, params, n_slots=2, max_seq=LANE_MAX_SEQ,
+                              prompt_bucket=8, prefill_plan=serve_plan,
+                              decode_plan=serve_plan)
+            caches = eng.fresh_caches()
+            rows, first = [], []
+            for lane, prompt in enumerate(lane_prompts(cfg.vocab)):
+                row, small = eng.prefill_request(prompt.tolist())
+                caches = eng.admit(caches, small, lane)
+                rows.append(torch.from_numpy(row))
+                first.append(int(np.argmax(row)))
+            reset_collectives()
+            step, caches = eng.decode(np.array(first), np.full(2, LANE_PROMPT_LEN),
+                                      caches)
+            case["decode_collectives"] = dict(COLLECTIVES)
+        case.update(prefill=torch.stack(rows), first=first,
+                    decode=torch.from_numpy(step),
+                    cache_shapes=[tuple(t.shape) for t in leaves(caches)])
+        rules = batch_layout(dataclasses.replace(make_rules(
+            cfg, ShapeConfig("t", 16, 2, "train"), mesh), tt_model_reduce=reduce), 2)
+        batch = rank_block({k: torch.from_numpy(v) for k, v in
+                            _model_batch(cfg, "split").items()}, rules)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        reset_collectives()
+        with plan_context(train_plan), use_rules(rules):
+            loss, grads = loss_and_grads(api(cfg, device="cpu"), params, batch)
+        bwd = dict(BWD_COLLECTIVES)
+        case.update(loss=float(loss), grads=named_leaves(grads), train_collectives={
+            "fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()}, "bwd": bwd})
+        out["cases"][f"{label}:{pair}:{reduce}"] = case
+    for arch in FAMILY_ARCHS:
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch, smoke=True)
+        with use_rules(make_rules(cfg, ShapeConfig("t", FAMILY_BATCH[1], FAMILY_BATCH[0],
+                                                   "prefill"), mesh)):
+            out["families"][arch] = family_logits(
+                arch, torch.load(spec["params"][arch], weights_only=False))
+    return out
+
+
+BODIES = {"model_axis": body_model_axis, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
           "train_adamw": body_train_adamw, "train_cli": body_train_cli,
           "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}

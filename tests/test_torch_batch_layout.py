@@ -2,7 +2,7 @@
 
 Where the batch axes divide a step's global batch, each rank holds and
 computes only its block of the batch (``launch/mesh.py::batch_layout``,
-``batch_shardings``, ``cache_shardings``, ``BatchBlocks``):
+``batch_shardings``, ``cache_shardings``, ``LayoutBlocks``):
 
 * the three specs against the reference's ``PartitionSpec`` entries for
   the inputs and caches of every arch and shape, on the test meshes of 2,

@@ -1511,3 +1511,29 @@ def test_two_ranks_sharing_the_card_train_as_one_device(cuda_device, tmp_path):
                 w = want["grads"][name]
                 gap = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
                 assert gap <= 1e-4, (plan_file, name, gap)
+
+
+@pytest.mark.cuda
+def test_four_ranks_sharing_the_card_split_the_model_axis(cuda_device, tmp_path):
+    """tt-lm-smoke's step 0 on 4 ``gloo`` ranks sharing the card (``data=2 x
+    model=2`` with ``tt_model_reduce``: a sequence a data rank, and on each
+    rank of a model group 1 of the 2 kv heads, half of d_ff and half of the
+    vocab, through ``model_block``, ``model_gather`` and ``model_copy`` on
+    CUDA tensors) against one device, under both smoke train plans: the
+    loss within rel 1e-4, every gradient leaf within rel 1e-4 of its norm,
+    and every rank with the same gradients."""
+    from _torch_shard_ranks import TRAIN_PLANS, smoke_step0, spawn
+
+    ranks = spawn("cuda_train", 4, {"reduce": True}, tmp_path)
+    for plan_file in TRAIN_PLANS:
+        want = smoke_step0(plan_file, cuda_device)
+        for rank in ranks:
+            got = rank["cuda_train"][plan_file]
+            assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
+            assert got["meshes"] == ["data=2+reduce(model=2)"]
+            assert sorted(got["grads"]) == sorted(want["grads"])
+            for name, g in got["grads"].items():
+                w = want["grads"][name]
+                gap = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+                assert gap <= 1e-4, (plan_file, name, gap)
+                assert torch.equal(g, ranks[0]["cuda_train"][plan_file]["grads"][name])
