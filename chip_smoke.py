@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
 full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b and seamless-m4t-medium
-serving and training, on one NVIDIA card; run the dry run of one cell of
+serving and training, on one NVIDIA card, on one process and on ranks
+that share it; run the dry run of one cell of
 every architecture, hold one dry-run cell against the card, and run the
 examples.
 
@@ -172,6 +173,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step, the per-leaf step-0 check of 4c, a profiled step.  K1 at
    ``enc_mlp.wu`` (2048 frames) and ``xattn.wq`` (4 tokens) and K3 at
    every weight-gradient GEMM of ``enc_mlp.wu`` are timed as in 4b.
+4e. states (after the encdec phase): full-width zamba2-1.2b (12 of its
+   38 layers: two groups of 6), rwkv6-7b (4 of 32) and
+   seamless-m4t-medium (12 + 12), fp32, seed-0 weights, on 4 ranks
+   (``data=2 x model=2``, ``tt_model_reduce``; processes of this script,
+   ``--states-rank``, one spawn for the three archs) sharing ``cuda:0``
+   over ``gloo``, under the committed family plans, each rank of a model
+   group computing its block of the SSM, WKV or cross-attention heads and
+   the vocab: four lanes (prompt 32) served greedily for 8 tokens (zamba2
+   and rwkv6 through a ``ServeEngine``, seamless through the step
+   builders, 64 seeded frames) and step 0 at batch 4 x seq 128, against
+   the single device in this process: the tokens equal, fp32 prefill and
+   first decode step's logits within 1e-4 x max |logit|, a rank's
+   ``ssm`` / ``wkv`` / ``cross_k`` + ``cross_v`` bytes exactly 0.25x one
+   device's, a decode step's and step 0's collectives equal to
+   :func:`step_collectives`, step 0's loss and grad norm within rel 1e-4
+   and every leaf within 4c's bound, K1 in every prefill, decode step and
+   step 0 on every rank, K3 in zamba2's and rwkv6's prefill and every
+   step 0; peak memory a rank and the phase's seconds are printed.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -204,13 +223,16 @@ JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
 "serve_tuned": v, "serve_families": f, "train_families": t,
 "serve_encdec": e, "train_encdec": d, "serve_sharded": h,
-"train_sharded": g, "examples": x}`` (``r`` is the part of ``n`` from the
+"train_sharded": g, "states_sharded": w, "examples": x}`` (``r`` is the
+part of ``n`` from the
 rank plan's runs; ``x`` the quickstart's launches in its own process; ``h`` the shard phase's serve runs, summed over every rank of both
 spawns; ``g`` the shard-train phase's train runs, summed over every rank
 of its three spawns; ``u`` the tune phase's measurements, ``v`` its
 serving under the measured plans, ``f`` the families' serve runs, ``t``
 the families' train runs, ``e`` and ``d`` the encdec phase's counted
-generation and train steps), each path's counts zeroed just before it
+generation and train steps, ``w`` the states phase's first prefill,
+first decode step and step 0 of each arch, summed over its 4 ranks),
+each path's counts zeroed just before it
 and read just after, its times at the rank plan's shapes
 (``rank_plan``), at the family shapes (``families``, K1 and K3) and at
 the encdec shapes (``encdec``, K1 and K3) and the K1 refusals over the
@@ -1539,23 +1561,32 @@ def _expected_shards(cfg, reduce: bool) -> dict:
 
 
 def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
-                     reduce: bool = True) -> dict:
+                     reduce: bool = True, frames: int = 0) -> dict:
     """PERF.md's count (section 6) of the collectives of one step of
     ``cfg`` under ``plan`` (its backends forced to ``backend`` when given)
     on ``data=2 x model=2``, with ``tt_model_reduce`` or without: a decode
     step of ``batch`` lanes, or a train step of ``batch`` x ``seq`` (no
-    remat; a ``{"fwd", "bwd"}`` pair).  The layout and each projection's
-    route come from the port's own decisions (``head_layout``,
-    ``ff_split``, ``vocab_split``, ``nn.linear.sharded_route``); the
-    counts a route sends are this formula's.
+    remat; a ``{"fwd", "bwd"}`` pair; an encoder-decoder's encoder on
+    ``frames`` frames).  The layout and each projection's route come from
+    the port's own decisions (``head_layout``, ``state_heads``,
+    ``ff_split``, ``vocab_split``, ``nn.linear.sharded_route``); the counts
+    a route sends are this formula's.
 
-    Forward all-gathers: each layer's attention output (``kv_major``), its
-    ``wo`` input (``q_block``) and ``wd`` input (d_ff blocks) where the
-    projection does not take its column block; the vocab and the lanes
-    (decode) or the loss's per-token terms (train).  Backward all-gathers:
-    the gradient of every block a rank took (q, k, v under ``kv_major``; q
-    under ``q_block``; up and gate under the d_ff split; the logits).
-    ``q_block`` sums K and V's gradients (one all-reduce a layer).  A
+    Per site and application: attention gathers its output (``kv_major``)
+    and, backward, the gradients of q, k, v (``kv_major``) or q
+    (``q_block``, with one all-reduce of K and V's); the MLP gathers,
+    backward, the gradients of its up and gate blocks (d_ff split); the
+    SSM gathers its gated output before the norm and, backward, the
+    gradients of its z/x, dt, per-head and conv blocks (4) and sums B and
+    C's (one all-reduce); RWKV's time mix gathers, backward, its
+    activations', fp32 parameters' and norm scale's blocks (3); the
+    cross-attention gathers, backward, q, k and v's.  ``wo`` (``q_block``),
+    ``wd`` (d_ff), RWKV's ``wo`` and ``xattn.wo`` (split) gather their
+    input where they do not take their column block.  The logits: a decode
+    step gathers the vocab and, in the serve engine (not the
+    encoder-decoder's step builders), the lanes; a train step gathers the
+    loss's per-token terms (each loss chunk twice, its checkpoint
+    recomputes it) and, backward, each chunk's logit gradients.  A
     row-parallel projection all-reduces its partial output and, backward,
     all-gathers its input columns (unless it took its block) and its
     leading core's slice and all-reduces its other cores; a projection
@@ -1565,51 +1596,107 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
     import dataclasses
 
     from repro_torch.launch.mesh import Mesh, batch_layout, make_rules
-    from repro_torch.models.blocks import attn_spec, mlp_spec
+    from repro_torch.models.blocks import attn_spec, mlp_spec, rwkv_spec, ssm_spec
     from repro_torch.models.config import ShapeConfig
-    from repro_torch.models.lm import head_spec
+    from repro_torch.models.encdec import _xattn_specs
+    from repro_torch.models.lm import _hybrid_groups, head_spec
     from repro_torch.nn.linear import sharded_route
-    from repro_torch.sharding import ff_split, head_layout, use_rules, vocab_split
+    from repro_torch.sharding import (ff_split, head_layout, state_heads, use_rules,
+                                      vocab_split)
 
     train = step == "train"
     mesh = Mesh({"data": 2, "model": 2}, {"data": 0, "model": 0}, {})
     rules = batch_layout(dataclasses.replace(make_rules(
         cfg, ShapeConfig("cli", seq, batch, step), mesh), tt_model_reduce=reduce), batch)
     rows = batch // rules.split_dp
-    tokens = rows * seq if train else rows
-    a, m = attn_spec(cfg), mlp_spec(cfg)
-    L = cfg.n_layers
-    specs = [(sp, L) for sp in (a.q_spec, a.k_spec, a.v_spec, a.o_spec, m.up_spec,
-                                m.gate_spec, m.down_spec)]
-    if not cfg.tie_embeddings:
-        specs.append((head_spec(cfg), 1))
+    s = seq if train else 1
+    L, fam = cfg.n_layers, cfg.family
+    # (site, spec, applications, positions a sequence)
+    if fam == "hybrid":
+        sites = [("ssm", ssm_spec(cfg), L, s),
+                 ("attn", attn_spec(cfg, "shared_attn"), _hybrid_groups(cfg)[0], s)]
+    elif fam == "rwkv":
+        sites = [("rwkv", rwkv_spec(cfg), L, s)]
+    elif fam == "encdec":
+        sites = [("attn", attn_spec(cfg, "dec_attn"), L, s), ("cross", cfg, L, s),
+                 ("mlp", mlp_spec(cfg, "dec_mlp"), L, s)]
+        if train:
+            e, f = cfg.encoder_layers, frames or seq
+            sites = [("attn", attn_spec(cfg, "enc_attn", causal=False), e, f),
+                     ("mlp", mlp_spec(cfg, "enc_mlp"), e, f)] + sites
+    else:
+        sites = [("attn", attn_spec(cfg), L, s), ("mlp", mlp_spec(cfg), L, s)]
+    fwd = {"all_gather": 0, "all_reduce": int(train), "grad_all_reduce": 0}
+    bwd = {"all_gather": 0, "all_reduce": 0, "grad_all_reduce": int(train)}
+    projections = []            # (spec, applications, tokens, takes its block)
 
-    def route(sp) -> str:
-        lp = plan.layer(sp.name) if sp.tensorized else None
+    def route(sp, tokens) -> str:
+        lp = plan.layer(sp.name) if (plan is not None and sp.tensorized) else None
         if lp is not None and backend:
             lp = lp.with_backend(backend)
         r = sharded_route(sp, lp, tokens)
         return "" if r is None else "reduce" if r[1].model_reduce else "tokens" if r[1].axes else ""
 
     with use_rules(rules):
-        layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
-        ff = ff_split((rows, seq if train else 1), cfg.d_ff)
-        vocab = vocab_split((rows, 1), cfg.vocab)
-        routes = {sp.name: route(sp) for sp, _ in specs}
-    takes = {a.o_spec.name: layout == "q_block", m.down_spec.name: ff}
-    fwd = {"all_gather": L * (layout == "kv_major") + (1 if train else 2) * vocab,
-           "all_reduce": int(train), "grad_all_reduce": 0}
-    bwd = {"all_gather": L * {"kv_major": 3, "q_block": 1, "whole": 0}[layout]
-           + 2 * L * ff + vocab, "all_reduce": L * (layout == "q_block"),
-           "grad_all_reduce": int(train)}
-    for name, owned in takes.items():
-        fwd["all_gather"] += L * (owned and routes[name] != "reduce")
-    for sp, n in specs:
-        if routes[sp.name] == "reduce":
+        for site, sp, n, pos in sites:
+            if site == "attn":
+                layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
+                fwd["all_gather"] += n * (layout == "kv_major")
+                bwd["all_gather"] += n * {"kv_major": 3, "q_block": 1, "whole": 0}[layout]
+                bwd["all_reduce"] += n * (layout == "q_block")
+                projections += [(p, n, rows * pos, p == sp.o_spec and layout == "q_block")
+                                for p in (sp.q_spec, sp.k_spec, sp.v_spec, sp.o_spec)]
+            elif site == "mlp":
+                ff = ff_split((rows, pos), sp.d_ff)
+                ups = (sp.up_spec, sp.gate_spec) if sp.kind == "swiglu" else (sp.up_spec,)
+                bwd["all_gather"] += n * len(ups) * ff
+                projections += [(p, n, rows * pos, p == sp.down_spec and ff)
+                                for p in (*ups, sp.down_spec)]
+            elif site == "ssm":
+                split = state_heads(sp.n_heads)
+                fwd["all_gather"] += n * split
+                bwd["all_gather"] += 4 * n * split
+                bwd["all_reduce"] += n * split
+                projections += [(p, n, rows * pos, False) for p in (sp.in_spec, sp.out_spec)]
+            elif site == "rwkv":
+                split = state_heads(sp.n_heads)
+                bwd["all_gather"] += 3 * n * split
+                projections += [(sp.proj(t), n, rows * pos, t == "wo" and split)
+                                for t in ("wr", "wk", "wv", "wg", "wo", "cmv")]
+                projections += [(sp.proj("cmk", sp.ffn), n, rows * pos, False),
+                                (sp.cmr_spec, n, rows * pos, False)]
+            else:                                   # the cross-attention
+                split = head_layout(cfg.n_heads, cfg.n_kv_heads) == "kv_major"
+                bwd["all_gather"] += 3 * n * split
+                xs = _xattn_specs(cfg)
+                projections += [(xs["wq"], n, rows * pos, False),
+                                (xs["wo"], n, rows * pos, split)]
+                if train:
+                    projections += [(xs[t], n, rows * (frames or seq), False)
+                                    for t in ("wk", "wv")]
+        if not cfg.tie_embeddings:
+            projections.append((head_spec(cfg), 1, rows * s, False))
+        routes = [route(sp, tokens) for sp, _, tokens, _ in projections]
+        if not train:
+            fwd["all_gather"] += vocab_split((rows, 1), cfg.vocab)
+            fwd["all_gather"] += rules.batch_split and fam != "encdec"   # the lanes
+        elif cfg.loss_chunk:
+            c = min(cfg.loss_chunk, seq)
+            chunks = seq // (c if seq % c == 0 else seq)
+            vocab = vocab_split((rows * seq // chunks,), cfg.vocab)
+            fwd["all_gather"] += 2 * chunks * vocab
+            bwd["all_gather"] += chunks * vocab
+        else:
+            vocab = vocab_split((rows, seq), cfg.vocab)
+            fwd["all_gather"] += vocab
+            bwd["all_gather"] += vocab
+    for (sp, n, _, takes), r in zip(projections, routes):
+        fwd["all_gather"] += n * (takes and r != "reduce")
+        if r == "reduce":
             fwd["all_reduce"] += n
-            bwd["all_gather"] += n * (2 - takes.get(sp.name, False))
+            bwd["all_gather"] += n * (2 - takes)
             bwd["all_reduce"] += n
-        elif routes[sp.name] == "tokens":
+        elif r == "tokens":
             fwd["all_gather"] += n
             bwd["all_gather"] += n
             bwd["all_reduce"] += n
@@ -3830,6 +3917,372 @@ def encdec_phase(device) -> tuple[dict, dict, dict, list[str]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the model axis of the SSM and WKV heads, their states and the
+# encoder-decoder's own sites, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: (arch, layers) of the states phase, at full width: zamba2 at two groups
+#: of 6 (two applications of the shared attention), rwkv6 at the depth of
+#: its fp32 check (:data:`FAMILY_CHECK_LAYERS`), seamless at full depth
+STATE_RUNS = (("zamba2-1.2b", 12), ("rwkv6-7b", 4), ("seamless-m4t-medium", None))
+#: lanes served, prompt length, greedy tokens, the cache's positions and the
+#: encoder-decoder's frames
+STATE_LANES, STATE_PROMPT, STATE_GEN, STATE_MAX_SEQ, STATE_FRAMES = 4, 32, 8, 48, 64
+#: step 0's batch x seq (each data rank 2 sequences)
+STATE_TRAIN = (4, 128)
+#: cache leaves a rank holds a block of heads and lanes of
+STATE_LEAVES = ("ssm", "wkv", "cross_k", "cross_v")
+
+
+def _state_cfg(arch: str, layers):
+    """``arch`` at full width in fp32 with no remat (the collectives
+    formula's step), cut to ``layers``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).with_(dtype="float32", remat="none")
+    return cfg.with_(n_layers=layers) if layers else cfg
+
+
+def _state_plans(arch: str) -> tuple[str, str, str]:
+    return (*family_pair(arch), os.path.join(PLANS, f"{arch}.train.json"))
+
+
+def _state_serve(arch: str, cfg, device, rules) -> dict:
+    """Four lanes of seeded prompts served greedily (:data:`STATE_GEN`
+    tokens) of ``cfg`` (``arch`` cut by :func:`_state_cfg`) under
+    ``arch``'s plan pair and ``rules`` (None: one device) on
+    the seed-0 weights: zamba2 and rwkv6 through a ``ServeEngine`` (each
+    prompt prefilled at batch 1, then every lane decoded), seamless
+    through the step builders (a data rank its lanes).  Returns the tokens,
+    the whole-vocab fp32 prefill logits and first decode step's logits of
+    every lane (on the CPU), the launches of the first prefill and of the
+    first decode step, that step's collectives and the bytes of the
+    :data:`STATE_LEAVES` cache leaves this process holds."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import LayoutBlocks, _map_named, batch_shardings
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import api
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+
+    pre, dec, _ = (load_plan(p) for p in _state_plans(arch))
+    gen = torch.Generator().manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab, (STATE_LANES, STATE_PROMPT), generator=gen)
+    out = {}
+    with (use_rules(rules) if rules is not None else contextlib.nullcontext()), \
+            torch.no_grad():
+        params = api(cfg, device=device).init_params(0)
+        if cfg.family == "encdec":
+            frames = torch.randn(STATE_LANES, STATE_FRAMES, cfg.d_model, generator=gen)
+            batch = {"tokens": prompts.to(device), "frontend": frames.to(device)}
+            lanes = None              # every lane's rows from a data rank's
+            if rules is not None and rules.batch_split:
+                batch = LayoutBlocks(batch_shardings(batch, rules), rules).block(batch)
+                lanes = LayoutBlocks(((rules.batch_axes, None),), rules)
+
+            def rows_of(t):
+                return t if lanes is None else lanes.gather((t,))[0]
+
+            launches.reset()
+            with plan_context(pre):
+                logits, caches = make_prefill_step(cfg, STATE_MAX_SEQ)(params, batch)
+            out["prefill_launches"] = launches.snapshot()
+            rows = rows_of(logits)
+            tok, tokens, step = logits.argmax(-1)[:, None], [], None
+            for i in range(STATE_GEN):
+                launches.reset()
+                reset_collectives()
+                with plan_context(dec):
+                    logits, caches = make_decode_step(cfg)(
+                        params, tok, caches, torch.tensor(STATE_PROMPT + i, device=device))
+                if step is None:
+                    out["decode_launches"] = launches.snapshot()
+                    out["collectives"] = dict(COLLECTIVES)
+                    step = rows_of(logits)
+                tokens.append(rows_of(tok))
+                tok = logits.argmax(-1)[:, None]
+            tokens.append(rows_of(tok))
+            tokens = torch.cat(tokens, 1).tolist()
+        else:
+            eng = ServeEngine(cfg, params, n_slots=STATE_LANES, max_seq=STATE_MAX_SEQ,
+                              prompt_bucket=8, prefill_plan=pre, decode_plan=dec)
+            caches, rows = eng.fresh_caches(), []
+            for lane in range(STATE_LANES):
+                launches.reset()
+                row, small = eng.prefill_request(prompts[lane].tolist())
+                if lane == 0:
+                    out["prefill_launches"] = launches.snapshot()
+                caches = eng.admit(caches, small, lane)
+                rows.append(torch.from_numpy(row))
+            rows = torch.stack(rows)
+            tok, tokens, step = rows.argmax(-1).numpy(), [], None
+            for i in range(STATE_GEN):
+                launches.reset()
+                reset_collectives()
+                logits, caches = eng.decode(tok, np.full(STATE_LANES, STATE_PROMPT + i),
+                                            caches)
+                if step is None:
+                    out["decode_launches"] = launches.snapshot()
+                    out["collectives"] = dict(COLLECTIVES)
+                    step = torch.from_numpy(logits)
+                tokens.append(tok)
+                tok = logits.argmax(-1)
+            tokens.append(tok)
+            tokens = np.stack(tokens, 1).tolist()
+        held = []
+        _map_named(lambda name, t: held.append(t.numel() * t.element_size())
+                   if name in STATE_LEAVES else None, caches)
+    out.update(tokens=tokens, prefill=rows.float().cpu(), decode=step.float().cpu(),
+               state_bytes=sum(held))
+    return out
+
+
+def states_rank(out_dir: str) -> int:
+    """One rank of the states phase (``chip_smoke.py --states-rank DIR``):
+    joins the ``gloo`` group and, for each arch of :data:`STATE_RUNS`,
+    serves four lanes (:func:`_state_serve`) and takes step 0 on its block
+    of the batch under ``data=2 x model=2`` with ``tt_model_reduce``,
+    holding logits, tokens and every gradient leaf against the single
+    device's (the parent's oracle files).  Writes ``rank<r>.json``."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import (batch_layout, describe_layout, make_rules,
+                                         make_test_mesh)
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method="env://", timeout=datetime.timedelta(
+        seconds=SHARD_TIMEOUT_S))
+    try:
+        rank = dist.get_rank()
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        mesh = make_test_mesh()
+        out = {"rank": rank, "coords": dict(mesh.coords), "archs": {}}
+        for arch, layers in STATE_RUNS:
+            t0 = time.perf_counter()
+            cfg = _state_cfg(arch, layers)
+            oracle = torch.load(spec["oracle"][arch], weights_only=False)
+            serve_rules = dataclasses.replace(make_rules(
+                cfg, ShapeConfig("cli", STATE_MAX_SEQ, STATE_LANES, "decode"), mesh),
+                tt_model_reduce=True)
+            if cfg.family == "encdec":
+                serve_rules = batch_layout(serve_rules, STATE_LANES)
+            got = _state_serve(arch, cfg, device, serve_rules)
+            res = {"layout": describe_layout(batch_layout(serve_rules, STATE_LANES),
+                                             STATE_LANES, "lanes", cfg),
+                   "tokens_equal": got["tokens"] == oracle["tokens"],
+                   "state_bytes": got["state_bytes"],
+                   "collectives": got["collectives"],
+                   "prefill_launches": got["prefill_launches"],
+                   "decode_launches": got["decode_launches"]}
+            for key in ("prefill", "decode"):
+                want = oracle[key]
+                res[key] = {"shape": list(got[key].shape),
+                            "max_abs_diff": float((got[key] - want).abs().max()),
+                            "scale": float(want.abs().max())}
+            b, s = STATE_TRAIN
+            train_rules = batch_layout(dataclasses.replace(make_rules(
+                cfg, ShapeConfig("cli", s, b, "train"), mesh), tt_model_reduce=True), b)
+            batch = train_batch(cfg, s, b, 0, device)
+            launches.reset()
+            reset_collectives()
+            loss, grads = _layout_step0(cfg, load_plan(_state_plans(arch)[2]), device,
+                                        batch, train_rules)
+            torch.cuda.synchronize(device)
+            bwd = dict(BWD_COLLECTIVES)
+            want = {k: v.to(device) for k, v in oracle["grads"].items()}
+            gaps = _leaf_gaps(grads, want)
+            bounds = spec["bounds"][arch]
+            res["step0"] = {
+                "loss": loss, "loss_rel": abs(loss - oracle["loss"]) / abs(oracle["loss"]),
+                "norm_rel": _norm_gap(grads, want), "n_leaves": len(gaps),
+                "worst_share": max((g / bounds[k], k) for k, g in gaps.items()),
+                "launches": launches.snapshot(),
+                "collectives": {"fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()},
+                                "bwd": bwd}}
+            res["seconds"] = time.perf_counter() - t0
+            out["archs"][arch] = res
+            install_plan(None)
+            del grads, want, oracle
+            torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def states_phase(device, card: str) -> tuple[dict, list[str]]:
+    """Full-width zamba2-1.2b (12 layers), rwkv6-7b (4) and
+    seamless-m4t-medium (12 + 12), fp32, seed-0 weights, on 4 ranks sharing
+    ``cuda:0`` over ``gloo`` (``data=2 x model=2``, ``tt_model_reduce``; one
+    spawn of :func:`states_rank` for the three archs) under the committed
+    family plans, against the single device in this process under the same
+    plans: four lanes' greedy tokens equal; their fp32 prefill logits and
+    first decode step's within 1e-4 x max |logit|; a rank's SSM, WKV and
+    cross K/V cache bytes exactly 0.25x the single device's (half the lanes,
+    half the heads); a decode step's and step 0's collectives equal
+    :func:`step_collectives`; step 0 (batch 4 x seq 128, a data rank 2
+    sequences): the loss and grad norm within rel 1e-4 and every leaf
+    within its bound of :func:`family_train_check`; K1 launched on every
+    rank in every prefill, decode step and step 0, K3 in zamba2's and
+    rwkv6's prefill and in every step 0.  Returns the launches of the ranks'
+    serve and train runs, summed over every rank, and the report lines."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+
+    notes, totals = [], {k: 0 for k in launches.COUNTS}
+    work = tempfile.mkdtemp(prefix="repro_torch_states_")
+    t_phase = time.perf_counter()
+    try:
+        spec, single = {"oracle": {}, "bounds": {}}, {}
+        for arch, layers in STATE_RUNS:
+            cfg = _state_cfg(arch, layers)
+            torch.cuda.reset_peak_memory_stats(device)
+            got = _state_serve(arch, cfg, device, None)
+            plan = load_plan(_state_plans(arch)[2])
+            batch = train_batch(cfg, STATE_TRAIN[1], STATE_TRAIN[0], 0, device)
+            loss, grads = _family_step0(cfg, plan, device, batch, None)
+            plain = _family_step0(cfg, plan, device, batch, "jnp")
+            wide = _family_step0(cfg.with_(dtype="float64"), plan, device, batch, "jnp")
+            spec["bounds"][arch] = {k: max(1e-4, 10 * g)
+                                    for k, g in _leaf_gaps(plain[1], wide[1]).items()}
+            spec["oracle"][arch] = os.path.join(work, f"oracle.{arch}.pt")
+            torch.save({"tokens": got["tokens"], "prefill": got["prefill"],
+                        "decode": got["decode"], "loss": loss,
+                        "grads": {k: v.cpu() for k, v in grads.items()}},
+                       spec["oracle"][arch])
+            single[arch] = {"state_bytes": got["state_bytes"], "loss": loss,
+                            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+            install_plan(None)
+            del grads, plain, wide
+            torch.cuda.empty_cache()
+        oracle_s = time.perf_counter() - t_phase
+        run_dir = os.path.join(work, "run")
+        os.makedirs(run_dir)
+        with open(os.path.join(run_dir, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        wall = spawn_ranks([sys.executable, os.path.abspath(__file__), "--states-rank",
+                            run_dir], 4, run_dir, SHARD_TIMEOUT_S,
+                           env=dict(os.environ, OMP_NUM_THREADS="1"))
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        notes.append(f"4 ranks sharing one card, not a scaling figure ({card}; "
+                     f"data=2 x model=2, tt_model_reduce, gloo): single-device oracle "
+                     f"{oracle_s:.1f} s, spawn wall {wall:.1f} s")
+        for arch, layers in STATE_RUNS:
+            cfg = _state_cfg(arch, layers)
+            pre, dec, tr = (load_plan(p) for p in _state_plans(arch))
+            want_dec = step_collectives(cfg, dec, None, "decode", STATE_LANES,
+                                        STATE_MAX_SEQ)
+            want_tr = step_collectives(cfg, tr, None, "train", *STATE_TRAIN,
+                                       frames=STATE_TRAIN[1])
+            k3_prefill = cfg.family != "encdec"
+            for res in ranks:
+                got, where = res["archs"][arch], f"{arch}, rank {res['rank']}"
+                for k, v in got["prefill_launches"].items():
+                    totals[k] += v
+                if not got["tokens_equal"]:
+                    raise AssertionError(f"{where}: greedy tokens differ from one device's")
+                for key in ("prefill", "decode"):
+                    g = got[key]
+                    if g["shape"] != [STATE_LANES, cfg.vocab] or \
+                            not g["max_abs_diff"] <= 1e-4 * g["scale"]:
+                        raise AssertionError(f"{where}: {key} logits {g}")
+                if got["state_bytes"] * 4 != single[arch]["state_bytes"]:
+                    raise AssertionError(
+                        f"{where}: {STATE_LEAVES} bytes a rank {got['state_bytes']}, "
+                        f"one device {single[arch]['state_bytes']}: not 0.25x")
+                if got["collectives"] != want_dec:
+                    raise AssertionError(f"{where}: decode-step collectives "
+                                         f"{got['collectives']}, not {want_dec}")
+                s0 = got["step0"]
+                if s0["collectives"] != want_tr:
+                    raise AssertionError(f"{where}: step-0 collectives "
+                                         f"{s0['collectives']}, not {want_tr}")
+                if max(s0["loss_rel"], s0["norm_rel"]) > 1e-4 or \
+                        s0["worst_share"][0] > 1.0:
+                    raise AssertionError(
+                        f"{where}: step 0 loss rel {s0['loss_rel']}, grad norm rel "
+                        f"{s0['norm_rel']}, worst leaf share {s0['worst_share']}")
+                need = [("prefill", got["prefill_launches"], "streaming_tt"),
+                        ("decode", got["decode_launches"], "streaming_tt"),
+                        ("step 0", s0["launches"], "streaming_tt"),
+                        ("step 0", s0["launches"], "tt_gemm_ws")]
+                if k3_prefill:
+                    need.append(("prefill", got["prefill_launches"], "tt_gemm_ws"))
+                for what, counts, k in need:
+                    if counts[k] <= 0:
+                        raise AssertionError(f"{where}: {what} launched no {k}")
+                for counts in (got["decode_launches"], s0["launches"]):
+                    for k, v in counts.items():
+                        totals[k] += v
+            r0 = ranks[0]["archs"][arch]
+            notes.append(
+                f"{arch} ({cfg.n_layers} layers{' + ' + str(cfg.encoder_layers) if cfg.encoder_layers else ''}"
+                f", fp32): {r0['layout']}; rank 0 {r0['seconds']:.1f} s; tokens equal on "
+                f"{sum(r['archs'][arch]['tokens_equal'] for r in ranks)}/4 ranks; "
+                f"prefill logits max abs diff "
+                f"{max(r['archs'][arch]['prefill']['max_abs_diff'] for r in ranks):.3e}, "
+                f"decode {max(r['archs'][arch]['decode']['max_abs_diff'] for r in ranks):.3e}"
+                f" (max |logit| {r0['prefill']['scale']:.3e}, {r0['decode']['scale']:.3e}); "
+                f"{'/'.join(STATE_LEAVES)} bytes a rank {r0['state_bytes']} of one "
+                f"device's {single[arch]['state_bytes']}")
+            notes.append(
+                f"  step 0 (batch {STATE_TRAIN[0]} x seq {STATE_TRAIN[1]}): loss "
+                f"{r0['step0']['loss']:.7f} vs {single[arch]['loss']:.7f}, loss rel "
+                f"{max(r['archs'][arch]['step0']['loss_rel'] for r in ranks):.1e}, grad "
+                f"norm rel {max(r['archs'][arch]['step0']['norm_rel'] for r in ranks):.1e},"
+                f" worst share of its bound "
+                f"{max(r['archs'][arch]['step0']['worst_share'][0] for r in ranks):.2f} "
+                f"({r0['step0']['worst_share'][1]}) of {r0['step0']['n_leaves']} leaves")
+            notes.append(
+                f"  collectives: decode step {r0['collectives']}; step 0 forward "
+                f"{r0['step0']['collectives']['fwd']}, backward "
+                f"{r0['step0']['collectives']['bwd']} (the formula's); launches rank 0: "
+                f"prefill { {k: v for k, v in r0['prefill_launches'].items() if v} }, "
+                f"decode step { {k: v for k, v in r0['decode_launches'].items() if v} }, "
+                f"step 0 { {k: v for k, v in r0['step0']['launches'].items() if v} }")
+        notes.append(f"peak memory a rank {[round(r['peak_gib'], 3) for r in ranks]} GiB;"
+                     f" single device (oracle, per arch) "
+                     f"{ {a: round(v['peak_gib'], 3) for a, v in single.items()} } GiB; "
+                     f"phase {time.perf_counter() - t_phase:.1f} s")
+        return totals, notes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 2a: the dry run and the roofline, held against the card
 # ---------------------------------------------------------------------------
 
@@ -4230,6 +4683,15 @@ def main() -> int:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the encdec path")
 
+        log("--- states: full-width zamba2-1.2b, rwkv6-7b and seamless-m4t-medium "
+            "on 4 ranks sharing the card (the model axis of their heads)")
+        t0 = time.perf_counter()
+        states_counts, notes = states_phase(device, card)
+        for n in notes:
+            log(f"  {n}")
+        log(f"states: {time.perf_counter() - t0:.1f} s; launches, every rank: "
+            f"{states_counts}")
+
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device) + calibration_check(device)):
             log(f"  {n}")
@@ -4284,6 +4746,7 @@ def main() -> int:
                       "train_families": family_train_counts[k["name"]],
                       "serve_encdec": encdec_serve_counts[k["name"]],
                       "train_encdec": encdec_train_counts[k["name"]],
+                      "states_sharded": states_counts[k["name"]],
                       "examples": example_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
@@ -4326,4 +4789,6 @@ if __name__ == "__main__":
         sys.exit(shard_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--shard-train-rank"]:  # one rank of the shard-train phase
         sys.exit(shard_train_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--states-rank"]:  # one rank of the states phase
+        sys.exit(states_rank(sys.argv[2]))
     sys.exit(main())

@@ -32,11 +32,15 @@ of the batch, the block ``batch_shardings`` and ``applied_cache_shardings``
 give its inputs and caches, as the reference's partitioned step runs it,
 and where it does not, at the whole batch (replicated).  Along the model
 axis the rank computes its block of the attention heads, the KV cache,
-d_ff and the vocab (``repro_torch.sharding``: ``head_layout``,
-``model_dim``), through the same functions as on ranks, their collectives
-over the shape-only group; the SP sequence split, the SSM and WKV heads,
-the encoder-decoder's own sites and the experts stay whole.  The
-projections stay whole too: every rank computes each projection's whole
+d_ff and the vocab, of the SSM and WKV heads and their states, and of the
+encoder-decoder's cross-attention heads and cross K/V cache
+(``repro_torch.sharding``: ``head_layout``, ``model_dim``,
+``state_heads``), through the same functions as on ranks, their
+collectives over the shape-only group; the SP sequence split stays
+whole, and so do the experts, as the reference's ``expert_in``
+constraint has them.  The SSD scan's C.B scores, which do not depend on
+the heads, are computed whole on every rank.  The projections stay whole
+too: every rank computes each projection's whole
 output, the LM head's all V logits included, and keeps its block, so a
 rank's FLOPs count the whole head and only the loss is per vocab block.
 So FLOPs, peak and collective bytes are a rank's under the batch and
@@ -49,8 +53,9 @@ The collectives are the port's, counted at their bytes through
 ``plan/sharded.py::collective`` on the shape-only mesh: a train step
 sums its gradients over the batch axes (one all-reduce a dtype, the
 gradients' bytes) and its loss (4 bytes); a model group gathers the
-attention output (``kv_major``), the loss's per-token terms and, in the
-backward, the gradients of the blocks it took (``plan/sharded.py``:
+attention output (``kv_major``), the SSM's gated output, the loss's
+per-token terms and, in the backward, the gradients of the blocks it
+took (``plan/sharded.py``:
 ``model_block``, ``model_gather``, ``model_copy``); an MoE layer sums its router
 statistics, or gathers its input where a router group straddles ranks;
 a train step also all-gathers every split leaf back whole after its
@@ -229,8 +234,8 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
     per rank: FLOPs and op bytes of the whole step, the reference's memory
     keys and its collective kinds plus ``total``.  Under the installed
     rules the inputs and caches are the rank's block (the batch under
-    ``batch_split``, the kv heads of a KV cache), and the model axis
-    splits the heads, d_ff and the vocab as on ranks.
+    ``batch_split``, the heads of the KV, SSM, WKV and cross K/V caches),
+    and the model axis splits the heads, d_ff and the vocab as on ranks.
     """
     m = api(cfg, device="meta")
     specs = _rank_block(cfg, input_specs(cfg, shape))
@@ -290,8 +295,9 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> dict:
 def _rank_block(cfg: ModelConfig, specs: dict) -> dict:
     """This rank's block of a cell's input specs under the installed rules
     (``batch_shardings`` of the inputs under ``batch_split``,
-    ``applied_cache_shardings`` of the caches: the batch and the kv heads),
-    each a meta tensor of its own; ``specs`` without a mesh."""
+    ``applied_cache_shardings`` of the caches: the batch and the heads
+    of the KV, SSM, WKV and cross K/V leaves), each a meta tensor of its
+    own; ``specs`` without a mesh."""
     rules = get_rules()
     if rules is None or rules.mesh is None:
         return specs

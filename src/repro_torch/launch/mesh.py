@@ -353,14 +353,22 @@ def cache_shardings(cfg: ModelConfig, caches: Any, rules: ShardingRules) -> Any:
 def applied_cache_shardings(cfg: ModelConfig, caches: Any,
                             rules: ShardingRules) -> Any:
     """The entries of :func:`cache_shardings` the port applies: the batch
-    entries, and the model entry of a KV cache's heads (the ``kv_major``
-    head layout, ``nn/attention.py``).  The other model entries (the SP
-    sequence split, the SSM and WKV heads, conv channels, token shifts,
-    the encoder-decoder's cross K/V) are held whole: ``None``."""
+    entries, and the model entry of the heads of a KV cache (the
+    ``kv_major`` head layout, ``nn/attention.py``), of the
+    encoder-decoder's cross K/V (``models/encdec.py``) and of the SSM and
+    WKV states (``nn/ssm.py``, ``nn/rwkv.py``).  The SP sequence split is
+    held whole, and so are two state leaves whose model entry the port
+    departs from, ``None`` here: the SSM's ``conv`` history (the
+    reference splits its channels contiguously, a block that mixes the
+    rank's x channels with B and C, which every rank convolves whole; a
+    rank holds ``win``'s whole output, so the whole history costs no
+    collective) and RWKV's ``shift*`` token shifts (the last token of x,
+    which every rank holds whole for the whole projections)."""
+    heads = {"k": 2, "v": 2, "cross_k": 2, "cross_v": 2, "ssm": 1, "wkv": 1}
+
     def one(name, t):
         spec = _cache_pspec(name, (1,) + tuple(t.shape), cfg, rules)[1:]
-        heads = name in ("k", "v") and len(spec) == 4
-        return tuple(None if e == "model" and not (heads and d == 2) else e
+        return tuple(None if e == "model" and heads.get(name) != d else e
                      for d, e in enumerate(spec))
 
     return _map_named(one, caches)
@@ -417,25 +425,41 @@ def describe_model_split(cfg: ModelConfig, rules: ShardingRules,
     """What a rank of a model group holds of the heads, d_ff and the
     vocab in a step of ``seq`` positions (SP's sequence split takes the
     axis from d_ff), e.g. ``heads kv_major over model=2: 2 of 4 kv heads a
-    rank, d_ff 1024 of 2048 a rank, vocab 16000 of 32000 a rank``."""
-    from repro_torch.sharding import ff_split, head_layout, use_rules, vocab_split
+    rank, d_ff 1024 of 2048 a rank, vocab 16000 of 32000 a rank``.  A
+    hybrid's SSM heads come first and it names no d_ff (it has no MLP);
+    an RWKV model names its WKV heads in place of the attention's and no
+    d_ff (its channel mix stays whole); the encoder-decoder names its
+    cross-attention kv heads after the attention's."""
+    from repro_torch.models.blocks import rwkv_spec, ssm_spec
+    from repro_torch.sharding import (ff_split, head_layout, state_heads, use_rules,
+                                      vocab_split)
 
     tp = rules.tp
+    where = f"over {rules.model_axis}={tp}"
+    states = {"hybrid": ("ssm", ssm_spec), "rwkv": ("wkv", rwkv_spec)}.get(cfg.family)
     with use_rules(rules):
         layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
         ff = ff_split((1, seq), cfg.d_ff)
         vocab = vocab_split((1, 1), cfg.vocab)
-    where = f"over {rules.model_axis}={tp}"
-    if layout == "kv_major":
-        parts = [f"heads kv_major {where}: {cfg.n_kv_heads // tp} of "
-                 f"{cfg.n_kv_heads} kv heads a rank"]
-    elif layout == "q_block":
-        parts = [f"heads q_block {where}: {cfg.n_heads // tp} of "
-                 f"{cfg.n_heads} query heads a rank"]
-    else:
-        parts = [f"heads whole {where}"]
-    parts.append(f"d_ff {cfg.d_ff // tp} of {cfg.d_ff} a rank" if ff
-                 else "d_ff whole")
+        n_states = states[1](cfg).n_heads if states else 0
+        split_states = states is not None and state_heads(n_states)
+    parts = []
+    if states is not None:
+        parts.append(f"{states[0]} heads {where}: {n_states // tp} of {n_states} "
+                     "a rank" if split_states else f"{states[0]} heads whole {where}")
+    if cfg.family != "rwkv":                   # RWKV is attention-free
+        parts.append({
+            "kv_major": f"heads kv_major {where}: {cfg.n_kv_heads // tp} of "
+                        f"{cfg.n_kv_heads} kv heads a rank",
+            "q_block": f"heads q_block {where}: {cfg.n_heads // tp} of "
+                       f"{cfg.n_heads} query heads a rank",
+        }.get(layout, f"heads whole {where}"))
+    if cfg.family == "encdec":
+        parts.append(f"cross kv heads {cfg.n_kv_heads // tp} of {cfg.n_kv_heads} "
+                     "a rank" if layout == "kv_major" else "cross kv heads whole")
+    if cfg.family not in ("hybrid", "rwkv"):
+        parts.append(f"d_ff {cfg.d_ff // tp} of {cfg.d_ff} a rank" if ff
+                     else "d_ff whole")
     parts.append(f"vocab {cfg.vocab // tp} of {cfg.vocab} a rank" if vocab
                  else "vocab whole")
     return ", ".join(parts)

@@ -21,6 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.models import ModelConfig, api
+from repro_torch.models.lm import whole_logits
 from repro_torch.optim import adamw_update, clip_by_global_norm, compress_decompress
 from repro_torch.plan.sharded import batch_axes_split, collective
 from repro_torch.sharding import get_rules
@@ -132,25 +133,30 @@ def make_train_step(
 def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None):
     """``(params, batch) -> (last-token logits, primed caches)``, without
     building the autograd graph; the caches hold ``max_seq`` positions
-    (default: the prompt's length)."""
+    (default: the prompt's length), the rank's blocks under the installed
+    rules, and the logits the whole vocab (a vocab split over the model
+    axis gathered: ``lm.whole_logits``)."""
     m = api(cfg)
 
     def step(params, batch):
         s = batch["tokens"].shape[1]
         with torch.no_grad():
-            return m.prefill(params, batch, max_seq or s)
+            logits, caches = m.prefill(params, batch, max_seq or s)
+            return whole_logits(logits, cfg.vocab), caches
 
     return step
 
 
 def make_decode_step(cfg: ModelConfig):
     """``(params, token, caches, cache_pos) -> (logits, new caches)``,
-    without building the autograd graph."""
+    without building the autograd graph; the logits and caches as
+    :func:`make_prefill_step`'s."""
     m = api(cfg)
 
     def step(params, token, caches, cache_pos):
         with torch.no_grad():
-            return m.decode_step(params, token, caches, cache_pos)
+            logits, caches = m.decode_step(params, token, caches, cache_pos)
+            return whole_logits(logits, cfg.vocab), caches
 
     return step
 

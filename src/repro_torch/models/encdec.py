@@ -18,6 +18,19 @@ Projection names follow the reference's lookups (``enc_attn.*``,
 ``enc_mlp.*``, ``dec_attn.*``, ``xattn.*``, ``dec_mlp.*``).  The DSE names
 the decoder's self-attention and MLP ``attn.*`` and ``mlp.*``, so under a
 plan those two run unplanned on the plain contraction, in both packages.
+
+On a mesh whose model axis divides the kv heads (the cross K/V cache's
+split in the reference's ``_cache_pspec``; :func:`repro_torch.sharding.
+head_layout` ``kv_major``) each rank of a model group computes only its
+block of the cross-attention: its contiguous block of the memory's kv
+heads (the cross K/V and their cache) and of the query heads they serve
+(head ``h`` reads kv head ``h // n_rep``, so that block is contiguous
+too).  ``xattn.wq``, ``wk`` and ``wv`` stay whole and the rank takes its
+block of their output; ``xattn.wo`` takes the output as its column block
+under ``tt_model_reduce`` and gathers it otherwise.  The logits are the
+rank's block of the vocab where the rules split it (``lm.apply_head``;
+``lm.whole_logits`` gathers them); the self-attention and the MLPs split
+as in ``lm.py``.
 """
 
 from __future__ import annotations
@@ -35,7 +48,6 @@ from repro_torch.nn import (
     attention_init,
     embedding_apply,
     embedding_init,
-    head_apply,
     init_kv_cache,
     linear_apply,
     linear_init,
@@ -44,11 +56,14 @@ from repro_torch.nn import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.sharding import get_rules, head_layout
+
 from .blocks import attn_spec, mlp_spec
 from .config import ModelConfig
 from .lm import (
     _dtype,
     _remat,
+    apply_head,
     batch_share,
     chunked_cross_entropy,
     cross_entropy,
@@ -59,8 +74,19 @@ from .lm import (
 
 class EncDecCaches(NamedTuple):
     self_kv: list           # per decoder layer: KVCache (B, S_max, H_kv, Dh)
-    cross_k: list           # per decoder layer: (B, S_enc, H_kv, Dh)
+    cross_k: list           # per decoder layer: (B, S_enc, H_kv, Dh), the rank's kv heads
     cross_v: list
+
+
+def _cross_split(cfg: ModelConfig):
+    """:func:`~repro_torch.plan.sharded.model_axis_split` where the
+    installed rules split the cross-attention's kv heads over the model
+    axis (the ``kv_major`` head layout), else None."""
+    from repro_torch.plan.sharded import model_axis_split
+
+    if head_layout(cfg.n_heads, cfg.n_kv_heads) != "kv_major":
+        return None
+    return model_axis_split(get_rules())
 
 
 def _xattn_specs(cfg: ModelConfig) -> dict[str, LinearSpec]:
@@ -116,19 +142,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
-    """x (B, Sq, D) attends into precomputed memory K/V (B, Sk, Hkv, Dh).
-
-    Memory heads repeat CONSECUTIVELY (query head h reads kv head
-    ``h // n_rep``), as in the reference; self-attention groups heads
+def _attend_memory(q: torch.Tensor, mem_k: torch.Tensor,
+                   mem_v: torch.Tensor) -> torch.Tensor:
+    """q (B, Sq, H, Dh) attends into memory K/V (B, Sk, Hkv, Dh): (B, Sq,
+    H, Dh).  Memory heads repeat CONSECUTIVELY (query head h reads kv head
+    ``h // (H / Hkv)``), as in the reference; self-attention groups heads
     interleaved instead.  Scores in fp32, probabilities in ``mem_v``'s
     dtype."""
-    xs = _xattn_specs(cfg)
-    b, sq, _ = x.shape
-    h, hd, kv = cfg.n_heads, cfg.hd, cfg.n_kv_heads
-    q = linear_apply(xs["wq"], p["wq"], x).reshape(b, sq, h, hd)
-    n_rep = h // kv
+    b, sq, h, hd = q.shape
+    n_rep = h // mem_k.shape[2]
     if n_rep > 1:
         bb, sk, hh, dd = mem_k.shape
         mem_k = mem_k[:, :, :, None, :].expand(bb, sk, hh, n_rep, dd).reshape(
@@ -137,16 +159,41 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
             bb, sk, h, dd)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), mem_k.float()) / math.sqrt(hd)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(mem_v.dtype), mem_v)
-    return linear_apply(xs["wo"], p["wo"], out.reshape(b, sq, h * hd))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(mem_v.dtype), mem_v)
+
+
+def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
+    """x (B, Sq, D) attends into precomputed memory K/V (B, Sk, Hkv, Dh)
+    (:func:`_attend_memory`).  Under a split of the kv heads
+    (:func:`_cross_split`) the memory K/V are the rank's block of them and
+    the rank attends with the contiguous block of the query heads they
+    serve."""
+    from repro_torch.plan.sharded import model_block
+
+    xs = _xattn_specs(cfg)
+    b, sq, _ = x.shape
+    split = _cross_split(cfg)
+    q = linear_apply(xs["wq"], p["wq"], x).reshape(b, sq, cfg.n_heads, cfg.hd)
+    if split is not None:
+        q = model_block(q, 2, split)
+    out = _attend_memory(q, mem_k, mem_v)
+    return linear_apply(xs["wo"], p["wo"], out.reshape(b, sq, -1), x_split=split)
 
 
 def _memory_kv(cfg: ModelConfig, p: dict, memory: torch.Tensor):
+    """The cross K and V of ``memory``: (B, S_enc, Hkv, Dh) each, the
+    rank's block of the kv heads under :func:`_cross_split`."""
+    from repro_torch.plan.sharded import model_block
+
     xs = _xattn_specs(cfg)
     b, sk, _ = memory.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
+    split = _cross_split(cfg)
     k = linear_apply(xs["wk"], p["wk"], memory).reshape(b, sk, kv, hd)
     v = linear_apply(xs["wv"], p["wv"], memory).reshape(b, sk, kv, hd)
+    if split is not None:
+        k, v = model_block(k, 2, split), model_block(v, 2, split)
     return k, v
 
 
@@ -204,19 +251,14 @@ def _decoder(cfg: ModelConfig, params: dict, tokens: torch.Tensor, memory_kv,
     x = rmsnorm(params["ln_f"], x)
     if return_hidden:
         return x, new_caches
-    return _head(cfg, params, x), new_caches
-
-
-def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return head_apply(embed_spec(cfg), params["embed"], x)
-    return linear_apply(head_spec(cfg), params["head"], x)
+    return apply_head(cfg, params, x), new_caches
 
 
 def _stacked_memory_kv(cfg: ModelConfig, params: dict, memory: torch.Tensor):
     """Cross K/V for every decoder layer: ([(B, S_enc, Hkv, Dh)] * L) x2,
     one planned call per projection and layer (the reference's ``vmap``
-    over the stacked layers), outside the decoder's remat."""
+    over the stacked layers), outside the decoder's remat; the rank's kv
+    heads under :func:`_cross_split`."""
     kvs = [_memory_kv(cfg, p_l["xattn"], memory) for p_l in params["dec_blocks"]]
     return [k for k, _ in kvs], [v for _, v in kvs]
 
@@ -233,10 +275,10 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
         hidden, _ = _decoder(cfg, params, batch["tokens"], mem_kv, None, None,
                              return_hidden=True)
         return batch_share(chunked_cross_entropy(
-            lambda h: _head(cfg, params, h), hidden, batch["labels"],
-            cfg.loss_chunk))
+            lambda h: apply_head(cfg, params, h), hidden, batch["labels"],
+            cfg.loss_chunk, cfg.vocab))
     logits, _ = _decoder(cfg, params, batch["tokens"], mem_kv, None, None)
-    return batch_share(cross_entropy(logits, batch["labels"]))
+    return batch_share(cross_entropy(logits, batch["labels"], cfg.vocab))
 
 
 def _self_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device) -> list:
@@ -249,9 +291,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
                 dtype: Optional[torch.dtype] = None, device="cuda") -> EncDecCaches:
     """Zero decode caches in ``cfg.dtype`` unless told otherwise: self K/V
     of ``max_seq`` positions and cross K/V of ``enc_len`` frames per
-    decoder layer."""
+    decoder layer, each the rank's kv heads under the installed rules."""
     dtype = dtype or _dtype(cfg)
-    shape = (batch, enc_len, cfg.n_kv_heads, cfg.hd)
+    kv = cfg.n_kv_heads
+    if _cross_split(cfg) is not None:
+        kv //= get_rules().tp
+    shape = (batch, enc_len, kv, cfg.hd)
 
     def zeros():
         return [torch.zeros(shape, dtype=dtype, device=device)
@@ -263,7 +308,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
     """Encode the frames and run the decoder prompt: returns (last-token
-    logits (B, V), caches); the cross K/V are cast to ``cfg.dtype``."""
+    logits (B, V), caches); the cross K/V are cast to ``cfg.dtype``.
+    Under a vocab split the logits are the rank's block of the vocab
+    (``lm.whole_logits`` gathers them)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     dtype = _dtype(cfg)
@@ -279,7 +326,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 caches: EncDecCaches, cache_pos):
     """One decode step at the scalar position ``cache_pos``: returns
-    (logits (B, V), caches)."""
+    (logits (B, V), caches), the logits as :func:`prefill`'s."""
     logits, new_self = _decoder(cfg, params, token, (caches.cross_k, caches.cross_v),
                                 caches.self_kv, cache_pos)
     return logits[:, -1], EncDecCaches(new_self, caches.cross_k, caches.cross_v)

@@ -148,7 +148,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype: Optional[torch.dtype] = None, device="cuda"):
-    """Per-layer decode caches in ``cfg.dtype`` unless told otherwise."""
+    """Per-layer decode caches in ``cfg.dtype`` unless told otherwise;
+    under the installed rules each a rank's block of the heads where they
+    split (``init_kv_cache``, ``init_ssm_state``, ``init_rwkv_state``)."""
     dtype = dtype or _dtype(cfg)
 
     def kv():

@@ -15,6 +15,20 @@ advances S one token at a time.
 
 Channel-mix: squared-ReLU MLP with token shift.  All projections route
 through ``repro_torch.nn.linear``.
+
+Where the installed rules split the heads over the model axis (the
+reference's ``("batch", "seq", "model", None)`` on r, k and v;
+:func:`repro_torch.sharding.state_heads`), each rank of a model group
+computes only its block of them in the time mix: the projections and the
+LoRAs stay whole, and the rank takes its heads' channel block of r, k,
+v, g (after the silu) and the decay LoRA's output, and of
+``decay_base``, ``bonus`` and ``ln_x_scale``.  The WKV scan and the
+per-head group norm run on the rank's heads with no collective, the WKV
+state is the rank's block of the decode state's heads, and ``wo`` takes
+``y * g`` as its column block under ``tt_model_reduce`` and gathers it
+otherwise.  The channel mix stays whole, as the reference leaves it, and
+so do the token-shift states: they hold the last token of x, which every
+rank holds whole for the whole projections.
 """
 
 from __future__ import annotations
@@ -24,6 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import get_rules, state_heads
 
 from .linear import LinearSpec, TTConfig, linear_apply, linear_init, shape_only
 
@@ -61,7 +77,7 @@ class RWKVSpec:
 class RWKVState(NamedTuple):
     shift_tm: torch.Tensor   # (B, D) last token (time-mix shift)
     shift_cm: torch.Tensor   # (B, D) last token (channel-mix shift)
-    wkv: torch.Tensor        # (B, H, N, N) per-head key->value state, fp32
+    wkv: torch.Tensor        # (B, H, N, N) per-head key->value state, fp32 (the rank's heads)
 
 
 def rwkv_init(spec: RWKVSpec, generator: torch.Generator,
@@ -174,42 +190,77 @@ def _wkv_chunked(
     return y.reshape(b, s, h, n), state
 
 
+def _head_block(spec: RWKVSpec, params: dict, split, r, k, v, g, dl):
+    """This rank's heads of the time mix: ``(r, k, v, g, dl, decay_base,
+    bonus, ln_x_scale)``, each activation ``(B, S, channels)`` and each
+    per-channel parameter its heads' channel block (one block of the five
+    activations, one of the two fp32 parameters, one of the norm's
+    scale); with ``split`` None, all of them."""
+    from repro_torch.plan.sharded import model_block
+
+    decay_base, bonus, ln_x_scale = (params["decay_base"], params["bonus"],
+                                     params["ln_x_scale"])
+    if split is not None:
+        r, k, v, g, dl = model_block(torch.stack([r, k, v, g, dl]), -1, split).unbind(0)
+        decay_base, bonus = model_block(torch.stack(
+            [decay_base, bonus.reshape(-1)]), -1, split).unbind(0)
+        bonus = bonus.reshape(-1, spec.head_dim)
+        ln_x_scale = model_block(ln_x_scale, -1, split)
+    return r, k, v, g, dl, decay_base, bonus, ln_x_scale
+
+
+def _wkv_heads(spec: RWKVSpec, r, k, v, g, dl, decay_base, bonus, ln_x_scale,
+               init_state: Optional[torch.Tensor] = None):
+    """The WKV scan, the per-head group norm and the gate on the heads that
+    :func:`_head_block` gives: ``(y * g (B, S, channels), final state (B,
+    heads, N, N))``."""
+    b, s, c = r.shape
+    n = spec.head_dim
+    h = c // n
+    r, k, v = (t.reshape(b, s, h, n) for t in (r, k, v))
+    logw = -torch.exp(
+        decay_base[None, None] + dl.to(torch.float32)
+    ).reshape(b, s, h, n)                               # log w_t < 0
+    # clamp: w >= e^-7.5 keeps the chunked factorisation inside fp32 range
+    logw = torch.clamp(logw, min=-7.5)
+    y, final = _wkv_chunked(r, k, v, logw, bonus, spec.chunk, init_state)
+    # per-head group norm (ln_x in the reference implementation)
+    yg = y.reshape(b, s, h, n).to(torch.float32)
+    mu = torch.mean(yg, dim=-1, keepdim=True)
+    var = torch.var(yg, dim=-1, keepdim=True, unbiased=False)
+    yg = (yg - mu) * torch.rsqrt(var + 1e-5)
+    y = (yg.reshape(b, s, c) * ln_x_scale.to(torch.float32)).to(g.dtype)
+    return y * g, final
+
+
 def rwkv_time_mix(
     spec: RWKVSpec,
     params: dict,
     x: torch.Tensor,                        # (B, S, D)
     state: Optional[RWKVState] = None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Returns (y, new_shift_tm, new_wkv_state)."""
+    """Returns (y, new_shift_tm, new_wkv_state).  Under a model-axis split
+    of the heads (:func:`~repro_torch.sharding.state_heads`) the rank
+    computes its block of them and ``state.wkv`` holds its heads
+    (:func:`init_rwkv_state`)."""
+    from repro_torch.plan.sharded import model_axis_split
+
     b, s, d = x.shape
-    h, n = spec.n_heads, spec.head_dim
+    split = model_axis_split(get_rules()) if state_heads(spec.n_heads) else None
     prev = _token_shift(x, state.shift_tm if state is not None else None)
     delta = prev - x
     # ddlerp: base mix + LoRA(x + 0.5*delta) -> 5 per-channel mixes
     lo = torch.tanh((x + 0.5 * delta) @ params["mix_lora"]["a"]) @ params["mix_lora"]["b"]
     mixes = params["mix_base"][None, None] + lo.reshape(b, s, 5, d)
     xr, xk, xv, xg, xw = [x + delta * mixes[:, :, i, :] for i in range(5)]
-    r = linear_apply(spec.proj("wr"), params["wr"], xr).reshape(b, s, h, n)
-    k = linear_apply(spec.proj("wk"), params["wk"], xk).reshape(b, s, h, n)
-    v = linear_apply(spec.proj("wv"), params["wv"], xv).reshape(b, s, h, n)
+    r = linear_apply(spec.proj("wr"), params["wr"], xr)
+    k = linear_apply(spec.proj("wk"), params["wk"], xk)
+    v = linear_apply(spec.proj("wv"), params["wv"], xv)
     g = F.silu(linear_apply(spec.proj("wg"), params["wg"], xg))
-
     dl = torch.tanh(xw @ params["decay_lora"]["a"]) @ params["decay_lora"]["b"]
-    logw = -torch.exp(
-        params["decay_base"][None, None] + dl.to(torch.float32)
-    ).reshape(b, s, h, n)                               # log w_t < 0
-    # clamp: w >= e^-7.5 keeps the chunked factorisation inside fp32 range
-    logw = torch.clamp(logw, min=-7.5)
-
-    init = state.wkv if state is not None else None
-    y, final = _wkv_chunked(r, k, v, logw, params["bonus"], spec.chunk, init)
-    # per-head group norm (ln_x in the reference implementation)
-    yg = y.reshape(b, s, h, n).to(torch.float32)
-    mu = torch.mean(yg, dim=-1, keepdim=True)
-    var = torch.var(yg, dim=-1, keepdim=True, unbiased=False)
-    yg = (yg - mu) * torch.rsqrt(var + 1e-5)
-    y = (yg.reshape(b, s, d) * params["ln_x_scale"].to(torch.float32)).to(x.dtype)
-    out = linear_apply(spec.proj("wo"), params["wo"], y * g)
+    y, final = _wkv_heads(spec, *_head_block(spec, params, split, r, k, v, g, dl),
+                          state.wkv if state is not None else None)
+    out = linear_apply(spec.proj("wo"), params["wo"], y, x_split=split)
     new_shift = x[:, -1, :] if state is not None else None
     return out, new_shift, (final if state is not None else None)
 
@@ -234,9 +285,15 @@ def rwkv_channel_mix(
 
 def init_rwkv_state(spec: RWKVSpec, batch: int, dtype: torch.dtype = torch.float32,
                     device="cuda") -> RWKVState:
+    """Zeroed token shifts (all channels) and WKV state: under the
+    installed rules' split of the heads (:func:`~repro_torch.sharding.
+    state_heads`) this rank's block of them, else all of them."""
+    h = spec.n_heads
+    if state_heads(h):
+        h //= get_rules().tp
     return RWKVState(
         shift_tm=torch.zeros((batch, spec.d_model), dtype=dtype, device=device),
         shift_cm=torch.zeros((batch, spec.d_model), dtype=dtype, device=device),
-        wkv=torch.zeros((batch, spec.n_heads, spec.head_dim, spec.head_dim),
+        wkv=torch.zeros((batch, h, spec.head_dim, spec.head_dim),
                         dtype=torch.float32, device=device),
     )

@@ -10,6 +10,24 @@ Decode advances the state one token at a time.
 All projections route through ``repro_torch.nn.linear`` and are
 tensorizable.  n_groups is fixed at 1 (B/C shared across heads), matching
 Zamba2.
+
+Where the installed rules split the heads over the model axis (the
+reference's ``("batch", "seq", "model", None)`` on x;
+:func:`repro_torch.sharding.state_heads`), each rank of a model group
+computes only its block of them: ``win`` stays whole and the rank takes
+its heads' block of z, x and dt from its output (three offsets of one
+row), with B and C whole (one group; their gradients, which each rank
+computes only in part, are summed once by ``model_copy``), and its
+block of ``dt_bias``, ``A_log``, ``D`` and of the depthwise conv's x
+channels.  The SSD scan runs on the rank's heads, and its state is the
+rank's block of the decode state's heads.  The gated RMSNorm normalises
+over all of d_inner, so the gated output is all-gathered over the model
+axis first; the norm and ``wout`` then run whole on every rank (``wout``
+splits its own input columns under ``tt_model_reduce``).  The conv
+history is held whole: the reference's spec splits its 4 224 channels
+contiguously, a block that mixes the two heads' blocks with B and C, and
+each rank holds ``win``'s whole output, so the whole history costs no
+collective.
 """
 
 from __future__ import annotations
@@ -19,6 +37,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import get_rules, state_heads
 
 from .linear import LinearSpec, TTConfig, linear_apply, linear_init, shape_only
 from .norms import rmsnorm, rmsnorm_init
@@ -63,7 +83,7 @@ class SSMSpec:
 
 class SSMState(NamedTuple):
     conv: torch.Tensor   # (B, d_conv-1, conv_channels): trailing conv inputs
-    ssm: torch.Tensor    # (B, n_heads, d_state, head_dim), fp32
+    ssm: torch.Tensor    # (B, n_heads, d_state, head_dim), fp32 (the rank's heads)
 
 
 def ssm_init(spec: SSMSpec, generator: torch.Generator,
@@ -157,6 +177,58 @@ def _ssd_chunked(
     return y, state
 
 
+def _head_block(spec: SSMSpec, params: dict, split, zxbcdt: torch.Tensor,
+                conv_hist: Optional[torch.Tensor]):
+    """This rank's share of ``win``'s whole output ``[z | x | B | C | dt]``
+    and of the per-head parameters: ``(z, xbc, dt, conv_w, conv_b,
+    conv_hist, (dt_bias, A_log, D))``, where z, dt and the x channels of
+    xbc, the conv's weights and its history are the rank's heads' blocks
+    and B and C whole; with ``split`` None, all of them."""
+    from repro_torch.plan.sharded import model_block, model_copy
+
+    di, k = spec.d_inner, spec.d_conv
+    per_head = (params["dt_bias"], params["A_log"], params["D"])
+    z, xbc, dt = torch.split(zxbcdt, [di, spec.conv_channels, spec.n_heads], dim=-1)
+    if split is None:
+        return z, xbc, dt, params["conv_w"], params["conv_b"], conv_hist, per_head
+    # z and x: one block of the (2, d_inner) pair; dt and the per-head
+    # parameters: one block each along the heads
+    zx = model_block(zxbcdt[..., :2 * di].unflatten(-1, (2, di)), -1, split)
+    dt = model_block(dt, -1, split)
+    dt_bias, a_log, d = model_block(torch.stack(per_head), -1, split).unbind(0)
+    # the conv's weights and bias as one (d_conv + 1, channels) tensor
+    wb = torch.cat([params["conv_w"], params["conv_b"][None]], dim=0)
+    wb_x = model_block(wb[:, :di], -1, split)
+    bc, wb_bc = model_copy(split, xbc[..., di:], wb[:, di:])
+    w = torch.cat([wb_x, wb_bc], dim=-1)
+    if conv_hist is not None:
+        _, index, tp = split
+        cols = di // tp
+        conv_hist = torch.cat([conv_hist[..., index * cols:(index + 1) * cols],
+                               conv_hist[..., di:]], dim=-1)
+    return (zx[..., 0, :], torch.cat([zx[..., 1, :], bc], dim=-1), dt, w[:k], w[k],
+            conv_hist, (dt_bias, a_log, d))
+
+
+def _scan_heads(spec: SSMSpec, z, xbc, dt, conv_w, conv_b, conv_hist,
+                per_head, init_state: Optional[torch.Tensor] = None):
+    """The conv, the SSD scan and the gate on the heads that
+    :func:`_head_block` gives (all of them, or a rank's block): ``(y * silu(z)
+    (B, S, heads * head_dim), final state (B, heads, d_state, head_dim))``."""
+    b, s, _ = z.shape
+    p, n = spec.head_dim, spec.d_state
+    dt_bias, a_log, d = per_head
+    xbc_conv = F.silu(_causal_conv(xbc, conv_w, conv_b, conv_hist))
+    x, bmat, cmat = torch.split(xbc_conv, [z.shape[-1], n, n], dim=-1)
+    x = x.reshape(b, s, -1, p)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)                 # (b,s,h)
+    da = -torch.exp(a_log)[None, None, :] * dt                       # <= 0
+    xd = x * dt[..., None].to(x.dtype)
+    y, final = _ssd_chunked(xd, da, bmat, cmat, spec.chunk, init_state)
+    y = y + d[None, None, :, None].to(y.dtype) * x
+    return y.reshape(b, s, -1) * F.silu(z), final
+
+
 def ssm_apply(
     spec: SSMSpec,
     params: dict,
@@ -164,40 +236,41 @@ def ssm_apply(
     state: Optional[SSMState] = None,
 ) -> tuple[torch.Tensor, Optional[SSMState]]:
     """Returns (y, new_state).  ``state`` given: the conv history and the
-    SSD state continue from it (decode, or prefill into a cache)."""
-    b, s, _ = u.shape
-    h, p, n = spec.n_heads, spec.head_dim, spec.d_state
-    zxbcdt = linear_apply(spec.in_spec, params["win"], u)
-    z, xbc, dt = torch.split(
-        zxbcdt, [spec.d_inner, spec.conv_channels, spec.n_heads], dim=-1)
-    conv_hist = state.conv if state is not None else None
-    xbc_conv = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"], conv_hist))
-    x, bmat, cmat = torch.split(xbc_conv, [spec.d_inner, n, n], dim=-1)
-    x = x.reshape(b, s, h, p)
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])      # (b,s,h)
-    da = -torch.exp(params["A_log"])[None, None, :] * dt             # <= 0
-    xd = x * dt[..., None].to(x.dtype)
+    SSD state continue from it (decode, or prefill into a cache).  Under
+    a model-axis split of the heads (:func:`~repro_torch.sharding.
+    state_heads`) the rank computes its block of them and ``state.ssm``
+    holds its heads (:func:`init_ssm_state`)."""
+    from repro_torch.plan.sharded import model_axis_split, model_gather
 
-    init = state.ssm if state is not None else None
-    y, final = _ssd_chunked(xd, da, bmat, cmat, spec.chunk, init)
-    y = y + params["D"][None, None, :, None].to(y.dtype) * x
-    y = y.reshape(b, s, spec.d_inner)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    out = linear_apply(spec.out_spec, params["wout"], y)
+    split = model_axis_split(get_rules()) if state_heads(spec.n_heads) else None
+    zxbcdt = linear_apply(spec.in_spec, params["win"], u)
+    y, final = _scan_heads(spec, *_head_block(
+        spec, params, split, zxbcdt, state.conv if state is not None else None),
+        state.ssm if state is not None else None)
+    if split is not None:
+        y = model_gather(y, -1, split)          # the norm reads all of d_inner
+    out = linear_apply(spec.out_spec, params["wout"], rmsnorm(params["norm"], y))
 
     new_state = None
     if state is not None:
         k = spec.d_conv
-        hist = torch.cat([state.conv, xbc.to(state.conv.dtype)], dim=1)[:, -(k - 1):, :]
+        whole = zxbcdt[..., spec.d_inner:spec.d_inner + spec.conv_channels]
+        hist = torch.cat([state.conv, whole.to(state.conv.dtype)], dim=1)[:, -(k - 1):, :]
         new_state = SSMState(conv=hist, ssm=final)
     return out, new_state
 
 
 def init_ssm_state(spec: SSMSpec, batch: int, dtype: torch.dtype = torch.float32,
                    device="cuda") -> SSMState:
+    """Zeroed conv history (all channels) and SSD state: under the
+    installed rules' split of the heads (:func:`~repro_torch.sharding.
+    state_heads`) this rank's block of them, else all of them."""
+    h = spec.n_heads
+    if state_heads(h):
+        h //= get_rules().tp
     return SSMState(
         conv=torch.zeros((batch, spec.d_conv - 1, spec.conv_channels),
                          dtype=dtype, device=device),
-        ssm=torch.zeros((batch, spec.n_heads, spec.d_state, spec.head_dim),
+        ssm=torch.zeros((batch, h, spec.d_state, spec.head_dim),
                         dtype=torch.float32, device=device),
     )

@@ -45,11 +45,12 @@ whose backward hands every such rank the *whole* gradient of that block
   axes, then ``all_gather``s the slices along dim 1 over the model axis.
 
 The model axis's own splits (:func:`model_block`, :func:`model_gather`,
-:func:`model_copy`: a rank's block of the heads, d_ff and the vocab) follow
-the same rule: taking a block all-gathers its gradient, gathering the
-blocks takes the rank's block of the gradient, and a tensor every rank of
-the group uses whole but differentiates only in part sums its gradient
-once.  A projection handed its column block (``x_block``) returns that
+:func:`model_copy`: a rank's block of the attention, SSM, WKV and
+cross-attention heads, d_ff and the vocab) follow the same rule: taking
+a block all-gathers its gradient, gathering the blocks takes the rank's
+block of the gradient, and a tensor every rank of the group uses whole
+but differentiates only in part (K and V under ``q_block``, the SSM's B
+and C) sums its gradient once.  A projection handed its column block (``x_block``) returns that
 block's dx and gathers nothing over the model axis.
 
 Under ``batch_split`` each block of the batch has its own loss, and the

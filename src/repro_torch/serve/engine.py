@@ -32,8 +32,9 @@ prefill runs on every rank, replicated as in the reference (a planned
 projection splits its tokens), and :meth:`ServeEngine.admit` keeps a
 lane only on the rank that owns it.  Where the batch axes do not divide
 ``n_slots`` every rank holds every lane.  On a model axis over 1 a rank's
-caches hold its block of the kv heads where they divide the axis (the
-model entry of ``cache_shardings``: ``applied_cache_shardings``), the
+caches hold its block of the kv heads and of the SSM and WKV states'
+heads where they divide the axis (the model entries of
+``cache_shardings`` that ``applied_cache_shardings`` applies), the
 prefill writes that block and ``admit`` copies it; the logits, a block of
 the vocab on each rank, are gathered over the model axis before the
 host samples them, so the scheduler still sees ``(n_slots, V)``.
@@ -184,7 +185,7 @@ class ServeEngine:
 
     def fresh_caches(self):
         """Zeroed decode caches of this rank's lanes (every lane on one
-        rank) and kv heads, the rank's block of the width-``n_slots``
+        rank) and heads, the rank's block of the width-``n_slots``
         caches' ``applied_cache_shardings``."""
         lo, hi = self.lanes
         rules = self._decode_rules

@@ -33,14 +33,17 @@ Along the model axis (a mesh with ``model > 1``) each rank of a model
 group holds and computes only its block of the dims the reference tags
 ``"model"``, where :meth:`ShardingRules.partition_spec` gives them the
 axis: the attention heads (:func:`head_layout`: the KV cache's kv-head
-block, or a block of the query heads), the MLP's d_ff and the vocab of
-the logits (:func:`model_dim`).  The projections that make those dims
-stay whole on every rank (the reference's planned routes have no
-column-parallel matmul): the rank takes its block of their output, and
-the blocks are gathered where a whole dim is needed again.  The SP
-sequence split (``"seq"``), the SSM and WKV heads, the encoder-decoder's
-own sites and the experts stay whole, so :func:`shard` checks its axes
-and returns its input unchanged.
+block, or a block of the query heads), the MLP's d_ff, the vocab of the
+logits (:func:`model_dim`), the SSM and WKV heads and their decode states
+(:func:`state_heads`) and the encoder-decoder's cross-attention heads and
+cross K/V cache.  The projections that make those dims stay whole on
+every rank (the reference's planned routes have no column-parallel
+matmul): the rank takes its block of their output, and the blocks are
+gathered where a whole dim is needed again.  The SP sequence split
+(``"seq"``) stays whole, and the experts compute whole along the model
+axis, as the reference's ``expert_in`` constraint ``("batch", None,
+None, None)`` has them, so :func:`shard` checks its axes and returns its
+input unchanged.
 """
 
 from __future__ import annotations
@@ -225,13 +228,24 @@ def head_layout(n_heads: int, n_kv_heads: int) -> str:
     return "whole"
 
 
+def state_heads(n_heads: int) -> bool:
+    """Whether the installed rules split the heads of an SSM or WKV layer
+    over the model axis: the reference's ``("batch", "seq", "model",
+    None)`` on the heads (``nn/ssm.py``'s x, ``nn/rwkv.py``'s r, k and v),
+    which is also ``_cache_pspec``'s split of their decode states.  As in
+    :func:`head_layout`, the sequence does not take the axis: the port
+    keeps it whole."""
+    return model_dim((1, 1, n_heads, 1), "batch", "seq", "model", None) == 2
+
+
 def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """The reference's sharding constraint: one logical name per dim.
 
     Checks the names against the rank of ``x`` when rules are installed and
     returns ``x`` unchanged: a tensor a rank holds is already its block of
     the batch under ``batch_split`` (the launcher split the inputs), and the
-    model axis is applied where a dim is split (:func:`model_dim`).
+    model axis is applied where a dim is split, by the layer that computes
+    it (:func:`model_dim`, :func:`head_layout`, :func:`state_heads`).
     """
     if get_rules() is not None and len(logical_axes) != x.dim():
         raise ValueError(f"{len(logical_axes)} axes for rank-{x.dim()} array")

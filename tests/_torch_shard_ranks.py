@@ -791,7 +791,7 @@ MODEL_AXIS_PLANS = {"auto": ("tt-lm-smoke.json", TRAIN_PLANS[0]),
                     "tt_gemm": ("tt-lm-smoke.tt_gemm.json", TRAIN_PLANS[1])}
 #: the families whose one forward runs on the model axis: (B, S) tokens and,
 #: for the encoder-decoder, its frames
-FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "seamless-m4t-medium")
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "rwkv6-7b", "seamless-m4t-medium")
 FAMILY_BATCH, FAMILY_FRAMES = (2, 8), 12
 
 
@@ -823,8 +823,9 @@ def family_logits(arch: str, params: dict) -> torch.Tensor:
     m = api(cfg, device="cpu")
     with torch.no_grad():
         if cfg.family == "encdec":
-            return m.prefill(params, family_inputs(cfg), FAMILY_BATCH[1])[0]
-        logits, _ = m.prefill_full(params, family_inputs(cfg), FAMILY_BATCH[1])
+            logits, _ = m.prefill(params, family_inputs(cfg), FAMILY_BATCH[1])
+        else:
+            logits, _ = m.prefill_full(params, family_inputs(cfg), FAMILY_BATCH[1])
         return whole_logits(logits, cfg.vocab)
 
 
@@ -904,7 +905,140 @@ def body_model_axis(spec: dict) -> dict:
     return out
 
 
-BODIES = {"model_axis": body_model_axis, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
+# ---------------------------------------------------------------------------
+# the model axis of the SSM and WKV heads, their states and the
+# encoder-decoder's own sites
+# ---------------------------------------------------------------------------
+
+#: the families whose heads, states and cross-attention split over
+#: ``model``: each under its smoke K1 plans (serving pair and train plan,
+#: forced to streaming_tt) with ``tt_model_reduce``, and under no plan
+#: without it (every projection gathers its column block)
+STATE_ARCHS = ("zamba2-1.2b", "rwkv6-7b", "seamless-m4t-medium")
+STATE_CASES = tuple((arch, plans, plans == "k1") for arch in STATE_ARCHS
+                    for plans in ("k1", "none"))
+
+
+def state_batch(cfg, key: str = "split") -> dict:
+    """:func:`_model_batch`, with seeded frames for the encoder-decoder."""
+    batch = _model_batch(cfg, key)
+    if cfg.family == "encdec":
+        batch["frontend"] = np.random.default_rng(37).standard_normal(
+            (batch["tokens"].shape[0], FAMILY_FRAMES, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def lane_frames(cfg) -> np.ndarray:
+    """The encoder-decoder's frames of the two lane prompts."""
+    return np.random.default_rng(41).standard_normal(
+        (2, FAMILY_FRAMES, cfg.d_model)).astype(np.float32)
+
+
+def _encdec_lanes(cfg, params, rules, pre, dec) -> tuple:
+    """The two lane prompts (and :func:`lane_frames`) through the step
+    builders under ``rules`` (each data rank its lane): the whole-vocab
+    prefill logits and greedy first tokens of both lanes, one decode step's
+    logits of both lanes, the rank's caches and the decode step's
+    collectives."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.nn import plan_context
+    from repro_torch.plan.sharded import (COLLECTIVES, batch_axes_split, collective,
+                                          reset_collectives)
+
+    batch = rank_block({"tokens": torch.from_numpy(lane_prompts(cfg.vocab)),
+                        "frontend": torch.from_numpy(lane_frames(cfg))}, rules)
+    group = batch_axes_split(rules)[0]
+    with plan_context(pre):
+        rows, caches = make_prefill_step(cfg, LANE_MAX_SEQ)(params, batch)
+    rows = collective("all_gather", rows, group)
+    first = rows.argmax(dim=-1)
+    index = rules.mesh.index(rules.batch_axes)
+    reset_collectives()
+    with plan_context(dec):
+        step, caches = make_decode_step(cfg)(
+            params, first[index:index + 1, None], caches, torch.tensor(LANE_PROMPT_LEN))
+        coll = dict(COLLECTIVES)
+    step = collective("all_gather", step, group)
+    return rows, [int(t) for t in first], step, caches, coll
+
+
+def body_model_axis_states(spec: dict) -> dict:
+    """Each case of :data:`STATE_CASES` on the weights saved at
+    ``spec["params"][arch]`` and the plans at ``spec["plans"][arch]``:
+    two lanes served (zamba2 and rwkv6 through a 2-lane ``ServeEngine``,
+    as :func:`body_model_axis`; seamless through the step builders, a
+    lane a data rank), with the whole prefill and decode logits, the
+    first tokens, the rank's cache leaf shapes and the decode step's
+    collectives; then step 0 of training on the split batch through
+    ``loss_and_grads`` (loss, every gradient leaf, the step's
+    collectives)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import batch_layout, make_rules, make_test_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    mesh = make_test_mesh()
+    out = {"coords": dict(mesh.coords), "cases": {}}
+    for arch, plans, reduce in STATE_CASES:
+        cfg = get_config(arch, smoke=True)
+        pre, dec, train = ((load_plan(spec["plans"][arch][k])
+                            for k in ("prefill", "decode", "train"))
+                           if plans == "k1" else (None, None, None))
+        params = torch.load(spec["params"][arch], weights_only=False)
+        rules = batch_layout(dataclasses.replace(make_rules(
+            cfg, ShapeConfig("t", LANE_MAX_SEQ, 2, "decode"), mesh),
+            tt_model_reduce=reduce), 2)
+        case = {}
+        with use_rules(rules), torch.no_grad():
+            if cfg.family == "encdec":
+                rows, first, step, caches, coll = _encdec_lanes(cfg, params, rules,
+                                                                pre, dec)
+            else:
+                eng = ServeEngine(cfg, params, n_slots=2, max_seq=LANE_MAX_SEQ,
+                                  prompt_bucket=8, prefill_plan=pre, decode_plan=dec)
+                caches = eng.fresh_caches()
+                rows, first = [], []
+                for lane, prompt in enumerate(lane_prompts(cfg.vocab)):
+                    row, small = eng.prefill_request(prompt.tolist())
+                    caches = eng.admit(caches, small, lane)
+                    rows.append(torch.from_numpy(row))
+                    first.append(int(np.argmax(row)))
+                rows = torch.stack(rows)
+                reset_collectives()
+                step, caches = eng.decode(np.array(first),
+                                          np.full(2, LANE_PROMPT_LEN), caches)
+                coll = dict(COLLECTIVES)
+                step = torch.from_numpy(step)
+        case.update(prefill=rows.float(), first=first, decode=step.float(),
+                    decode_collectives=coll,
+                    cache_shapes=[tuple(t.shape) for t in leaves(caches)])
+        rules = batch_layout(dataclasses.replace(make_rules(
+            cfg, ShapeConfig("t", 16, 2, "train"), mesh), tt_model_reduce=reduce), 2)
+        batch = rank_block({k: torch.from_numpy(v) for k, v in
+                            state_batch(cfg).items()}, rules)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        reset_collectives()
+        with plan_context(train), use_rules(rules):
+            loss, grads = loss_and_grads(api(cfg, device="cpu"), params, batch)
+        bwd = dict(BWD_COLLECTIVES)
+        case.update(loss=float(loss), grads=named_leaves(grads), train_collectives={
+            "fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()}, "bwd": bwd})
+        out["cases"][f"{arch}:{plans}:{reduce}"] = case
+    return out
+
+
+BODIES = {"model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
           "train_adamw": body_train_adamw, "train_cli": body_train_cli,
           "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}
