@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of tt-lm-100m serving and training, and of
 full-width qwen2-moe-a2.7b, zamba2-1.2b, rwkv6-7b and seamless-m4t-medium
 serving and training, on one NVIDIA card, on one process and on ranks
-that share it; run the dry run of one cell of
+that share it (chatglm3-6b with its sequence split over them); run the
+dry run of one cell of
 every architecture, hold one dry-run cell against the card, and run the
 examples.
 
@@ -191,6 +192,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and every leaf within 4c's bound, K1 in every prefill, decode step and
    step 0 on every rank, K3 in zamba2's and rwkv6's prefill and every
    step 0; peak memory a rank and the phase's seconds are printed.
+4f. sp (after the states phase): full-width chatglm3-6b (8 of its 28
+   layers, fp32, seed-0 weights, remat full) on 4 ranks (``data=1 x
+   model=4``; processes of this script, ``--sp-rank``) sharing ``cuda:0``
+   over ``gloo`` under the committed chatglm3-6b plans, where
+   ``make_rules`` turns SP on (its 2 kv heads do not divide the axis):
+   step 0 at batch 4 x seq 512 (128 positions a rank), the fp32 prefill
+   logits of every position of that batch, and 16 lanes served over
+   caches of 32 768 positions (prompt 32, 8 greedy steps; the rules of
+   the 28-layer config's decode cell split the caches' positions),
+   against the single device in this process: the step-0 loss and grad
+   norm within rel 1e-4 and every leaf within 4c's bound, the logits
+   within 1e-4 x max |logit|, the tokens equal, a rank's KV-cache bytes
+   exactly 0.25x one device's, the collectives of the batch's prefill, a
+   served prefill, a decode step and step 0 equal to
+   :func:`step_collectives`, K1 forward and dx and K3 in step 0 and K1 in
+   every prefill and decode step on every rank; peak memory a rank and
+   the phase's seconds are printed.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -223,7 +241,8 @@ JSON.  The kernels JSON gives each kernel's launches per main path,
 ``{"serve": n, "serve_rank_plan": r, "train": m, "tune": u,
 "serve_tuned": v, "serve_families": f, "train_families": t,
 "serve_encdec": e, "train_encdec": d, "serve_sharded": h,
-"train_sharded": g, "states_sharded": w, "examples": x}`` (``r`` is the
+"train_sharded": g, "states_sharded": w, "sp_sharded": p, "examples": x}``
+(``r`` is the
 part of ``n`` from the
 rank plan's runs; ``x`` the quickstart's launches in its own process; ``h`` the shard phase's serve runs, summed over every rank of both
 spawns; ``g`` the shard-train phase's train runs, summed over every rank
@@ -231,7 +250,9 @@ of its three spawns; ``u`` the tune phase's measurements, ``v`` its
 serving under the measured plans, ``f`` the families' serve runs, ``t``
 the families' train runs, ``e`` and ``d`` the encdec phase's counted
 generation and train steps, ``w`` the states phase's first prefill,
-first decode step and step 0 of each arch, summed over its 4 ranks),
+first decode step and step 0 of each arch, summed over its 4 ranks,
+``p`` the SP phase's step 0, first served prefill and first decode step,
+summed over its 4 ranks),
 each path's counts zeroed just before it
 and read just after, its times at the rank plan's shapes
 (``rank_plan``), at the family shapes (``families``, K1 and K3) and at
@@ -325,6 +346,10 @@ EMIT = {
                                              "--serve-slots", "4"],
     "seamless-m4t-medium.train.json": ["--arch", "seamless-m4t-medium", "--mode",
                                        "train", "--tokens", "2048"],
+    "chatglm3-6b.pair.prefill.json": ["--arch", "chatglm3-6b", "--serve-slots", "16"],
+    "chatglm3-6b.pair.decode.json": ["--arch", "chatglm3-6b", "--serve-slots", "16"],
+    "chatglm3-6b.train.json": ["--arch", "chatglm3-6b", "--mode", "train",
+                               "--tokens", "2048"],
 }
 #: the reference's bf16 tolerance (``tests/test_kernels.py:47``)
 BF16_TOL = 8e-2
@@ -1561,16 +1586,23 @@ def _expected_shards(cfg, reduce: bool) -> dict:
 
 
 def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
-                     reduce: bool = True, frames: int = 0) -> dict:
+                     reduce: bool = True, frames: int = 0, mesh=(2, 2),
+                     cell=None, policy=None) -> dict:
     """PERF.md's count (section 6) of the collectives of one step of
     ``cfg`` under ``plan`` (its backends forced to ``backend`` when given)
-    on ``data=2 x model=2``, with ``tt_model_reduce`` or without: a decode
-    step of ``batch`` lanes, or a train step of ``batch`` x ``seq`` (no
-    remat; a ``{"fwd", "bwd"}`` pair; an encoder-decoder's encoder on
-    ``frames`` frames).  The layout and each projection's route come from
-    the port's own decisions (``head_layout``, ``state_heads``,
-    ``ff_split``, ``vocab_split``, ``nn.linear.sharded_route``); the counts
-    a route sends are this formula's.
+    on a ``data x model`` mesh of ``mesh`` (``data=2 x model=2`` unless
+    told), with ``tt_model_reduce`` or without: a decode step of ``batch``
+    lanes over caches of ``seq`` positions, the serve engine's prefill of
+    ``batch`` prompts of ``seq`` tokens, or a train step of ``batch`` x
+    ``seq`` (a ``{"fwd", "bwd"}`` pair; an encoder-decoder's encoder on
+    ``frames`` frames, a VLM's image prefix of ``frames`` positions).  The
+    rules are ``make_rules`` of the config ``policy`` (default ``cfg``) and
+    the cell ``cell`` (default: the step's own shape), as the launchers
+    make them.  The
+    layout and each projection's route come from the port's own decisions
+    (``splits_sequence``, ``kv_layout``, ``head_layout``, ``state_heads``,
+    ``ff_split``, ``vocab_split``, ``nn.linear.sharded_route``); the
+    counts a route sends are this formula's.
 
     Per site and application: attention gathers its output (``kv_major``)
     and, backward, the gradients of q, k, v (``kv_major``) or q
@@ -1584,32 +1616,63 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
     ``wd`` (d_ff), RWKV's ``wo`` and ``xattn.wo`` (split) gather their
     input where they do not take their column block.  The logits: a decode
     step gathers the vocab and, in the serve engine (not the
-    encoder-decoder's step builders), the lanes; a train step gathers the
-    loss's per-token terms (each loss chunk twice, its checkpoint
-    recomputes it) and, backward, each chunk's logit gradients.  A
-    row-parallel projection all-reduces its partial output and, backward,
-    all-gathers its input columns (unless it took its block) and its
-    leading core's slice and all-reduces its other cores; a projection
-    whose rows split over ``model`` (SP) all-gathers its output, and
-    backward its rows, and all-reduces its cores.  A train step sums the
-    loss and the gradients over ``data``."""
+    encoder-decoder's step builders), the lanes; a prefill gathers the
+    vocab of its last row; a train step gathers the loss's per-token terms
+    (each loss chunk twice, its checkpoint recomputes it) and, backward,
+    each chunk's logit gradients.  A row-parallel projection all-reduces
+    its partial output and, backward, all-gathers its input columns
+    (unless it took its block) and its leading core's slice and
+    all-reduces its other cores; a projection whose rows split over
+    ``model`` all-gathers its output, and backward its rows, and
+    all-reduces its cores.  A train step sums the loss and the gradients
+    over ``data`` where the batch splits over it.
+
+    Under SP, where the step's sequence splits over ``model``
+    (``splits_sequence``), every head, d_ff and the vocab are whole and a
+    planned projection runs on the rank's rows (no collective): attention
+    all-gathers K and V once and, backward, all-reduces their gradient;
+    the MoE sums its router statistics over the batch and sequence axes
+    (one all-reduce, and one backward) where the router group divides the
+    rank's positions, else all-gathers the sequence (one all-gather, one
+    backward all-reduce) and routes as over the batch; a prefill gathers
+    the positions of its logits (one all-gather); the train step sums the
+    loss and the gradients over the batch and sequence axes.  With
+    ``remat`` each block's forward collectives run again in the backward
+    (counted forward, as the loss chunks' are).  A decode step over KV
+    caches split over their positions (``kv_layout``) all-gathers the
+    blocks' softmax statistics once an attention layer.  The experts'
+    planned projections are not counted: they run on the rank's rows
+    under SP and ``batch_split``, and elsewhere which of them run depends
+    on the router."""
     import dataclasses
 
     from repro_torch.launch.mesh import Mesh, batch_layout, make_rules
-    from repro_torch.models.blocks import attn_spec, mlp_spec, rwkv_spec, ssm_spec
+    from repro_torch.models.blocks import (attn_spec, mlp_spec, moe_spec, rwkv_spec,
+                                           ssm_spec)
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.encdec import _xattn_specs
     from repro_torch.models.lm import _hybrid_groups, head_spec
     from repro_torch.nn.linear import sharded_route
-    from repro_torch.sharding import (ff_split, head_layout, state_heads, use_rules,
-                                      vocab_split)
+    from repro_torch.sharding import (ff_split, head_layout, kv_layout, splits_sequence,
+                                      state_heads, use_rules, vocab_split)
 
     train = step == "train"
-    mesh = Mesh({"data": 2, "model": 2}, {"data": 0, "model": 0}, {})
+    axes = {"data": mesh[0], "model": mesh[1]}
+    mesh = Mesh(axes, {"data": 0, "model": 0}, {})
     rules = batch_layout(dataclasses.replace(make_rules(
-        cfg, ShapeConfig("cli", seq, batch, step), mesh), tt_model_reduce=reduce), batch)
+        policy or cfg, cell or ShapeConfig("cli", seq, batch, step), mesh),
+        tt_model_reduce=reduce), batch)
     rows = batch // rules.split_dp
-    s = seq if train else 1
+    s = 1 if step == "decode" else seq
+    prefix = frames if cfg.family == "vlm" else 0
+    with use_rules(rules):
+        sp = splits_sequence(cfg.family, rows, s + prefix)
+    if step == "decode":
+        rules = kv_layout(rules, cfg.family, cfg.n_kv_heads, seq)
+    if sp:
+        rules = dataclasses.replace(rules, seq_split=True)
+        s = (s + prefix) // rules.tp
+    again = 2 if train and cfg.remat != "none" else 1    # the remat recompute
     L, fam = cfg.n_layers, cfg.family
     # (site, spec, applications, positions a sequence)
     if fam == "hybrid":
@@ -1624,10 +1687,15 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
             e, f = cfg.encoder_layers, frames or seq
             sites = [("attn", attn_spec(cfg, "enc_attn", causal=False), e, f),
                      ("mlp", mlp_spec(cfg, "enc_mlp"), e, f)] + sites
+    elif fam == "moe":
+        sites = [("attn", attn_spec(cfg), L, s), ("moe", moe_spec(cfg), L, s)]
+        if moe_spec(cfg).shared_spec is not None:
+            sites.append(("mlp", moe_spec(cfg).shared_spec, L, s))
     else:
         sites = [("attn", attn_spec(cfg), L, s), ("mlp", mlp_spec(cfg), L, s)]
-    fwd = {"all_gather": 0, "all_reduce": int(train), "grad_all_reduce": 0}
-    bwd = {"all_gather": 0, "all_reduce": 0, "grad_all_reduce": int(train)}
+    sums = int(train and (rules.batch_split or sp))     # the loss's and the grads'
+    fwd = {"all_gather": 0, "all_reduce": sums, "grad_all_reduce": 0}
+    bwd = {"all_gather": 0, "all_reduce": 0, "grad_all_reduce": sums}
     projections = []            # (spec, applications, tokens, takes its block)
 
     def route(sp, tokens) -> str:
@@ -1638,33 +1706,52 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
         return "" if r is None else "reduce" if r[1].model_reduce else "tokens" if r[1].axes else ""
 
     with use_rules(rules):
-        for site, sp, n, pos in sites:
+        for site, spec, n, pos in sites:
             if site == "attn":
                 layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
-                fwd["all_gather"] += n * (layout == "kv_major")
+                fwd["all_gather"] += n * again * ((layout == "kv_major") + sp
+                                                  + rules.cache_seq_split)
                 bwd["all_gather"] += n * {"kv_major": 3, "q_block": 1, "whole": 0}[layout]
-                bwd["all_reduce"] += n * (layout == "q_block")
-                projections += [(p, n, rows * pos, p == sp.o_spec and layout == "q_block")
-                                for p in (sp.q_spec, sp.k_spec, sp.v_spec, sp.o_spec)]
+                bwd["all_reduce"] += n * ((layout == "q_block") + sp * train)
+                projections += [(p, n, rows * pos, p == spec.o_spec and layout == "q_block")
+                                for p in (spec.q_spec, spec.k_spec, spec.v_spec,
+                                          spec.o_spec)]
             elif site == "mlp":
-                ff = ff_split((rows, pos), sp.d_ff)
-                ups = (sp.up_spec, sp.gate_spec) if sp.kind == "swiglu" else (sp.up_spec,)
+                ff = ff_split((rows, pos), spec.d_ff)
+                ups = ((spec.up_spec, spec.gate_spec) if spec.kind == "swiglu"
+                       else (spec.up_spec,))
                 bwd["all_gather"] += n * len(ups) * ff
-                projections += [(p, n, rows * pos, p == sp.down_spec and ff)
-                                for p in (*ups, sp.down_spec)]
+                projections += [(p, n, rows * pos, p == spec.down_spec and ff)
+                                for p in (*ups, spec.down_spec)]
+            elif site == "moe":
+                dp = rules.split_dp
+                g = min(spec.router_group, dp * rows * rules.tp ** sp * pos)
+                kind = "all_reduce" if (sp or dp > 1) else None
+                if sp and pos % g:                 # the sequence gathered
+                    fwd["all_gather"] += n * again
+                    bwd["all_reduce"] += n * train
+                    g = min(spec.router_group, dp * rows * seq)
+                    kind = ("all_gather" if (rows * seq) % g else "all_reduce"
+                            ) if dp > 1 else None
+                elif dp > 1 and not sp and (rows * pos) % g:
+                    kind = "all_gather"
+                if kind is not None:               # the statistics or the batch
+                    fwd[kind] += n * again
+                    bwd["all_reduce"] += n * train
             elif site == "ssm":
-                split = state_heads(sp.n_heads)
+                split = state_heads(spec.n_heads)
                 fwd["all_gather"] += n * split
                 bwd["all_gather"] += 4 * n * split
                 bwd["all_reduce"] += n * split
-                projections += [(p, n, rows * pos, False) for p in (sp.in_spec, sp.out_spec)]
+                projections += [(p, n, rows * pos, False)
+                                for p in (spec.in_spec, spec.out_spec)]
             elif site == "rwkv":
-                split = state_heads(sp.n_heads)
+                split = state_heads(spec.n_heads)
                 bwd["all_gather"] += 3 * n * split
-                projections += [(sp.proj(t), n, rows * pos, t == "wo" and split)
+                projections += [(spec.proj(t), n, rows * pos, t == "wo" and split)
                                 for t in ("wr", "wk", "wv", "wg", "wo", "cmv")]
-                projections += [(sp.proj("cmk", sp.ffn), n, rows * pos, False),
-                                (sp.cmr_spec, n, rows * pos, False)]
+                projections += [(spec.proj("cmk", spec.ffn), n, rows * pos, False),
+                                (spec.cmr_spec, n, rows * pos, False)]
             else:                                   # the cross-attention
                 split = head_layout(cfg.n_heads, cfg.n_kv_heads) == "kv_major"
                 bwd["all_gather"] += 3 * n * split
@@ -1676,21 +1763,23 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
                                     for t in ("wk", "wv")]
         if not cfg.tie_embeddings:
             projections.append((head_spec(cfg), 1, rows * s, False))
-        routes = [route(sp, tokens) for sp, _, tokens, _ in projections]
-        if not train:
+        routes = [route(p, tokens) for p, _, tokens, _ in projections]
+        if step == "decode":
             fwd["all_gather"] += vocab_split((rows, 1), cfg.vocab)
             fwd["all_gather"] += rules.batch_split and fam != "encdec"   # the lanes
+        elif step == "prefill":
+            fwd["all_gather"] += 1 if sp else vocab_split((rows, s), cfg.vocab)
         elif cfg.loss_chunk:
-            c = min(cfg.loss_chunk, seq)
-            chunks = seq // (c if seq % c == 0 else seq)
-            vocab = vocab_split((rows * seq // chunks,), cfg.vocab)
+            c = min(cfg.loss_chunk, s)
+            chunks = s // (c if s % c == 0 else s)
+            vocab = vocab_split((rows * s // chunks,), cfg.vocab)
             fwd["all_gather"] += 2 * chunks * vocab
             bwd["all_gather"] += chunks * vocab
         else:
-            vocab = vocab_split((rows, seq), cfg.vocab)
+            vocab = vocab_split((rows, s), cfg.vocab)
             fwd["all_gather"] += vocab
             bwd["all_gather"] += vocab
-    for (sp, n, _, takes), r in zip(projections, routes):
+    for (p, n, _, takes), r in zip(projections, routes):
         fwd["all_gather"] += n * (takes and r != "reduce")
         if r == "reduce":
             fwd["all_reduce"] += n
@@ -3947,17 +4036,20 @@ def _state_plans(arch: str) -> tuple[str, str, str]:
     return (*family_pair(arch), os.path.join(PLANS, f"{arch}.train.json"))
 
 
-def _state_serve(arch: str, cfg, device, rules) -> dict:
-    """Four lanes of seeded prompts served greedily (:data:`STATE_GEN`
-    tokens) of ``cfg`` (``arch`` cut by :func:`_state_cfg`) under
-    ``arch``'s plan pair and ``rules`` (None: one device) on
-    the seed-0 weights: zamba2 and rwkv6 through a ``ServeEngine`` (each
-    prompt prefilled at batch 1, then every lane decoded), seamless
-    through the step builders (a data rank its lanes).  Returns the tokens,
-    the whole-vocab fp32 prefill logits and first decode step's logits of
-    every lane (on the CPU), the launches of the first prefill and of the
-    first decode step, that step's collectives and the bytes of the
-    :data:`STATE_LEAVES` cache leaves this process holds."""
+def _state_serve(arch: str, cfg, device, rules, lanes: int = STATE_LANES,
+                 prompt: int = STATE_PROMPT, gen_tokens: int = STATE_GEN,
+                 max_seq: int = STATE_MAX_SEQ, held_leaves=STATE_LEAVES) -> dict:
+    """``lanes`` lanes of seeded prompts of ``prompt`` tokens served greedily
+    (``gen_tokens`` steps) of ``cfg`` (``arch`` cut by :func:`_state_cfg`)
+    under ``arch``'s plan pair and ``rules`` (None: one device) on the
+    seed-0 weights, caches of ``max_seq`` positions: zamba2, rwkv6 and
+    chatglm3 through a ``ServeEngine`` (each prompt prefilled at batch 1,
+    then every lane decoded), seamless through the step builders (a data
+    rank its lanes).  Returns the tokens, the whole-vocab fp32 prefill
+    logits and first decode step's logits of every lane (on the CPU), the
+    launches and collectives of the first prefill and of the first decode
+    step and the bytes of the ``held_leaves`` cache leaves this process
+    holds."""
     import contextlib
 
     import numpy as np
@@ -3975,13 +4067,13 @@ def _state_serve(arch: str, cfg, device, rules) -> dict:
 
     pre, dec, _ = (load_plan(p) for p in _state_plans(arch))
     gen = torch.Generator().manual_seed(13)
-    prompts = torch.randint(0, cfg.vocab, (STATE_LANES, STATE_PROMPT), generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (lanes, prompt), generator=gen)
     out = {}
     with (use_rules(rules) if rules is not None else contextlib.nullcontext()), \
             torch.no_grad():
         params = api(cfg, device=device).init_params(0)
         if cfg.family == "encdec":
-            frames = torch.randn(STATE_LANES, STATE_FRAMES, cfg.d_model, generator=gen)
+            frames = torch.randn(lanes, STATE_FRAMES, cfg.d_model, generator=gen)
             batch = {"tokens": prompts.to(device), "frontend": frames.to(device)}
             lanes = None              # every lane's rows from a data rank's
             if rules is not None and rules.batch_split:
@@ -3992,17 +4084,19 @@ def _state_serve(arch: str, cfg, device, rules) -> dict:
                 return t if lanes is None else lanes.gather((t,))[0]
 
             launches.reset()
+            reset_collectives()
             with plan_context(pre):
-                logits, caches = make_prefill_step(cfg, STATE_MAX_SEQ)(params, batch)
+                logits, caches = make_prefill_step(cfg, max_seq)(params, batch)
             out["prefill_launches"] = launches.snapshot()
+            out["prefill_collectives"] = dict(COLLECTIVES)
             rows = rows_of(logits)
             tok, tokens, step = logits.argmax(-1)[:, None], [], None
-            for i in range(STATE_GEN):
+            for i in range(gen_tokens):
                 launches.reset()
                 reset_collectives()
                 with plan_context(dec):
                     logits, caches = make_decode_step(cfg)(
-                        params, tok, caches, torch.tensor(STATE_PROMPT + i, device=device))
+                        params, tok, caches, torch.tensor(prompt + i, device=device))
                 if step is None:
                     out["decode_launches"] = launches.snapshot()
                     out["collectives"] = dict(COLLECTIVES)
@@ -4012,23 +4106,25 @@ def _state_serve(arch: str, cfg, device, rules) -> dict:
             tokens.append(rows_of(tok))
             tokens = torch.cat(tokens, 1).tolist()
         else:
-            eng = ServeEngine(cfg, params, n_slots=STATE_LANES, max_seq=STATE_MAX_SEQ,
+            eng = ServeEngine(cfg, params, n_slots=lanes, max_seq=max_seq,
                               prompt_bucket=8, prefill_plan=pre, decode_plan=dec)
             caches, rows = eng.fresh_caches(), []
-            for lane in range(STATE_LANES):
+            for lane in range(lanes):
                 launches.reset()
+                reset_collectives()
                 row, small = eng.prefill_request(prompts[lane].tolist())
                 if lane == 0:
                     out["prefill_launches"] = launches.snapshot()
+                    out["prefill_collectives"] = dict(COLLECTIVES)
                 caches = eng.admit(caches, small, lane)
+                del small
                 rows.append(torch.from_numpy(row))
             rows = torch.stack(rows)
             tok, tokens, step = rows.argmax(-1).numpy(), [], None
-            for i in range(STATE_GEN):
+            for i in range(gen_tokens):
                 launches.reset()
                 reset_collectives()
-                logits, caches = eng.decode(tok, np.full(STATE_LANES, STATE_PROMPT + i),
-                                            caches)
+                logits, caches = eng.decode(tok, np.full(lanes, prompt + i), caches)
                 if step is None:
                     out["decode_launches"] = launches.snapshot()
                     out["collectives"] = dict(COLLECTIVES)
@@ -4039,7 +4135,7 @@ def _state_serve(arch: str, cfg, device, rules) -> dict:
             tokens = np.stack(tokens, 1).tolist()
         held = []
         _map_named(lambda name, t: held.append(t.numel() * t.element_size())
-                   if name in STATE_LEAVES else None, caches)
+                   if name in held_leaves else None, caches)
     out.update(tokens=tokens, prefill=rows.float().cpu(), decode=step.float().cpu(),
                state_bytes=sum(held))
     return out
@@ -4277,6 +4373,346 @@ def states_phase(device, card: str) -> tuple[dict, list[str]]:
                      f" single device (oracle, per arch) "
                      f"{ {a: round(v['peak_gib'], 3) for a, v in single.items()} } GiB; "
                      f"phase {time.perf_counter() - t_phase:.1f} s")
+        return totals, notes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the SP sequence split, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: the SP phase's model: full-width chatglm3-6b (2 kv heads: SP on a model
+#: axis of 4) at 8 of its 28 layers, fp32, remat full as configured
+SP_ARCH, SP_LAYERS = "chatglm3-6b", 8
+#: step 0's batch x seq (a rank's 128 of the 512 positions)
+SP_TRAIN = (4, 512)
+#: lanes served, prompt length, greedy steps and the caches' positions: the
+#: 28-layer config's cache there is 14.0 GiB a device, which turns SP on
+SP_LANES, SP_PROMPT, SP_GEN, SP_MAX_SEQ = 16, 32, 8, 32_768
+#: the ranks' mesh, data x model
+SP_MESH = (1, 4)
+
+
+def _sp_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(SP_ARCH).with_(dtype="float32", n_layers=SP_LAYERS)
+
+
+def _sp_prefill(cfg, device, rules, tokens) -> dict:
+    """``prefill_full`` of ``tokens`` (every position's logits, gathered)
+    under the prefill plan and ``rules`` (None: one device), with its
+    launches and collectives."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.models import api
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.sharding import use_rules
+
+    pre = load_plan(_state_plans(SP_ARCH)[0])
+    with (use_rules(rules) if rules is not None else contextlib.nullcontext()), \
+            torch.no_grad(), plan_context(pre):
+        m = api(cfg, device=device)
+        params = m.init_params(0)
+        launches.reset()
+        reset_collectives()
+        logits, _ = m.prefill_full(params, {"tokens": tokens}, tokens.shape[1])
+        torch.cuda.synchronize(device)
+        return {"logits": logits, "collectives": dict(COLLECTIVES),
+                "launches": launches.snapshot()}
+
+
+def sp_rank(out_dir: str) -> int:
+    """One rank of the SP phase (``chip_smoke.py --sp-rank DIR``): joins the
+    ``gloo`` group on ``data=1 x model=4`` and, under the policy's rules
+    (``make_rules``: SP on), takes step 0 at its block of the positions,
+    prefills the same batch, and serves :data:`SP_LANES` lanes over caches
+    of :data:`SP_MAX_SEQ` positions, a quarter a rank (the rules of the
+    28-layer config's decode cell), holding each against the single
+    device's (the parent's oracle file).  Writes ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import _mesh, batch_layout, describe_layout, make_rules
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method="env://", timeout=datetime.timedelta(
+        seconds=SHARD_TIMEOUT_S))
+    try:
+        rank = dist.get_rank()
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        mesh = _mesh(SP_MESH, ("data", "model"))
+        cfg = _sp_cfg()
+        b, s = SP_TRAIN
+        oracle = torch.load(spec["oracle"], weights_only=False)
+        out = {"rank": rank, "coords": dict(mesh.coords)}
+        t0 = time.perf_counter()
+        rules = batch_layout(make_rules(cfg, ShapeConfig("cli", s, b, "train"), mesh), b)
+        batch = train_batch(cfg, s, b, 0, device)
+        launches.reset()
+        reset_collectives()
+        reset_execution_log()
+        torch.cuda.reset_peak_memory_stats(device)
+        loss, grads = _layout_step0(cfg, load_plan(_state_plans(SP_ARCH)[2]), device,
+                                    batch, rules)
+        torch.cuda.synchronize(device)
+        bwd = dict(BWD_COLLECTIVES)
+        recs = execution_log()
+        want = {k: v.to(device) for k, v in oracle["grads"].items()}
+        gaps = _leaf_gaps(grads, want)
+        out["step0"] = {
+            "loss": loss, "loss_rel": abs(loss - oracle["loss"]) / abs(oracle["loss"]),
+            "norm_rel": _norm_gap(grads, want), "n_leaves": len(gaps),
+            "worst_share": max((g / spec["bounds"][k], k) for k, g in gaps.items()),
+            "launches": launches.snapshot(),
+            "k1_fwd": sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt"
+                          for r in recs),
+            "k1_dx": sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
+                         and r["backend"] == "streaming_tt" for r in recs),
+            "meshes": sorted({r["mesh"] for r in recs}),
+            "collectives": {"fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()},
+                            "bwd": bwd},
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "layout": describe_layout(rules, b, "sequences", cfg, s),
+            "seconds": time.perf_counter() - t0}
+        install_plan(None)
+        del grads, want
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = _sp_prefill(cfg, device, make_rules(
+            cfg, ShapeConfig("cli", s, b, "prefill"), mesh), batch["tokens"])
+        w = oracle["logits"].to(device)
+        out["prefill"] = {"shape": list(got["logits"].shape),
+                          "max_abs_diff": float((got["logits"] - w).abs().max()),
+                          "scale": float(w.abs().max()),
+                          "bitwise": bool(torch.equal(got["logits"], w)),
+                          "collectives": got["collectives"], "launches": got["launches"],
+                          "seconds": time.perf_counter() - t0}
+        del got, w
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        serve_rules = make_rules(get_config(SP_ARCH), ShapeConfig(
+            "cli", SP_MAX_SEQ, SP_LANES, "decode"), mesh)
+        got = _state_serve(SP_ARCH, cfg, device, serve_rules, lanes=SP_LANES,
+                           prompt=SP_PROMPT, gen_tokens=SP_GEN, max_seq=SP_MAX_SEQ,
+                           held_leaves=("k", "v"))
+        res = {"layout": describe_layout(batch_layout(serve_rules, SP_LANES), SP_LANES,
+                                         "lanes", cfg, max_seq=SP_MAX_SEQ),
+               "tokens_equal": got["tokens"] == oracle["tokens"],
+               "kv_bytes": got["state_bytes"],
+               "prefill_collectives": got["prefill_collectives"],
+               "collectives": got["collectives"],
+               "prefill_launches": got["prefill_launches"],
+               "decode_launches": got["decode_launches"]}
+        for key in ("prefill", "decode"):
+            w = oracle[key]
+            res[key] = {"shape": list(got[key].shape),
+                        "max_abs_diff": float((got[key] - w).abs().max()),
+                        "scale": float(w.abs().max()),
+                        "bitwise": bool(torch.equal(got[key], w))}
+        res["seconds"] = time.perf_counter() - t0
+        out["serve"] = res
+        install_plan(None)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sp_phase(device, card: str) -> tuple[dict, list[str]]:
+    """Full-width chatglm3-6b (8 of 28 layers, fp32, seed-0 weights, remat
+    full) on 4 ranks sharing ``cuda:0`` over ``gloo`` (``data=1 x
+    model=4``, the rules of ``make_rules``: its 2 kv heads do not divide the
+    axis, so SP splits the sequence; one spawn of :func:`sp_rank`) under
+    the committed chatglm3-6b plans, against the single device in this
+    process under the same plans: (a) step 0 at batch 4 x seq 512 (128
+    positions a rank): the loss and grad norm within rel 1e-4, every leaf
+    within its bound of :func:`family_train_check`, K1 forward and dx and
+    K3 launched on every rank, the peak memory a rank against one
+    device's; (b) the fp32 prefill logits of every position of the same
+    batch within 1e-4 x max |logit| (whether bit for bit is printed); (c)
+    16 lanes served over caches of 32 768 positions (prompt 32, 8 greedy
+    steps; the rules of the 28-layer config's cell, 14.0 GiB of cache a
+    device): the tokens equal on every rank, the prefill and first decode
+    step's logits within 1e-4 x max |logit|, a rank's KV-cache bytes
+    exactly 0.25x one device's; (d) the collectives of the batch's prefill,
+    of a served prompt's prefill, of a decode step and of step 0 equal
+    :func:`step_collectives`.  Returns the launches of the ranks' step 0,
+    first served prefill and first decode step, summed over every rank,
+    and the report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+
+    notes, totals = [], {k: 0 for k in launches.COUNTS}
+    work = tempfile.mkdtemp(prefix="repro_torch_sp_")
+    t_phase = time.perf_counter()
+    try:
+        cfg = _sp_cfg()
+        b, s = SP_TRAIN
+        pre, dec, tr = (load_plan(p) for p in _state_plans(SP_ARCH))
+        torch.cuda.reset_peak_memory_stats(device)
+        batch = train_batch(cfg, s, b, 0, device)
+        loss, grads = _family_step0(cfg, tr, device, batch, None)
+        train_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        plain = _family_step0(cfg, tr, device, batch, "jnp")
+        wide = _family_step0(cfg.with_(dtype="float64"), tr, device, batch, "jnp")
+        bounds = {k: max(1e-4, 10 * g) for k, g in _leaf_gaps(plain[1], wide[1]).items()}
+        install_plan(None)
+        del plain, wide
+        torch.cuda.empty_cache()
+        logits = _sp_prefill(cfg, device, None, batch["tokens"])["logits"].cpu()
+        got = _state_serve(SP_ARCH, cfg, device, None, lanes=SP_LANES, prompt=SP_PROMPT,
+                           gen_tokens=SP_GEN, max_seq=SP_MAX_SEQ, held_leaves=("k", "v"))
+        install_plan(None)
+        oracle = os.path.join(work, "oracle.pt")
+        torch.save({"tokens": got["tokens"], "prefill": got["prefill"],
+                    "decode": got["decode"], "loss": loss, "logits": logits,
+                    "grads": {k: v.cpu() for k, v in grads.items()}}, oracle)
+        single = {"kv_bytes": got["state_bytes"], "loss": loss, "train_peak": train_peak,
+                  "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        del grads, logits, got
+        torch.cuda.empty_cache()
+        oracle_s = time.perf_counter() - t_phase
+        run_dir = os.path.join(work, "run")
+        os.makedirs(run_dir)
+        with open(os.path.join(run_dir, "spec.json"), "w") as f:
+            json.dump({"oracle": oracle, "bounds": bounds}, f)
+        wall = spawn_ranks([sys.executable, os.path.abspath(__file__), "--sp-rank",
+                            run_dir], 4, run_dir, SHARD_TIMEOUT_S,
+                           env=dict(os.environ, OMP_NUM_THREADS="1"))
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        policy = get_config(SP_ARCH)
+        cell = ShapeConfig("cli", SP_MAX_SEQ, SP_LANES, "decode")
+        want = {
+            "step 0": step_collectives(cfg, tr, None, "train", b, s, False, mesh=SP_MESH),
+            "prefill": step_collectives(cfg, pre, None, "prefill", b, s, False,
+                                        mesh=SP_MESH),
+            "served prefill": step_collectives(cfg, pre, None, "prefill", 1, SP_PROMPT,
+                                               False, mesh=SP_MESH, cell=cell,
+                                               policy=policy),
+            "decode step": step_collectives(cfg, dec, None, "decode", SP_LANES,
+                                            SP_MAX_SEQ, False, mesh=SP_MESH, cell=cell,
+                                            policy=policy)}
+        for res in ranks:
+            where = f"{SP_ARCH}, rank {res['rank']}"
+            s0, pf, sv = res["step0"], res["prefill"], res["serve"]
+            got = {"step 0": s0["collectives"], "prefill": pf["collectives"],
+                   "served prefill": sv["prefill_collectives"],
+                   "decode step": sv["collectives"]}
+            for key, value in want.items():
+                if got[key] != value:
+                    raise AssertionError(f"{where}: {key} collectives {got[key]}, "
+                                         f"not {value}")
+            if max(s0["loss_rel"], s0["norm_rel"]) > 1e-4 or s0["worst_share"][0] > 1.0:
+                raise AssertionError(
+                    f"{where}: step 0 loss rel {s0['loss_rel']}, grad norm rel "
+                    f"{s0['norm_rel']}, worst leaf share {s0['worst_share']}")
+            if s0["k1_fwd"] <= 0 or s0["k1_dx"] <= 0 or \
+                    s0["launches"]["tt_gemm_ws"] <= 0 or s0["meshes"] != ["model=4"]:
+                raise AssertionError(f"{where}: step 0 K1 forward {s0['k1_fwd']}, dx "
+                                     f"{s0['k1_dx']}, launches {s0['launches']}, "
+                                     f"meshes {s0['meshes']}")
+            if pf["shape"] != [b, s, cfg.vocab] or \
+                    not pf["max_abs_diff"] <= 1e-4 * pf["scale"]:
+                raise AssertionError(f"{where}: prefill logits {pf}")
+            if not sv["tokens_equal"]:
+                raise AssertionError(f"{where}: greedy tokens differ from one device's")
+            for key in ("prefill", "decode"):
+                g = sv[key]
+                if g["shape"] != [SP_LANES, cfg.vocab] or \
+                        not g["max_abs_diff"] <= 1e-4 * g["scale"]:
+                    raise AssertionError(f"{where}: served {key} logits {g}")
+            if sv["kv_bytes"] * 4 != single["kv_bytes"]:
+                raise AssertionError(f"{where}: KV bytes a rank {sv['kv_bytes']}, one "
+                                     f"device {single['kv_bytes']}: not 0.25x")
+            for what, counts, k in (("prefill", pf["launches"], "streaming_tt"),
+                                    ("prefill", pf["launches"], "tt_gemm_ws"),
+                                    ("served prefill", sv["prefill_launches"],
+                                     "streaming_tt"),
+                                    ("decode step", sv["decode_launches"],
+                                     "streaming_tt")):
+                if counts[k] <= 0:
+                    raise AssertionError(f"{where}: {what} launched no {k}")
+            for counts in (s0["launches"], sv["prefill_launches"], sv["decode_launches"]):
+                for k, v in counts.items():
+                    totals[k] += v
+        r0 = ranks[0]
+        s0, pf, sv = r0["step0"], r0["prefill"], r0["serve"]
+        notes.append(f"4 ranks sharing one card, not a scaling figure ({card}; "
+                     f"data=1 x model=4, gloo): single-device oracle {oracle_s:.1f} s, "
+                     f"spawn wall {wall:.1f} s")
+        notes.append(
+            f"{SP_ARCH} ({cfg.n_layers} of 28 layers, fp32, remat {cfg.remat}) step 0 "
+            f"(batch {b} x seq {s}): {s0['layout']}; loss {s0['loss']:.7f} vs "
+            f"{single['loss']:.7f}, loss rel "
+            f"{max(r['step0']['loss_rel'] for r in ranks):.1e}, grad norm rel "
+            f"{max(r['step0']['norm_rel'] for r in ranks):.1e}, worst share of its "
+            f"bound {max(r['step0']['worst_share'][0] for r in ranks):.2f} "
+            f"({s0['worst_share'][1]}) of {s0['n_leaves']} leaves; K1 forward "
+            f"{s0['k1_fwd']} and dx {s0['k1_dx']} records on rank 0; peak a rank "
+            f"{[round(r['step0']['peak_gib'], 3) for r in ranks]} GiB vs one device "
+            f"{single['train_peak']:.3f} GiB; rank 0 {s0['seconds']:.1f} s")
+        notes.append(
+            f"  prefill logits (batch {b} x {s}, every position): max abs diff "
+            f"{max(r['prefill']['max_abs_diff'] for r in ranks):.3e} (max |logit| "
+            f"{pf['scale']:.3e}), bit for bit on "
+            f"{sum(r['prefill']['bitwise'] for r in ranks)}/4 ranks; rank 0 "
+            f"{pf['seconds']:.1f} s")
+        notes.append(
+            f"  serve ({SP_LANES} lanes, max_seq {SP_MAX_SEQ}, prompt {SP_PROMPT}, "
+            f"{SP_GEN} greedy steps): {sv['layout']}; tokens equal on "
+            f"{sum(r['serve']['tokens_equal'] for r in ranks)}/4 ranks; prefill "
+            f"logits max abs diff "
+            f"{max(r['serve']['prefill']['max_abs_diff'] for r in ranks):.3e}, decode "
+            f"{max(r['serve']['decode']['max_abs_diff'] for r in ranks):.3e} "
+            f"(max |logit| {sv['prefill']['scale']:.3e}, {sv['decode']['scale']:.3e}; "
+            f"decode bit for bit on "
+            f"{sum(r['serve']['decode']['bitwise'] for r in ranks)}/4); KV bytes a "
+            f"rank {sv['kv_bytes']} of one device's {single['kv_bytes']}; rank 0 "
+            f"{sv['seconds']:.1f} s")
+        notes.append(
+            f"  collectives (the formula's): step 0 forward {s0['collectives']['fwd']}, "
+            f"backward {s0['collectives']['bwd']}; batch prefill {pf['collectives']}; "
+            f"served prefill {sv['prefill_collectives']}; decode step "
+            f"{sv['collectives']}; launches rank 0: step 0 "
+            f"{ {k: v for k, v in s0['launches'].items() if v} }, served prefill "
+            f"{ {k: v for k, v in sv['prefill_launches'].items() if v} }, decode step "
+            f"{ {k: v for k, v in sv['decode_launches'].items() if v} }")
+        notes.append(f"peak memory a rank {[round(r['peak_gib'], 3) for r in ranks]} GiB; "
+                     f"single device (oracle) {single['peak_gib']:.3f} GiB; phase "
+                     f"{time.perf_counter() - t_phase:.1f} s")
         return totals, notes
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4692,6 +5128,14 @@ def main() -> int:
         log(f"states: {time.perf_counter() - t0:.1f} s; launches, every rank: "
             f"{states_counts}")
 
+        log("--- sp: full-width chatglm3-6b (8 of 28 layers) on 4 ranks sharing "
+            "the card, its sequence split over model=4")
+        t0 = time.perf_counter()
+        sp_counts, notes = sp_phase(device, card)
+        for n in notes:
+            log(f"  {n}")
+        log(f"sp: {time.perf_counter() - t0:.1f} s; launches, every rank: {sp_counts}")
+
         for n in (launches_per_call(device) + decode_profile(device)
                   + output_check(device) + calibration_check(device)):
             log(f"  {n}")
@@ -4747,6 +5191,7 @@ def main() -> int:
                       "serve_encdec": encdec_serve_counts[k["name"]],
                       "train_encdec": encdec_train_counts[k["name"]],
                       "states_sharded": states_counts[k["name"]],
+                      "sp_sharded": sp_counts[k["name"]],
                       "examples": example_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
          "bf16_max_abs_err": bf16_errs[k["name"]],
@@ -4791,4 +5236,6 @@ if __name__ == "__main__":
         sys.exit(shard_train_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--states-rank"]:  # one rank of the states phase
         sys.exit(states_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of the SP phase
+        sys.exit(sp_rank(sys.argv[2]))
     sys.exit(main())

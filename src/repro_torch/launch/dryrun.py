@@ -36,9 +36,15 @@ d_ff and the vocab, of the SSM and WKV heads and their states, and of the
 encoder-decoder's cross-attention heads and cross K/V cache
 (``repro_torch.sharding``: ``head_layout``, ``model_dim``,
 ``state_heads``), through the same functions as on ranks, their
-collectives over the shape-only group; the SP sequence split stays
-whole, and so do the experts, as the reference's ``expert_in``
-constraint has them.  The SSD scan's C.B scores, which do not depend on
+collectives over the shape-only group; the experts stay whole, as the
+reference's ``expert_in`` constraint has them.  Where the policy turns
+SP on (``sp_enabled``) a dense, MoE or VLM train or prefill cell traces a
+rank at its block of the positions (``models/lm.py::seq_block``: every
+head, d_ff and the vocab whole on it, K and V all-gathered, each gather
+counted at its bytes and, in a train step, its backward all-reduce), and
+a decode cell whose KV cache takes the ``seq`` entry at its block of the
+cache's positions (``sharding.kv_layout``), the blocks' attention
+combined by one all-gather a layer.  The SSD scan's C.B scores, which do not depend on
 the heads, are computed whole on every rank.  The projections stay whole
 too: every rank computes each projection's whole
 output, the LM head's all V logits included, and keeps its block, so a
@@ -106,11 +112,12 @@ from repro_torch.launch.mesh import (
     small_mesh_shape,
 )
 from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
-from repro_torch.models import SHAPES, api, input_specs, shape_applicable
+from repro_torch.models import (SHAPES, api, decode_cache_len, input_specs,
+                                shape_applicable)
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw_init
 from repro_torch.plan import sharded
-from repro_torch.sharding import get_rules, use_rules
+from repro_torch.sharding import get_rules, kv_layout, use_rules
 from repro_torch.tree import leaves, map_tree
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -407,6 +414,8 @@ def run_cell(
 
     mesh = shape_mesh(multi_pod=multi_pod, test_mesh=test_mesh)
     rules = batch_layout(make_rules(cfg, shape, mesh), shape.global_batch)
+    if shape.step == "decode":
+        rules = kv_layout(rules, cfg.family, cfg.n_kv_heads, decode_cache_len(cfg, shape))
     result["mesh"] = {k: int(v) for k, v in mesh.shape.items()}
     result["n_devices"] = int(math.prod(mesh.shape.values()))
     result["sp_enabled"] = rules.seq_axis is not None

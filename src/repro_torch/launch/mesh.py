@@ -30,10 +30,10 @@ batch-axis entries: where the batch axes divide a step's global batch
 (:func:`batch_layout`), :class:`LayoutBlocks` hands each rank its block of
 the inputs (and each decode lane block its caches), and the rank computes
 the model on it (:mod:`repro_torch.sharding`).  Of the caches' model-axis
-entries the KV caches' heads are applied (:func:`applied_cache_shardings`:
-a rank holds its block of the kv heads, as its attention computes them);
-the SP sequence split of a cache and the recurrent states' and the
-encoder-decoder's cross K/V channels stay whole on every rank.
+entries the KV caches' heads and, under SP, their positions are applied
+(:func:`applied_cache_shardings`: a rank holds its block of the kv heads
+or of the positions, as its attention computes them), and so are the SSM
+and WKV states' heads and the encoder-decoder's cross K/V heads.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.sharding import ShapeGroup, ShardingRules, SpecEntry
+from repro_torch.sharding import SP_FAMILIES, ShapeGroup, ShardingRules, SpecEntry
 from repro_torch.tree import leaves, map_tree
 
 
@@ -356,19 +356,25 @@ def applied_cache_shardings(cfg: ModelConfig, caches: Any,
     entries, and the model entry of the heads of a KV cache (the
     ``kv_major`` head layout, ``nn/attention.py``), of the
     encoder-decoder's cross K/V (``models/encdec.py``) and of the SSM and
-    WKV states (``nn/ssm.py``, ``nn/rwkv.py``).  The SP sequence split is
-    held whole, and so are two state leaves whose model entry the port
-    departs from, ``None`` here: the SSM's ``conv`` history (the
+    WKV states (``nn/ssm.py``, ``nn/rwkv.py``), and the SP ``seq`` entry of
+    a KV cache of the :data:`~repro_torch.sharding.SP_FAMILIES` (a rank
+    holds its block of the positions: ``nn/attention.py``'s decode combines
+    the ranks' blocks).  The hybrid's shared-attention cache and the
+    encoder-decoder's keep their positions whole, and so do two state
+    leaves whose model entry the port departs from, ``None`` here: the
+    SSM's ``conv`` history (the
     reference splits its channels contiguously, a block that mixes the
     rank's x channels with B and C, which every rank convolves whole; a
     rank holds ``win``'s whole output, so the whole history costs no
     collective) and RWKV's ``shift*`` token shifts (the last token of x,
     which every rank holds whole for the whole projections)."""
     heads = {"k": 2, "v": 2, "cross_k": 2, "cross_v": 2, "ssm": 1, "wkv": 1}
+    positions = {"k": 1, "v": 1} if cfg.family in SP_FAMILIES else {}
 
     def one(name, t):
         spec = _cache_pspec(name, (1,) + tuple(t.shape), cfg, rules)[1:]
-        return tuple(None if e == "model" and heads.get(name) != d else e
+        return tuple(None if e == "model" and d not in (heads.get(name),
+                                                        positions.get(name)) else e
                      for d, e in enumerate(spec))
 
     return _map_named(one, caches)
@@ -403,47 +409,63 @@ def batch_layout(rules: ShardingRules, batch: int) -> ShardingRules:
 
 
 def describe_layout(rules: ShardingRules, batch: int, what: str,
-                    cfg: Optional[ModelConfig] = None, seq: int = 1) -> str:
+                    cfg: Optional[ModelConfig] = None, seq: int = 1,
+                    max_seq: int = 0) -> str:
     """The report's words for a step's layout, e.g. ``batch split over
-    data=2: 4 of 8 sequences a rank`` or ``replicated: batch 1 does not
-    divide data=2``; with ``cfg`` and a model axis over 1, the model split
-    of a step of ``seq`` positions too (:func:`describe_model_split`)."""
+    data=2: 4 of 8 sequences a rank``, ``replicated: batch 1 does not
+    divide data=2`` or ``batch whole: 16 lanes on every rank (data=1)``;
+    with ``cfg`` and a model axis over 1, the model split of a step of
+    ``seq`` positions (and of KV caches of ``max_seq``) too
+    (:func:`describe_model_split`)."""
     axes = " x ".join(f"{a}={rules.axis_sizes[a]}" for a in rules.batch_axes
                       if rules.axis_sizes.get(a, 1) > 1)
     if rules.batch_split:
         out = (f"batch split over {axes}: {batch // rules.dp} of {batch} "
                f"{what} a rank")
+    elif not axes:
+        out = (f"batch whole: {batch} {what} on every rank ("
+               + " x ".join(f"{a}={rules.axis_sizes.get(a, 1)}"
+                            for a in rules.batch_axes) + ")")
     else:
         out = f"replicated: batch {batch} does not divide {axes}"
     if cfg is not None and rules.tp > 1:
-        out += "; " + describe_model_split(cfg, rules, seq)
+        out += "; " + describe_model_split(cfg, rules, seq, max_seq)
     return out
 
 
 def describe_model_split(cfg: ModelConfig, rules: ShardingRules,
-                         seq: int = 1) -> str:
-    """What a rank of a model group holds of the heads, d_ff and the
-    vocab in a step of ``seq`` positions (SP's sequence split takes the
-    axis from d_ff), e.g. ``heads kv_major over model=2: 2 of 4 kv heads a
-    rank, d_ff 1024 of 2048 a rank, vocab 16000 of 32000 a rank``.  A
-    hybrid's SSM heads come first and it names no d_ff (it has no MLP);
-    an RWKV model names its WKV heads in place of the attention's and no
-    d_ff (its channel mix stays whole); the encoder-decoder names its
-    cross-attention kv heads after the attention's."""
+                         seq: int = 1, max_seq: int = 0) -> str:
+    """What a rank of a model group holds of the sequence, the heads, d_ff
+    and the vocab in a step of ``seq`` positions, e.g. ``heads kv_major
+    over model=2: 2 of 4 kv heads a rank, d_ff 1024 of 2048 a rank, vocab
+    16000 of 32000 a rank``; where SP splits the step's sequence it comes
+    first (``sequence 128 of 512 a rank, heads whole over model=4, d_ff
+    whole, vocab whole``), and where it splits KV caches of ``max_seq``
+    positions they follow the heads (``KV cache positions 8192 of 32768 a
+    rank``).  A hybrid's SSM heads come first and it names no d_ff (it has
+    no MLP); an RWKV model names its WKV heads in place of the attention's
+    and no d_ff (its channel mix stays whole); the encoder-decoder names
+    its cross-attention kv heads after the attention's."""
     from repro_torch.models.blocks import rwkv_spec, ssm_spec
-    from repro_torch.sharding import (ff_split, head_layout, state_heads, use_rules,
+    from repro_torch.sharding import (ff_split, head_layout, kv_layout,
+                                      splits_sequence, state_heads, use_rules,
                                       vocab_split)
 
     tp = rules.tp
     where = f"over {rules.model_axis}={tp}"
     states = {"hybrid": ("ssm", ssm_spec), "rwkv": ("wkv", rwkv_spec)}.get(cfg.family)
     with use_rules(rules):
+        sp = splits_sequence(cfg.family, 1, seq)
+    step = dataclasses.replace(rules, seq_split=sp)
+    if max_seq:
+        step = kv_layout(step, cfg.family, cfg.n_kv_heads, max_seq)
+    with use_rules(step):
         layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
         ff = ff_split((1, seq), cfg.d_ff)
         vocab = vocab_split((1, 1), cfg.vocab)
         n_states = states[1](cfg).n_heads if states else 0
         split_states = states is not None and state_heads(n_states)
-    parts = []
+    parts = [f"sequence {seq // tp} of {seq} a rank"] if sp else []
     if states is not None:
         parts.append(f"{states[0]} heads {where}: {n_states // tp} of {n_states} "
                      "a rank" if split_states else f"{states[0]} heads whole {where}")
@@ -454,6 +476,8 @@ def describe_model_split(cfg: ModelConfig, rules: ShardingRules,
             "q_block": f"heads q_block {where}: {cfg.n_heads // tp} of "
                        f"{cfg.n_heads} query heads a rank",
         }.get(layout, f"heads whole {where}"))
+    if step.cache_seq_split:
+        parts.append(f"KV cache positions {max_seq // tp} of {max_seq} a rank")
     if cfg.family == "encdec":
         parts.append(f"cross kv heads {cfg.n_kv_heads // tp} of {cfg.n_kv_heads} "
                      "a rank" if layout == "kv_major" else "cross kv heads whole")

@@ -19,8 +19,13 @@ gathered (``serve/engine.py``); the batch-1 prefill stays replicated, as
 in the reference, and each planned TT projection splits its tokens over
 the ranks (:mod:`repro_torch.plan.sharded`).  On a model axis over 1
 each rank of a model group computes and caches its block of the heads,
-d_ff and the vocab (:mod:`repro_torch.sharding`).  The report names each
-phase's layout and the model split.  A rank's card is
+d_ff and the vocab (:mod:`repro_torch.sharding`); where the policy turns
+SP on for the decode cell (``make_rules``: a KV cache over 12 GiB a
+device whose kv heads do not divide the model axis) each rank holds its
+block of the cache's positions and a prompt whose length divides the
+axis prefills as the ranks' blocks of its positions.  The report names
+each phase's layout and the model split (the prefill's at the first
+request's bucketed prompt).  A rank's card is
 ``cuda:{local_rank % device_count}``; the backend is ``nccl`` when every
 rank has a card of its own and ``gloo`` when ranks share one (NCCL refuses
 two ranks on one card) or run on the CPU.  Rank 0 prints the report; every
@@ -57,6 +62,7 @@ from repro_torch.launch.mesh import (batch_layout, describe_layout,
                                      make_rules, make_test_mesh)
 from repro_torch.launch.ranks import Ranks, join_ranks, ranks_agree
 from repro_torch.models import api
+from repro_torch.nn import kept_plan
 from repro_torch.models.config import ShapeConfig
 from repro_torch.plan import (
     BACKENDS,
@@ -184,7 +190,8 @@ def run(argv=None, *, tt_model_reduce: bool = False) -> ServeRun:
         with open(os.devnull, "w") as sink:
             # rank 0 prints the report; errors reach stderr from every rank
             with (contextlib.redirect_stdout(sink) if ranks.rank
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), kept_plan():
+                # the plan the run installs is the run's alone
                 return _serve(args, ap, device, ranks, tt_model_reduce)
     finally:
         if ranks.owned:
@@ -229,11 +236,12 @@ def _serve(args, ap, device, ranks: Ranks, tt_model_reduce: bool) -> ServeRun:
         rules = dataclasses.replace(rules, tt_model_reduce=True)
 
     if ranks.world > 1:
+        first = -(-len(requests[0].prompt) // bucket) * bucket if requests else 1
         print("layout: prefill "
-              + describe_layout(batch_layout(rules, 1), 1, "prompts")
+              + describe_layout(batch_layout(rules, 1), 1, "prompts", cfg, first)
               + "; decode "
               + describe_layout(batch_layout(rules, args.batch), args.batch,
-                                "lanes", cfg))
+                                "lanes", cfg, max_seq=max_seq))
     reset_execution_log()
     t0 = time.perf_counter()
     with use_rules(rules):

@@ -11,11 +11,15 @@ Each step runs under the installed sharding rules: under their
 ``batch_split`` the batch it is handed is the rank's block, the loss the
 rank's share, and the train step sums the gradients over the batch axes
 (:func:`loss_and_grads`), where the reference's XLA step sums them inside
-the jitted step, before the clip.
+the jitted step, before the clip.  Where SP splits a step's sequence
+(``models/lm.py::seq_block``) the model takes the rank's block of the
+positions itself, its loss is the rank's share of them too, and the sums
+run over the batch axes and the sequence's axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
@@ -23,34 +27,38 @@ import torch
 from repro_torch.models import ModelConfig, api
 from repro_torch.models.lm import whole_logits
 from repro_torch.optim import adamw_update, clip_by_global_norm, compress_decompress
-from repro_torch.plan.sharded import batch_axes_split, collective
+from repro_torch.plan.sharded import collective, split_group
 from repro_torch.sharding import get_rules
 from repro_torch.tree import leaves, map_tree
 
 
-def _data_group():
-    """The process group of the batch axes when the installed rules split
-    the step's batch over them, else None."""
-    split = batch_axes_split(get_rules())
-    return split[0] if split is not None else None
+def _data_group(seq: bool = False):
+    """The process group of the ranks whose losses are shares of one step's
+    loss: the batch axes when the installed rules split the step's batch
+    over them, and the sequence's axis when ``seq`` (the model splits the
+    step's sequence); None when neither."""
+    rules = get_rules()
+    if rules is None:
+        return None
+    return split_group(dataclasses.replace(rules, seq_split=seq))
 
 
-def global_loss(loss: torch.Tensor) -> torch.Tensor:
+def global_loss(loss: torch.Tensor, seq: bool = False) -> torch.Tensor:
     """The loss over the global batch, detached: the sum of the ranks'
-    shares under ``batch_split`` (one all-reduce), else ``loss``."""
-    group = _data_group()
+    shares (one all-reduce) under ``batch_split`` or a split sequence
+    (``seq``), else ``loss``."""
+    group = _data_group(seq)
     loss = loss.detach()
     if group is None:
         return loss
     return collective("all_reduce", loss.clone(), group)
 
 
-def sum_batch_grads(grads: Any) -> Any:
-    """``grads`` summed over the batch axes' group under the installed
-    rules' ``batch_split`` (in place; one all-reduce (SUM) a dtype, of one
-    flat buffer in :func:`leaves` order, counted as ``grad_all_reduce``),
-    as they are otherwise."""
-    group = _data_group()
+def sum_batch_grads(grads: Any, seq: bool = False) -> Any:
+    """``grads`` summed over the group of :func:`_data_group` (in place; one
+    all-reduce (SUM) a dtype, of one flat buffer in :func:`leaves` order,
+    counted as ``grad_all_reduce``), as they are where there is none."""
+    group = _data_group(seq)
     if group is None:
         return grads
     flat = leaves(grads)
@@ -68,12 +76,14 @@ def loss_and_grads(m, params, batch) -> tuple[torch.Tensor, Any]:
     """``m.train_loss`` and its gradient tree: ``(global loss, grads)``.
 
     A leaf that took no part in the loss (an expert no token reached) gets
-    a zero gradient, as ``jax.grad`` gives.  Under ``batch_split`` the
-    gradients are summed over the batch axes after the backward
-    (:func:`sum_batch_grads`) and the loss reported is the sum of the
-    ranks' shares (:func:`global_loss`).  ``params``' ``.grad`` are
+    a zero gradient, as ``jax.grad`` gives.  Under ``batch_split``, and
+    where SP splits the step's sequence (``m.seq_split``), the gradients
+    are summed over the batch axes and the sequence's axis after the
+    backward (:func:`sum_batch_grads`) and the loss reported is the sum of
+    the ranks' shares (:func:`global_loss`).  ``params``' ``.grad`` are
     cleared.
     """
+    seq = m.seq_split(batch)
     for p in leaves(params):
         p.grad = None
     loss = m.train_loss(params, batch)
@@ -83,7 +93,7 @@ def loss_and_grads(m, params, batch) -> tuple[torch.Tensor, Any]:
         params)
     for p in leaves(params):
         p.grad = None
-    return global_loss(loss), sum_batch_grads(grads)
+    return global_loss(loss, seq), sum_batch_grads(grads, seq)
 
 
 def make_train_step(
@@ -135,7 +145,8 @@ def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None):
     building the autograd graph; the caches hold ``max_seq`` positions
     (default: the prompt's length), the rank's blocks under the installed
     rules, and the logits the whole vocab (a vocab split over the model
-    axis gathered: ``lm.whole_logits``)."""
+    axis gathered: ``lm.whole_logits``) at the prompt's last position (under
+    SP the rank that holds it sends it: ``lm.prefill``)."""
     m = api(cfg)
 
     def step(params, batch):
@@ -150,7 +161,8 @@ def make_prefill_step(cfg: ModelConfig, max_seq: Optional[int] = None):
 def make_decode_step(cfg: ModelConfig):
     """``(params, token, caches, cache_pos) -> (logits, new caches)``,
     without building the autograd graph; the logits and caches as
-    :func:`make_prefill_step`'s."""
+    :func:`make_prefill_step`'s.  Caches split over their positions
+    (SP) are read under rules that say so (``lm.cache_rules``)."""
     m = api(cfg)
 
     def step(params, token, caches, cache_pos):
@@ -168,6 +180,6 @@ def make_eval_loss(cfg: ModelConfig):
 
     def step(params, batch):
         with torch.no_grad():
-            return global_loss(m.train_loss(params, batch))
+            return global_loss(m.train_loss(params, batch), m.seq_split(batch))
 
     return step

@@ -30,7 +30,12 @@ axis over 1 each rank of a model group computes its block of the heads,
 d_ff and the vocab (:mod:`repro_torch.sharding`), the loss is the same on
 every rank of it, and no gradient is summed over it after the backward:
 its loss is its share of the global mean, and the step sums every
-gradient over the batch axes before the clip (``launch/steps.py``).  Where
+gradient over the batch axes before the clip (``launch/steps.py``).
+Where the policy turns SP on (a dense, MoE or VLM arch whose kv heads do
+not divide the model axis) each rank of a model group takes its block of
+the positions instead (the layout line names it, e.g. ``sequence 128 of
+512 a rank``), its loss is its share of them, and the step sums the
+gradients over the model axis too.  Where
 they do not, the batch stays replicated and each planned TT projection
 splits its tokens over the ranks, forward and backward
 (:mod:`repro_torch.plan.sharded`).  The report names the layout.  Each
@@ -79,7 +84,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.lm import count_params
-from repro_torch.nn import install_plan
+from repro_torch.nn import install_plan, kept_plan
 from repro_torch.optim import (
     AdamWState,
     adamw_init,
@@ -226,7 +231,8 @@ def run(argv=None, *, tt_model_reduce: bool = False) -> TrainRun:
         with open(os.devnull, "w") as sink:
             # rank 0 prints the report; errors reach stderr from every rank
             with (contextlib.redirect_stdout(sink) if ranks.rank
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), kept_plan():
+                # the plan the run installs is the run's alone
                 return _train(args, device, ranks, tt_model_reduce)
     finally:
         if ranks.owned:

@@ -40,6 +40,9 @@ class ModelAPI:
     #: slices the last real token of a bucket-padded prompt from it.
     #: ``None`` for families without one (encdec)
     prefill_full: Optional[Callable] = None
+    #: batch -> whether the installed rules split a step's sequence on it
+    #: (SP: ``lm.seq_block``); the encoder-decoder keeps it whole
+    seq_split: Callable = lambda batch: False
 
 
 _PLAN_UNSET = object()  # sentinel: "plan argument not given"
@@ -98,7 +101,14 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
         init_caches=lambda batch, max_seq: _lm.init_caches(
             cfg, batch, max_seq, device=device),
         prefill_full=lambda p, b, max_seq: _lm.prefill_full(cfg, p, b, max_seq),
+        seq_split=lambda b: _lm.splits_batch_sequence(cfg, b),
     )
+
+
+def decode_cache_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """The positions of a decode cell's caches: its sequence, plus a VLM's
+    image prefix."""
+    return shape.seq_len + (cfg.n_frontend_tokens or (256 if cfg.family == "vlm" else 0))
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
@@ -131,7 +141,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
             batch["frontend"] = fe
         return batch
     if shape.step == "decode":
-        max_seq = s + (cfg.n_frontend_tokens or (256 if cfg.family == "vlm" else 0))
+        max_seq = decode_cache_len(cfg, shape)
         with use_rules(None):   # the whole caches, as the reference's specs
             caches = api(cfg, device="meta").init_caches(gb, max_seq)
         return {"token": spec((gb, 1)), "cache_pos": spec(()), "caches": caches}
@@ -140,5 +150,5 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
 
 __all__ = [
     "ModelConfig", "ShapeConfig", "SHAPES", "shape_applicable",
-    "ModelAPI", "api", "input_specs", "ENC_LEN_CAP",
+    "ModelAPI", "api", "decode_cache_len", "input_specs", "ENC_LEN_CAP",
 ]

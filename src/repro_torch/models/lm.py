@@ -16,13 +16,26 @@ shared attention block applied after each group, then the tail of
 ``cfg.remat`` recomputes activations in the backward pass where the
 reference wraps its scan bodies in ``jax.checkpoint``: each block, and
 each hybrid group (its Mamba layers and the shared attention).
+
+Under SP (:func:`repro_torch.sharding.splits_sequence`: the dense, MoE and
+VLM families, where the installed rules give a step's sequence the
+model axis) a rank takes its block of the positions after the embedding
+and the VLM prefix (the reference's ``lm.py:251``; without a prefix the
+tokens' block is embedded alone) and runs the layers, the final norm and
+the head on it under ``seq_split``: RoPE and the causal mask read the
+block's global positions, attention gathers K and V.  The prefix rows
+are dropped on the ranks that hold them.  The loss is the rank's share
+(:func:`train_loss`), and the prefill gathers the logits' positions
+(:func:`prefill_full`, :func:`prefill`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import (
@@ -45,7 +58,13 @@ from repro_torch.nn import (
     rmsnorm,
     rmsnorm_init,
 )
-from repro_torch.sharding import get_rules, use_rules, vocab_split
+from repro_torch.sharding import (
+    get_rules,
+    kv_layout,
+    splits_sequence,
+    use_rules,
+    vocab_split,
+)
 from repro_torch.tree import leaves
 from .blocks import (
     attn_spec,
@@ -146,11 +165,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def cache_rules(cfg: ModelConfig, max_seq: int):
+    """The installed rules for caches of ``max_seq`` positions (their
+    ``cache_seq_split``: :func:`repro_torch.sharding.kv_layout`), or None
+    without rules."""
+    return kv_layout(get_rules(), cfg.family, cfg.n_kv_heads, max_seq)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype: Optional[torch.dtype] = None, device="cuda"):
     """Per-layer decode caches in ``cfg.dtype`` unless told otherwise;
     under the installed rules each a rank's block of the heads where they
-    split (``init_kv_cache``, ``init_ssm_state``, ``init_rwkv_state``)."""
+    split (``init_kv_cache``, ``init_ssm_state``, ``init_rwkv_state``) and
+    of the KV positions under SP (:func:`cache_rules`)."""
+    with use_rules(cache_rules(cfg, max_seq)):
+        return _init_caches(cfg, batch, max_seq, dtype, device)
+
+
+def _init_caches(cfg, batch, max_seq, dtype, device):
     dtype = dtype or _dtype(cfg)
 
     def kv():
@@ -227,6 +259,63 @@ def _run_hybrid(cfg, params, x, positions, caches, cache_pos, aux):
     return x, new_caches, aux
 
 
+class SeqBlock(NamedTuple):
+    """A rank's block of a step's positions under SP: the sequence's group,
+    the rank's index and the number of blocks, the block's first position
+    and its length, over all ``n_prefix + text`` positions."""
+
+    group: Any
+    index: int
+    tp: int
+    start: int
+    size: int
+    n_prefix: int
+
+    @property
+    def text(self) -> tuple[int, int]:
+        """The rank's text positions ``[lo, hi)`` (the prefix's left out)."""
+        lo = max(self.start - self.n_prefix, 0)
+        return lo, max(self.start + self.size - self.n_prefix, lo)
+
+
+def _n_prefix(cfg: ModelConfig, frontend) -> int:
+    return frontend.shape[1] if cfg.family == "vlm" and frontend is not None else 0
+
+
+def seq_block(cfg: ModelConfig, tokens: torch.Tensor,
+              frontend: Optional[torch.Tensor] = None) -> Optional[SeqBlock]:
+    """The rank's :class:`SeqBlock` of a step on ``tokens`` (B, S) (after a
+    VLM's ``frontend`` prefix) when the installed rules split its sequence
+    (:func:`~repro_torch.sharding.splits_sequence`, or already
+    ``seq_split``), else None."""
+    from repro_torch.plan.sharded import model_axis_split
+
+    rules = get_rules()
+    n_prefix = _n_prefix(cfg, frontend)
+    s_all = tokens.shape[1] + n_prefix
+    inside = rules is not None and rules.seq_split
+    if not inside and not splits_sequence(cfg.family, tokens.shape[0], s_all):
+        return None
+    group, index, tp = model_axis_split(rules)
+    size = s_all // tp
+    return SeqBlock(group, index, tp, index * size, size, n_prefix)
+
+
+def splits_batch_sequence(cfg: ModelConfig, batch: dict) -> bool:
+    """Whether a step on ``batch`` runs its sequence split (:func:`seq_block`)."""
+    return seq_block(cfg, batch["tokens"], batch.get("frontend")) is not None
+
+
+@contextlib.contextmanager
+def _sequence_split(blk: Optional[SeqBlock]):
+    """The installed rules with ``seq_split`` set under ``blk``."""
+    if blk is None:
+        yield
+        return
+    with use_rules(dataclasses.replace(get_rules(), seq_split=True)):
+        yield
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None, caches=None,
             cache_pos=None, return_hidden: bool = False):
@@ -238,26 +327,37 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     cut from the logits.  ``return_hidden`` returns the final-norm hidden
     states (B, S, D) in place of the logits (the chunked-loss path).  Under
     rules that split the vocab the logits are this rank's block of it
-    (:func:`apply_head`; :func:`whole_logits` gathers them).
+    (:func:`apply_head`; :func:`whole_logits` gathers them).  Under SP
+    (:func:`seq_block`) the hidden states and logits are the rank's text
+    positions (:attr:`SeqBlock.text`), whole along the vocab.
     """
+    blk = seq_block(cfg, tokens, frontend)
+    n_prefix = _n_prefix(cfg, frontend)
+    b = tokens.shape[0]
+    s_all = tokens.shape[1] + n_prefix
+    if blk is not None and not n_prefix:
+        tokens = tokens.narrow(1, blk.start, blk.size)
     x = embedding_apply(embed_spec(cfg), params["embed"], tokens)
-    n_prefix = 0
-    if cfg.family == "vlm" and frontend is not None:
+    if n_prefix:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
-        n_prefix = frontend.shape[1]
-    b, s, _ = x.shape
+        if blk is not None:
+            x = x.narrow(1, blk.start, blk.size)
     base = torch.as_tensor(cache_pos if cache_pos is not None else 0,
                            device=x.device)
-    ar = torch.arange(s, device=x.device)
+    ar = torch.arange(s_all, device=x.device)
+    if blk is not None:
+        ar = ar[blk.start:blk.start + blk.size]
     positions = base[:, None] + ar[None, :] if base.dim() == 1 else base + ar[None, :]
-    positions = torch.broadcast_to(positions, (b, s))
-    x, caches, aux = _run_blocks(cfg, params, x, positions, caches, cache_pos)
-    x = rmsnorm(params["ln_f"], x)
-    if n_prefix:
-        x = x[:, n_prefix:]
-    if return_hidden:
-        return x, caches, aux
-    return apply_head(cfg, params, x), caches, aux
+    positions = torch.broadcast_to(positions, (b, x.shape[1]))
+    with _sequence_split(blk):
+        x, caches, aux = _run_blocks(cfg, params, x, positions, caches, cache_pos)
+        x = rmsnorm(params["ln_f"], x)
+        if n_prefix:
+            lo = n_prefix if blk is None else blk.text[0] + n_prefix - blk.start
+            x = x[:, lo:]
+        if return_hidden:
+            return x, caches, aux
+        return apply_head(cfg, params, x), caches, aux
 
 
 def _vocab_split(lead: tuple[int, ...], vocab: int):
@@ -376,7 +476,15 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     ``cfg.aux_loss_weight`` times the auxiliary (MoE load-balance) loss.
     Under ``batch_split`` the rank's share (:func:`batch_share`): the
     batch is its block, and the aux loss, computed from global statistics
-    (``nn/moe.py``), is the same on every rank."""
+    (``nn/moe.py``), is the same on every rank.  Under SP (:func:`seq_block`)
+    the labels are the rank's text positions too, and its share is their
+    mean times their part of the text, plus its ``1/tp`` of the aux loss,
+    over the batch blocks: the shares of every rank sum to the global loss.
+    A rank that holds prefix positions alone adds no term, but its graph
+    still runs backward (the other ranks' terms read its K and V)."""
+    blk = seq_block(cfg, batch["tokens"], batch.get("frontend"))
+    if blk is not None:
+        return _seq_share(cfg, params, batch, blk)
     if cfg.loss_chunk:
         hidden, _, aux = forward(cfg, params, batch["tokens"],
                                  frontend=batch.get("frontend"), return_hidden=True)
@@ -389,26 +497,71 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
                        + cfg.aux_loss_weight * aux)
 
 
+def _seq_share(cfg: ModelConfig, params: dict, batch: dict,
+               blk: SeqBlock) -> torch.Tensor:
+    """:func:`train_loss`'s share of a rank whose sequence block is ``blk``."""
+    with _sequence_split(blk):
+        hidden, _, aux = forward(cfg, params, batch["tokens"],
+                                 frontend=batch.get("frontend"), return_hidden=True)
+        lo, hi = blk.text
+        labels = batch["labels"][:, lo:hi]
+        if hi == lo:
+            ce = hidden.sum() * 0.0
+        elif cfg.loss_chunk:
+            ce = chunked_cross_entropy(lambda h: apply_head(cfg, params, h), hidden,
+                                       labels, cfg.loss_chunk, cfg.vocab)
+        else:
+            ce = cross_entropy(apply_head(cfg, params, hidden), labels, cfg.vocab)
+        share = (ce * ((hi - lo) / batch["labels"].shape[1])
+                 + cfg.aux_loss_weight * aux / blk.tp)
+        return share / get_rules().split_dp
+
+
 def count_params(params) -> int:
     """Number of parameter elements (every leaf of the tree)."""
     return sum(int(math.prod(a.shape)) for a in leaves(params))
 
 
+def _prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
+    """Run the prompt into fresh caches of ``max_seq`` positions: (logits,
+    caches, the rank's :class:`SeqBlock` under SP or None)."""
+    tokens = batch["tokens"]
+    with use_rules(cache_rules(cfg, max_seq)):
+        caches = init_caches(cfg, tokens.shape[0], max_seq, device=_device(params))
+        logits, caches, _ = forward(cfg, params, tokens, frontend=batch.get("frontend"),
+                                    caches=caches,
+                                    cache_pos=torch.zeros((), dtype=torch.long))
+        return logits, caches, seq_block(cfg, tokens, batch.get("frontend"))
+
+
+def _gather_rows(rows: torch.Tensor, blk: SeqBlock, n: int) -> torch.Tensor:
+    """Every rank's ``rows`` (B, <= n, ...), padded in front with zeros to
+    ``n`` (the prefix rows a rank dropped), concatenated along dim 1 over
+    the sequence's group: one all-gather."""
+    from repro_torch.plan.sharded import collective
+
+    pad = rows.new_zeros((rows.shape[0], n - rows.shape[1]) + tuple(rows.shape[2:]))
+    return collective("all_gather", torch.cat([pad, rows], dim=1), blk.group, dim=1)
+
+
 def prefill_full(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
     """Run the prompt (after ``batch["frontend"]`` for a VLM), returning the
-    full (B, S, V) logits and primed caches."""
-    tokens = batch["tokens"]
-    caches = init_caches(cfg, tokens.shape[0], max_seq, device=_device(params))
-    logits, caches, _ = forward(cfg, params, tokens, frontend=batch.get("frontend"),
-                                caches=caches,
-                                cache_pos=torch.zeros((), dtype=torch.long))
-    return logits, caches
+    full (B, S, V) logits and primed caches; under SP the ranks' blocks of
+    the positions are all-gathered (one collective)."""
+    logits, caches, blk = _prefill(cfg, params, batch, max_seq)
+    if blk is None:
+        return logits, caches
+    return _gather_rows(logits, blk, blk.size)[:, blk.n_prefix:], caches
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int):
-    """Run the full prompt, returning (last-token logits (B, V), primed caches)."""
-    logits, caches = prefill_full(cfg, params, batch, max_seq)
-    return logits[:, -1], caches
+    """Run the full prompt, returning (last-token logits (B, V), primed
+    caches); under SP each rank sends its last row (the last rank's is the
+    prompt's last token), one collective."""
+    logits, caches, blk = _prefill(cfg, params, batch, max_seq)
+    if blk is None:
+        return logits[:, -1], caches
+    return _gather_rows(logits[:, -1:], blk, 1)[:, -1], caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, caches,

@@ -8,6 +8,7 @@ from .linear import (
     capture_activation_rms,
     install_plan,
     installed_factorizations,
+    kept_plan,
     linear_apply,
     linear_flops,
     linear_init,
@@ -39,7 +40,7 @@ from .rwkv import (
 
 __all__ = [
     "LinearSpec", "TTConfig", "capture_activation_rms", "install_plan",
-    "installed_factorizations",
+    "installed_factorizations", "kept_plan",
     "linear_apply", "linear_flops", "linear_init", "plan_context",
     "planned_layer", "planned_path_index",
     "rmsnorm", "rmsnorm_init", "apply_rope", "rope_for",

@@ -33,6 +33,20 @@ stay whole and the rank takes its block of their output:
   ``wo`` takes it as it is under the model reduction.
 * ``whole``: every rank computes every head.
 
+Under SP (``ShardingRules.seq_split``: a step's sequence holds the model
+axis) every head is the rank's, and so are only its block of the
+positions: q, k and v come from the rank's rows, RoPE turns them at
+their global positions, K and V are all-gathered over the axis in one
+:func:`~repro_torch.plan.sharded.seq_gather` and the rank's queries
+attend over all of them from the block's first position on.  The
+reference moves q from the sequence to the heads where the query heads
+divide the axis (Megatron-SP, ``_shard_heads``); the values are the
+same.  A KV cache under ``cache_seq_split`` holds the rank's block of
+the positions: a prefill writes the part of the (gathered) prompt that
+falls in it, and a decode step scores each rank's block and combines the
+blocks' softmax statistics (:func:`_combine_blocks`, one all-gather of
+``B x H x (Dh + 2)`` floats a layer, not the cache).
+
 The caches are updated in place: the JAX reference returned new cache
 arrays (donated by the engine), this port writes the new K/V rows into
 the given cache tensors and returns them.
@@ -220,7 +234,8 @@ def attention_apply(
     model-axis head layout the cache holds this rank's kv heads
     (:func:`init_kv_cache`).
     """
-    from repro_torch.plan.sharded import model_axis_split, model_gather
+    from repro_torch.plan.sharded import (model_axis_split, model_gather,
+                                          seq_axis_split, seq_gather)
 
     b, s, _ = x.shape
     if positions is None:
@@ -245,6 +260,18 @@ def attention_apply(
         q = apply_rope(q, positions, base=base_f, rotary_fraction=frac)
         k = apply_rope(k, positions, base=base_f, rotary_fraction=frac)
 
+    rules = get_rules()
+    seq = seq_axis_split(rules)
+    q_offset = 0
+    if seq is not None:
+        # the rank's positions: K and V of every position, one gather
+        hkv = k.shape[2]
+        kv = seq_gather(torch.cat([k, v], dim=2), 1, seq)
+        k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+        q_offset = seq[1] * s
+    cache_block = (model_axis_split(rules) if cache is not None
+                   and rules is not None and rules.cache_seq_split else None)
+
     if cache is not None and s > 1:
         # prefill-with-cache: write the prompt's K/V at cache_pos and attend
         # over the just-computed K/V
@@ -254,12 +281,12 @@ def attention_apply(
                 "per-lane (B,) cache_pos is decode-only; prefill writes "
                 "one contiguous prompt per call (the serve scheduler "
                 "prefills each request at batch 1)")
-        start = int(idx)
-        cache.k[:, start:start + s] = k.to(cache.k.dtype)
-        cache.v[:, start:start + s] = v.to(cache.v.dtype)
+        _write_prompt(cache, k, v, int(idx), cache_block)
     if cache is None or s > 1:
         out = _chunked_attention(q, *_kv_for_heads(spec, layout, split, n_local, k, v),
-                                 spec.causal, spec.q_chunk, grouped)
+                                 spec.causal, spec.q_chunk, grouped, q_offset)
+    elif cache_block is not None:
+        out = _decode_blocks(spec, q, k, v, cache, cache_pos, cache_block)
     else:
         idx = torch.as_tensor(cache_pos if cache_pos is not None else 0,
                               device=x.device)
@@ -295,13 +322,95 @@ def attention_apply(
     return y, cache
 
 
+def _write_prompt(cache: KVCache, k, v, start: int, block) -> None:
+    """Write a prompt's K/V (every position of it, ``(B, S, Hkv, Dh)``)
+    at positions ``[start, start + S)`` of ``cache``: of its whole length,
+    or under ``block`` (:func:`~repro_torch.plan.sharded.model_axis_split`
+    of a cache split over the positions) the part in the rank's block."""
+    n = cache.k.shape[1]
+    first = block[1] * n if block is not None else 0
+    lo, hi = max(start, first), min(start + k.shape[1], first + n)
+    if hi > lo:
+        cache.k[:, lo - first:hi - first] = k[:, lo - start:hi - start].to(cache.k.dtype)
+        cache.v[:, lo - first:hi - first] = v[:, lo - start:hi - start].to(cache.v.dtype)
+
+
+def _decode_blocks(spec: AttentionSpec, q, k, v, cache: KVCache, cache_pos,
+                   block) -> torch.Tensor:
+    """One decode step over a cache split over the positions (``block``:
+    :func:`~repro_torch.plan.sharded.model_axis_split`): the rank that holds
+    a lane's position writes its new K/V there, every rank scores its block
+    of the positions with every head, and :func:`_combine_blocks` merges
+    the blocks' softmax.  ``(B, 1, H, Dh)`` on every rank."""
+    b = q.shape[0]
+    n = cache.k.shape[1]
+    first = block[1] * n
+    idx = torch.as_tensor(cache_pos if cache_pos is not None else 0, device=q.device)
+    local = idx.long() - first
+    held = (local >= 0) & (local < n)
+    at = local.clamp(0, n - 1)
+    kv_pos = first + torch.arange(n, device=q.device)
+    if idx.dim() == 1:
+        lanes = torch.arange(b, device=q.device)
+        for c, new in ((cache.k, k), (cache.v, v)):
+            c[lanes, at] = torch.where(held[:, None, None], new[:, 0].to(c.dtype),
+                                       c[lanes, at])
+        vmask = (kv_pos[None, :] <= idx[:, None])[:, None, None, None, :]
+    else:
+        at = at.reshape(1)
+        for c, new in ((cache.k, k), (cache.v, v)):
+            # index_copy_, not ``c[:, at] =``: no host read (the dry run's meta)
+            c.index_copy_(1, at, torch.where(held, new.to(c.dtype), c.index_select(1, at)))
+        vmask = (kv_pos <= idx)[None, None, None, None, :]
+    hkv = cache.k.shape[2]
+    qg = q.reshape(b, 1, spec.n_heads // hkv, hkv, spec.head_dim)   # interleaved
+    scores = torch.einsum("bqghd,bkhd->bghqk", qg.float(), cache.k.float())
+    scores = scores * (1.0 / math.sqrt(spec.head_dim))
+    scores = torch.where(vmask, scores, torch.full_like(scores, _NEG_INF))
+    return _combine_blocks(scores, cache.v, block).reshape(b, 1, spec.n_heads,
+                                                             spec.head_dim)
+
+
+def _combine_blocks(scores: torch.Tensor, cv: torch.Tensor, block) -> torch.Tensor:
+    """The softmax-weighted sum over every rank's block of the positions, from
+    this rank's fp32 ``scores (B, g, Hkv, 1, n)`` and values ``cv (B, n,
+    Hkv, Dh)``: each rank's maximum, exp-sum and unnormalised output are
+    all-gathered over ``block``'s group in one buffer and merged in rank
+    order (a log-sum-exp), so every rank gets the same ``(B, 1, g, Hkv,
+    Dh)``.  Not bit-identical to one softmax over the whole cache."""
+    from repro_torch.plan.sharded import collective
+
+    group, _, tp = block
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    out = torch.einsum("bghqk,bkhd->bqghd", p.to(cv.dtype), cv).float()
+    b = out.shape[0]
+    stats = torch.cat([out.reshape(b, -1), m.reshape(b, -1),
+                       p.sum(dim=-1).reshape(b, -1)], dim=1)
+    parts = collective("all_gather", stats, group).reshape(tp, b, -1)
+    n_out = out[0].numel()
+    outs = parts[..., :n_out].reshape((tp,) + out.shape)
+    ms, ls = parts[..., n_out:].reshape(tp, b, 2, -1).unbind(dim=2)
+    top = ms.amax(dim=0)
+    w = torch.exp(ms - top)                                   # (tp, B, g * Hkv)
+    den = (w * ls).sum(dim=0)
+    w = w.reshape((tp, b, 1) + out.shape[2:4] + (1,))
+    res = (w * outs).sum(dim=0) / den.reshape((b, 1) + out.shape[2:4] + (1,))
+    return res.to(cv.dtype)
+
+
 def init_kv_cache(spec: AttentionSpec, batch: int, max_seq: int,
                   dtype: torch.dtype = torch.float32, device="cuda") -> KVCache:
     """Zeroed K/V of ``batch`` lanes: under the installed rules' ``kv_major``
-    head layout this rank's block of the kv heads, else all of them."""
+    head layout this rank's block of the kv heads, else all of them; under
+    their ``cache_seq_split`` this rank's block of the ``max_seq``
+    positions, else all of them."""
     hkv = spec.n_kv_heads
     if head_layout(spec.n_heads, hkv) == "kv_major":
         hkv //= get_rules().tp
+    rules = get_rules()
+    if rules is not None and rules.cache_seq_split:
+        max_seq //= rules.tp
     shape = (batch, max_seq, hkv, spec.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -282,13 +282,12 @@ def planned_path_index(name: str) -> int:
 
 
 @contextlib.contextmanager
-def plan_context(plan, *, force_backend: Optional[str] = None) -> Iterator[None]:
-    """Temporarily install ``plan`` (``None`` = run unplanned), restoring
-    whatever was installed before on exit: the serve engine's per-phase
-    plan switch."""
+def kept_plan() -> Iterator[None]:
+    """Restore the plan and factorizations installed on entry when the
+    block exits, however it exits and whatever it installed meanwhile (the
+    launchers' ``run``)."""
     saved = dict(_PLAN)
     saved_fact = dict(_FACTORIZATION)
-    install_plan(plan, force_backend=force_backend)
     try:
         yield
     finally:
@@ -296,6 +295,16 @@ def plan_context(plan, *, force_backend: Optional[str] = None) -> Iterator[None]
         _PLAN.update(saved)
         _FACTORIZATION.clear()
         _FACTORIZATION.update(saved_fact)
+
+
+@contextlib.contextmanager
+def plan_context(plan, *, force_backend: Optional[str] = None) -> Iterator[None]:
+    """Temporarily install ``plan`` (``None`` = run unplanned), restoring
+    whatever was installed before on exit: the serve engine's per-phase
+    plan switch."""
+    with kept_plan():
+        install_plan(plan, force_backend=force_backend)
+        yield
 
 
 _CAPTURE: Optional[dict[str, list[float]]] = None

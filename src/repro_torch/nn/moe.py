@@ -154,25 +154,51 @@ def moe_apply(spec: MoESpec, params: dict,
     straddles ranks: the rank gathers the whole batch over the batch axes,
     routes it as one device does and keeps its block of the output.  The
     shared experts run on the rank's block.
+
+    Under ``seq_split`` ``x`` is also the rank's block of the positions of
+    each row: where ``g`` divides the block, every group lies inside one
+    rank's block of one row, the rank routes its own groups and the
+    statistics are summed over the batch axes and the sequence's axis;
+    otherwise the rank gathers the sequence (``seq_gather``), routes as
+    above and keeps its block of the positions.
     """
-    from repro_torch.plan.sharded import batch_axes_split, gather_batch
+    from repro_torch.plan.sharded import seq_axis_split, seq_gather, split_group
     from repro_torch.sharding import get_rules
 
-    b, s, d = x.shape
-    split = batch_axes_split(get_rules())
-    if split is None:
-        y, aux = _routed(spec, params, x, min(spec.router_group, b * s))
+    rules = get_rules()
+    seq = seq_axis_split(rules)
+    if seq is None:
+        y, aux = _routed_batch(spec, params, x, rules)
     else:
-        group, index, n = split
-        g = min(spec.router_group, n * b * s)
-        if (b * s) % g:
-            y, aux = _routed(spec, params, gather_batch(x, group, index), g)
-            y = y.narrow(0, index * b, b)
+        group, index, tp = seq
+        b, s, _ = x.shape
+        g = min(spec.router_group, rules.split_dp * b * tp * s)
+        if s % g:
+            y, aux = _routed_batch(spec, params, seq_gather(x, 1, seq), rules)
+            y = y.narrow(1, index * s, s)
         else:
-            y, aux = _routed(spec, params, x, g, group)
+            y, aux = _routed(spec, params, x, g, split_group(rules))
     if spec.shared_spec is not None:
         y = y + mlp_apply(spec.shared_spec, params["shared"], x)
     return y, aux
+
+
+def _routed_batch(spec: MoESpec, params: dict, x: torch.Tensor,
+                  rules) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts of :func:`moe_apply` on ``x``, the rank's block
+    of the batch under ``batch_split`` and whole along the sequence."""
+    from repro_torch.plan.sharded import batch_axes_split, gather_batch
+
+    b, s, d = x.shape
+    split = batch_axes_split(rules)
+    if split is None:
+        return _routed(spec, params, x, min(spec.router_group, b * s))
+    group, index, n = split
+    g = min(spec.router_group, n * b * s)
+    if (b * s) % g:
+        y, aux = _routed(spec, params, gather_batch(x, group, index), g)
+        return y.narrow(0, index * b, b), aux
+    return _routed(spec, params, x, g, group)
 
 
 def _routed(spec: MoESpec, params: dict, x: torch.Tensor, g: int,

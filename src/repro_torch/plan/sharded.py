@@ -8,10 +8,11 @@ projection is handed depends on the step's layout
 (:mod:`repro_torch.sharding`):
 
 * under ``ShardingRules.batch_split`` the rows a rank holds are already
-  its block of the batch: the batch axes leave the token axes, and the
-  rank runs the plan's ``streaming_tt`` / ``tt_gemm`` route on its local
-  ``(tokens, d_in)`` rows with no collective over them (the shape the DSE
-  searched under ``--shards n``).  The records still carry the mesh;
+  its block of the batch (and under ``seq_split`` its block of the
+  sequence): those axes leave the token axes, and the rank runs the
+  plan's ``streaming_tt`` / ``tt_gemm`` route on its local ``(tokens,
+  d_in)`` rows with no collective over them (the shape the DSE searched
+  under ``--shards n``).  The records still carry the mesh;
 * where the batch stays replicated (it does not divide the batch axes:
   a batch-1 prefill), the flattened token dim is split over the installed
   rules' token axes (DP, plus the SP axis when sequence parallelism is
@@ -56,7 +57,13 @@ block's dx and gathers nothing over the model axis.
 Under ``batch_split`` each block of the batch has its own loss, and the
 train step sums every gradient over the batch axes once, after the
 backward (``launch/steps.py``): a core gradient summed here over the data
-axes too would count ``dp`` times.
+axes too would count ``dp`` times.  Under ``seq_split`` (SP) each rank's
+loss is its positions' share too, and the step sums over the sequence's
+axis as well; the one collective inside the model is :func:`seq_gather`
+(K and V): all-gathered forward, its backward sums the whole gradient over
+the ranks and takes the rank's block (a reduce-scatter).  ``model_block``'s
+backward all-gathers, so a split routed through it would hand every rank
+the whole gradient and the step's sum would count it ``tp`` times.
 
 ``torch.distributed.nn.functional``'s collectives are not used: their
 backward reduce-scatters (``all_gather``) or all-reduces (``all_reduce``),
@@ -133,7 +140,10 @@ def shard_decision(rules, tokens: int,
     """Route choice for a planned projection under ``rules``, or ``None``.
 
     Under ``batch_split`` the ``tokens`` are a rank's local rows: the batch
-    axes are recorded as ``local`` and split nothing more.  ``None`` means
+    axes are recorded as ``local`` and split nothing more; so is the
+    sequence's axis under ``seq_split`` (its rows are the rank's block of
+    the positions, and the model reduction, whose axis it is, does not
+    apply).  ``None`` means
     the mesh cannot take this problem (no mesh object, or a replicated
     batch whose token count does not divide the DP axes and no model
     reduction applies): the caller runs the planned kernel on the whole
@@ -143,12 +153,11 @@ def shard_decision(rules, tokens: int,
     """
     if rules is None or rules.mesh is None:
         return None
-    local = tuple(a for a in rules.batch_axes if rules.axis_sizes.get(a, 1) > 1
-                  ) if rules.batch_split else ()
+    local = split_axes(rules)
     axes = rules.token_shard_axes(tokens)
     model_reduce, tp = False, 1
     ma = rules.model_axis
-    if rules.tt_model_reduce and ma and ma not in axes:
+    if rules.tt_model_reduce and ma and ma not in axes + local:
         tp = int(rules.axis_sizes.get(ma, 1))
         if tp > 1 and in_modes and in_modes[0] % tp == 0:
             model_reduce = True
@@ -340,6 +349,25 @@ def sharded_tt_linear(
 # the batch axes, for layers that need more than their block of the batch
 # ---------------------------------------------------------------------------
 
+def split_axes(rules) -> tuple[str, ...]:
+    """The mesh axes (over 1) whose blocks the activations a rank holds
+    are, in mesh order: the batch axes under ``batch_split``, the
+    sequence's axis under ``seq_split``."""
+    if rules is None or rules.mesh is None:
+        return ()
+    held = (rules.batch_axes if rules.batch_split else ()) + (
+        (rules.seq_axis,) if rules.seq_split and rules.seq_axis else ())
+    return tuple(a for a, n in rules.axis_sizes.items() if a in held and n > 1)
+
+
+def split_group(rules) -> Optional[Any]:
+    """The process group of :func:`split_axes` (the ranks whose losses are
+    shares of one global loss: the train step sums their gradients), or
+    None where a rank holds whole activations."""
+    axes = split_axes(rules)
+    return rules.mesh.group(axes) if axes else None
+
+
 def batch_axes_split(rules) -> Optional[tuple[Any, int, int]]:
     """``(group, index, n)`` of the batch axes when ``rules`` split the
     step's batch over them (``batch_split``): their process group, this
@@ -350,20 +378,21 @@ def batch_axes_split(rules) -> Optional[tuple[Any, int, int]]:
     return rules.mesh.group(axes), rules.mesh.index(axes), rules.split_dp
 
 
-class _GatherBatch(torch.autograd.Function):
-    """Every rank's block of the batch (dim 0) over ``group``; the backward
-    sums the gradients of the whole batch over the ranks (each rank's loss
-    reads the whole of it) and takes this rank's block."""
+class _GatherShares(torch.autograd.Function):
+    """Every rank's block along ``dim`` over ``group``; the backward sums
+    the whole tensor's gradients over the ranks (each rank's loss, a share
+    of one global loss, reads the whole of it) and takes this rank's
+    block."""
 
     @staticmethod
-    def forward(ctx, t, index: int, group: Any):
-        ctx.index, ctx.rows, ctx.group = index, t.shape[0], group
-        return collective("all_gather", t, group)
+    def forward(ctx, t, dim: int, index: int, group: Any):
+        ctx.dim, ctx.index, ctx.rows, ctx.group = dim, index, t.shape[dim], group
+        return collective("all_gather", t, group, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = collective("all_reduce", g.clone(), ctx.group, backward=True)
-        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+        return g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None, None
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -384,7 +413,28 @@ class _SumOverRanks(torch.autograd.Function):
 
 def gather_batch(t: torch.Tensor, group: Any, index: int) -> torch.Tensor:
     """The whole batch from every rank's block ``t``, differentiable."""
-    return _GatherBatch.apply(t, index, group)
+    return _GatherShares.apply(t, 0, index, group)
+
+
+def seq_axis_split(rules) -> Optional[tuple[Any, int, int]]:
+    """``(group, index, tp)`` of the sequence's axis when the installed
+    rules hold the rank's block of the sequence (``seq_split``): its
+    process group, this rank's block and the number of blocks; else None."""
+    if rules is None or not rules.seq_split or rules.mesh is None:
+        return None
+    a = rules.seq_axis
+    n = int(rules.axis_sizes.get(a, 1))
+    return (rules.mesh.group((a,)), int(rules.mesh.coords[a]), n) if n > 1 else None
+
+
+def seq_gather(t: torch.Tensor, dim: int, split) -> torch.Tensor:
+    """The whole sequence along ``dim`` from every rank's block ``t``
+    (``split``: :func:`seq_axis_split`), all-gathered over the sequence's
+    axis; the backward all-reduces the whole gradient and takes the rank's
+    block (a reduce-scatter), so each rank ends with the gradient of every
+    rank's share with respect to its own positions."""
+    group, index, _ = split
+    return _GatherShares.apply(t, dim, index, group)
 
 
 def sum_over_ranks(t: torch.Tensor, group: Any) -> torch.Tensor:

@@ -39,6 +39,16 @@ prefill writes that block and ``admit`` copies it; the logits, a block of
 the vocab on each rank, are gathered over the model axis before the
 host samples them, so the scheduler still sees ``(n_slots, V)``.
 
+Under SP (the dense, MoE and VLM families where the rules' ``seq_axis``
+is set) a bucketed prompt whose length the model axis divides prefills
+as each rank's block of its positions, the logits' positions gathered
+(``models/lm.py``), and one that does not stays whole.  Where the caches'
+positions take the axis (``kv_layout``: ``_cache_pspec``'s ``seq``
+entry) a rank holds its block of every lane's positions: the prefill
+writes the part of the prompt in it, a decode step combines the ranks'
+blocks of the attention (``nn/attention.py``), and every rank ends with
+the same logits, so the host scheduler samples the same tokens.
+
 Caches: where the JAX engine donated its cache buffers to each jitted
 step, attention layers here write new K/V rows into the cache tensors in
 place, recurrent layers (Mamba2, RWKV6) return new state tensors, and a
@@ -61,7 +71,7 @@ from repro_torch.nn import plan_context
 from repro_torch.plan import ExecutionPlan, execution_stream
 from repro_torch.plan.compiler import check_plan_for_config
 from repro_torch.plan.sharded import batch_axes_split, collective
-from repro_torch.sharding import get_rules, use_rules
+from repro_torch.sharding import get_rules, kv_layout, use_rules
 from repro_torch.tree import leaves
 
 
@@ -147,7 +157,8 @@ class ServeEngine:
         # the decode lanes of this rank: [lo, hi) under the rules' batch
         # split of n_slots, every lane otherwise
         rules = get_rules()
-        self._decode_rules = (batch_layout(rules, self.n_slots)
+        self._decode_rules = (kv_layout(batch_layout(rules, self.n_slots), cfg.family,
+                                        cfg.n_kv_heads, self.max_seq)
                               if rules is not None else None)
         split = batch_axes_split(self._decode_rules)
         self._group = None

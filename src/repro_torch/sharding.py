@@ -39,11 +39,25 @@ logits (:func:`model_dim`), the SSM and WKV heads and their decode states
 cross K/V cache.  The projections that make those dims stay whole on
 every rank (the reference's planned routes have no column-parallel
 matmul): the rank takes its block of their output, and the blocks are
-gathered where a whole dim is needed again.  The SP sequence split
-(``"seq"``) stays whole, and the experts compute whole along the model
-axis, as the reference's ``expert_in`` constraint ``("batch", None,
-None, None)`` has them, so :func:`shard` checks its axes and returns its
-input unchanged.
+gathered where a whole dim is needed again.  The experts compute whole
+along the model axis, as the reference's ``expert_in`` constraint
+``("batch", None, None, None)`` has them.
+
+Under sequence parallelism (SP: the policy's ``seq_axis``, the model axis
+when the kv heads do not divide it) a step of the dense, MoE and VLM
+families whose sequence takes the axis (:func:`splits_sequence`, as
+``partition_spec(("batch", "seq", None))`` places it) holds each rank's
+block of the positions: ``models/lm.py`` takes the rank's block after
+the embedding and the VLM prefix (the reference's ``lm.py:251``) and runs
+the layers under :attr:`ShardingRules.seq_split`.  The model axis then
+belongs to the sequence: the heads, d_ff and the vocab stay whole
+(:func:`model_dim`), a planned projection runs on the rank's rows, and
+attention gathers K and V over the axis.  A KV cache of those families
+holds the rank's block of the positions where ``_cache_pspec`` gives
+its ``seq`` entry (:func:`kv_seq_split`, :attr:`ShardingRules.
+cache_seq_split`).  The hybrid and the encoder-decoder keep the sequence
+whole (:data:`SP_FAMILIES`).  :func:`shard` checks its axes and returns
+its input unchanged: the layer that computes a block takes it.
 """
 
 from __future__ import annotations
@@ -80,6 +94,14 @@ class ShardingRules:
     #: batch, split over ``batch_axes`` (set by the launchers for a step whose
     #: global batch divides them: ``launch/mesh.py::batch_layout``)
     batch_split: bool = False
+    #: the activations of shape ``(B, S, ...)`` a rank holds are its block
+    #: of the sequence over ``seq_axis`` (set by ``models/lm.py`` for the
+    #: layers of a step whose sequence takes the axis: :func:`splits_sequence`)
+    seq_split: bool = False
+    #: the KV caches a rank holds are its block of the cache positions over
+    #: ``seq_axis`` (:func:`kv_layout`: where ``_cache_pspec`` gives a KV
+    #: cache its ``seq`` entry)
+    cache_seq_split: bool = False
 
     @property
     def dp(self) -> int:
@@ -118,10 +140,12 @@ class ShardingRules:
 
         The resolved "tokens" axes, kept only when every axis has size > 1
         and ``tokens`` divides their product (each rank takes an exact
-        block of rows).  Under :attr:`batch_split` the batch axes are
-        already split in the rows a rank holds and are not among them.
+        block of rows).  Under :attr:`batch_split` the batch axes, and under
+        :attr:`seq_split` the sequence's axis, are already split in the rows
+        a rank holds and are not among them.
         """
-        done = self.batch_axes if self.batch_split else ()
+        done = ((self.batch_axes if self.batch_split else ())
+                + ((self.seq_axis,) if self.seq_split and self.seq_axis else ()))
         axes = tuple(a for a in self.resolve("tokens")
                      if self.axis_sizes.get(a, 1) > 1 and a not in done)
         prod = math.prod(self.axis_sizes[a] for a in axes)
@@ -182,14 +206,63 @@ def use_rules(rules: Optional[ShardingRules]):
         set_rules(prev)
 
 
+#: the families whose sequence SP splits; the hybrid (a Mamba2 scan would
+#: hand its state from rank to rank) and the encoder-decoder keep it whole
+SP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def splits_sequence(family: str, batch: int, seq: int) -> bool:
+    """Whether the installed rules split the ``seq`` positions of a step of
+    ``batch`` rows (the rank's block under ``batch_split``) of a
+    :data:`SP_FAMILIES` model over the sequence's axis: SP is on and
+    :meth:`ShardingRules.partition_spec` gives the ``"seq"`` dim of
+    ``("batch", "seq", None)`` the axis (the global batch decides, as in
+    :func:`model_dim`).  False inside a split (:attr:`seq_split`)."""
+    rules = get_rules()
+    if (family not in SP_FAMILIES or rules is None or rules.mesh is None
+            or not rules.seq_axis or rules.seq_split):
+        return False
+    spec = rules.partition_spec((batch * rules.split_dp, seq, 1),
+                                ("batch", "seq", None))
+    return spec[1] == rules.seq_axis
+
+
+def kv_seq_split(rules: Optional[ShardingRules], family: str, n_kv_heads: int,
+                 max_seq: int) -> bool:
+    """Whether ``rules`` split a KV cache of ``max_seq`` positions over the
+    sequence's axis: ``launch/mesh.py::_cache_pspec``'s ``seq`` entry (SP
+    on, the kv heads not dividing the model axis, the positions dividing
+    it), for a :data:`SP_FAMILIES` model."""
+    if (family not in SP_FAMILIES or rules is None or rules.mesh is None
+            or not rules.seq_axis):
+        return False
+    tp = rules.tp
+    return tp > 1 and n_kv_heads % tp != 0 and max_seq % tp == 0
+
+
+def kv_layout(rules: Optional[ShardingRules], family: str, n_kv_heads: int,
+              max_seq: int) -> Optional[ShardingRules]:
+    """``rules`` with :attr:`~ShardingRules.cache_seq_split` as
+    :func:`kv_seq_split` gives it for caches of ``max_seq`` positions: the
+    rules under which such caches are made and read."""
+    if rules is None:
+        return None
+    return dataclasses.replace(rules, cache_seq_split=kv_seq_split(
+        rules, family, n_kv_heads, max_seq))
+
+
 def model_dim(shape: Sequence[int], *logical_axes) -> Optional[int]:
     """The dim of a tensor of ``shape`` (the rank's block along the batch
     axes under ``batch_split``) that the installed rules split over the
     model axis, as :meth:`ShardingRules.partition_spec` places the
-    reference's logical names, or None.  Only rules with a mesh split."""
+    reference's logical names, or None.  Only rules with a mesh split.
+    Under ``seq_split`` the sequence holds the axis: its ``"seq"`` dim, or
+    None."""
     rules = get_rules()
     if rules is None or rules.mesh is None or rules.tp <= 1:
         return None
+    if rules.seq_split:
+        return logical_axes.index("seq") if "seq" in logical_axes else None
     shape = list(shape)
     if shape and logical_axes[0] in ("batch", "tokens"):
         shape[0] *= rules.split_dp      # the global batch decides, as there
@@ -220,7 +293,12 @@ def head_layout(n_heads: int, n_kv_heads: int) -> str:
     of the kv heads, the KV cache's own split, and the query heads they
     serve), ``"q_block"`` when only the query heads do (each rank its
     block of them, K and V whole), ``"whole"`` otherwise (the reference's
-    ``_shard_heads``: ``("batch", None, "model", None)`` on q, k, v)."""
+    ``_shard_heads``: ``("batch", None, "model", None)`` on q, k, v), and
+    whenever the sequence or the KV cache's positions hold the axis (SP:
+    every rank computes every head of its positions)."""
+    rules = get_rules()
+    if rules is not None and (rules.seq_split or rules.cache_seq_split):
+        return "whole"
     if model_dim((1, 1, n_kv_heads, 1), "batch", None, "model", None) == 2:
         return "kv_major"
     if model_dim((1, 1, n_heads, 1), "batch", None, "model", None) == 2:
@@ -232,9 +310,9 @@ def state_heads(n_heads: int) -> bool:
     """Whether the installed rules split the heads of an SSM or WKV layer
     over the model axis: the reference's ``("batch", "seq", "model",
     None)`` on the heads (``nn/ssm.py``'s x, ``nn/rwkv.py``'s r, k and v),
-    which is also ``_cache_pspec``'s split of their decode states.  As in
-    :func:`head_layout`, the sequence does not take the axis: the port
-    keeps it whole."""
+    which is also ``_cache_pspec``'s split of their decode states.  The
+    hybrid and RWKV keep the sequence whole (:data:`SP_FAMILIES`), so the
+    sequence never takes the axis from the heads here."""
     return model_dim((1, 1, n_heads, 1), "batch", "seq", "model", None) == 2
 
 

@@ -18,6 +18,7 @@ import contextlib
 import datetime
 import io
 import json
+import math
 import os
 import pathlib
 import sys
@@ -1038,7 +1039,220 @@ def body_model_axis_states(spec: dict) -> dict:
     return out
 
 
-BODIES = {"model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
+# ---------------------------------------------------------------------------
+# the SP sequence split on data=1 x model=4
+# ---------------------------------------------------------------------------
+
+#: smoke configs of the families SP splits, 2 kv heads each: on ``model=4``
+#: ``make_rules`` turns SP on for every train and prefill step
+SP_ARCHS = ("chatglm3-6b", "grok-1-314b", "internvl2-2b")
+#: rows x text positions of the forward and of step 0 (the VLM's 8-position
+#: image prefix first: 24 positions, 6 a rank, so rank 0 holds prefix alone)
+SP_BATCH = (2, 16)
+#: (positions, lanes) of the decode cell whose policy (``sp_enabled``:
+#: over 12 GiB of KV cache a device) splits the smoke configs' caches
+SP_DECODE_CELL = (1 << 22, 128)
+
+
+def sp_mesh():
+    """``data=1 x model=4`` over the process group's 4 ranks."""
+    from repro_torch.launch.mesh import _mesh
+
+    return _mesh((1, 4), ("data", "model"))
+
+
+def sp_batch(cfg) -> dict:
+    """Tokens and labels (:data:`SP_BATCH`) and a VLM's image prefix."""
+    rng = np.random.default_rng(43)
+    b, s = SP_BATCH
+    batch = {k: rng.integers(0, cfg.vocab, size=(b, s)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["frontend"] = rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def body_seq_parallel(spec: dict) -> dict:
+    """Each of :data:`SP_ARCHS` on ``data=1 x model=4``, on the weights saved
+    at ``spec["params"][arch]`` and its K1 plans ``spec["plans"][arch]``:
+    the whole prefill logits of :func:`sp_batch` under the prefill plan
+    (and the planned records' meshes and shard shapes) and that prefill's
+    collectives; step 0 under the train plan through ``loss_and_grads``
+    (loss, every gradient leaf, the step's collectives), the dense config's
+    also under ``remat="full"``; then two lanes served under the rules of
+    :data:`SP_DECODE_CELL` (each lane's KV cache a
+    rank's block of the positions; grok without a plan, its experts'
+    calls being data-dependent): the prefill logits, first tokens, one
+    decode step's logits and collectives, and the rank's cache shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import batch_layout, make_rules
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    mesh = sp_mesh()
+    out = {"coords": dict(mesh.coords), "cases": {}}
+    b, s = SP_BATCH
+    for arch in SP_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        pre, dec, train = (load_plan(spec["plans"][arch][k])
+                           for k in ("prefill", "decode", "train"))
+        params = torch.load(spec["params"][arch], weights_only=False)
+        batch = {k: torch.from_numpy(v) for k, v in sp_batch(cfg).items()}
+        m = api(cfg, device="cpu")
+        case = {}
+        prefix = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+        rules = make_rules(cfg, ShapeConfig("t", s, b, "prefill"), mesh)
+        with use_rules(rules), plan_context(pre), torch.no_grad():
+            reset_collectives()
+            reset_execution_log()
+            logits, _ = m.prefill_full(params, {k: v for k, v in batch.items()
+                                                if k != "labels"}, s + prefix)
+            case["prefill_collectives"] = dict(COLLECTIVES)
+            case["records"] = sorted({(r["name"], r["mesh"],
+                                       tuple(r["shard_shape"] or ()))
+                                      for r in execution_log()})
+        case["forward"] = logits
+        rules = batch_layout(make_rules(cfg, ShapeConfig("t", s, b, "train"), mesh), b)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        reset_collectives()
+        with plan_context(train), use_rules(rules):
+            loss, grads = loss_and_grads(m, params, batch)
+        bwd = dict(BWD_COLLECTIVES)
+        case.update(loss=float(loss), grads=named_leaves(grads), train_collectives={
+            "fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()}, "bwd": bwd})
+        if cfg.family == "dense":        # the remat recompute gathers K and V again
+            reset_collectives()
+            with plan_context(train), use_rules(rules):
+                loss, grads = loss_and_grads(api(cfg.with_(remat="full"), device="cpu"),
+                                             params, batch)
+            bwd = dict(BWD_COLLECTIVES)
+            case["remat"] = {"loss": float(loss), "grads": named_leaves(grads),
+                             "collectives": {"fwd": {k: v - bwd[k] for k, v
+                                                     in COLLECTIVES.items()}, "bwd": bwd}}
+        for p in leaves(params):
+            p.requires_grad_(False)
+        rules = make_rules(cfg, ShapeConfig("t", *SP_DECODE_CELL, "decode"), mesh)
+        lanes = None if cfg.family == "moe" else dec
+        with use_rules(rules), torch.no_grad():
+            eng = ServeEngine(cfg, params, n_slots=2, max_seq=LANE_MAX_SEQ,
+                              prompt_bucket=8, prefill_plan=pre, decode_plan=lanes)
+            caches = eng.fresh_caches()
+            rows, first = [], []
+            for lane, prompt in enumerate(lane_prompts(cfg.vocab)):
+                row, small = eng.prefill_request(prompt.tolist())
+                caches = eng.admit(caches, small, lane)
+                rows.append(torch.from_numpy(row))
+                first.append(int(np.argmax(row)))
+            reset_collectives()
+            step, caches = eng.decode(np.array(first), np.full(2, LANE_PROMPT_LEN),
+                                      caches)
+            case["decode_collectives"] = dict(COLLECTIVES)
+        case.update(prefill=torch.stack(rows), first=first,
+                    decode=torch.from_numpy(step),
+                    cache_shapes=[tuple(t.shape) for t in leaves(caches)])
+        out["cases"][arch] = case
+    return out
+
+
+#: chatglm3-6b's K and V on the card's SP path: a rank's 128 of 512
+#: positions of 4 sequences, K and V of 2 kv heads each, head dim 128; and
+#: its decode step: 16 lanes over 32 768 cache positions, 32 query heads
+SP_CUDA_KV = (4, 512, 4, 128)
+SP_CUDA_DECODE = (16, 32_768, 32, 2, 128)
+
+
+def sp_cuda_inputs(device) -> dict:
+    """The whole tensors of :func:`body_cuda_sp`, from a seed, on ``device``:
+    K/V and each rank's upstream gradient of them, a decode step's queries,
+    new K/V, whole caches and per-lane positions spread over every rank's
+    block of the positions."""
+    gen = torch.Generator().manual_seed(47)
+    b, n, h, hkv, d = SP_CUDA_DECODE
+    out = {"kv": torch.randn(SP_CUDA_KV, generator=gen),
+           "grads": torch.randn((4,) + SP_CUDA_KV, generator=gen),
+           "q": torch.randn(b, 1, h, d, generator=gen),
+           "k": torch.randn(b, 1, hkv, d, generator=gen),
+           "v": torch.randn(b, 1, hkv, d, generator=gen),
+           "ck": torch.randn(b, n, hkv, d, generator=gen),
+           "cv": torch.randn(b, n, hkv, d, generator=gen),
+           "pos": (torch.arange(b) * 2048 + 1000) % n}
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def one_device_decode(q, ck, cv, pos) -> torch.Tensor:
+    """The single-process decode attention of ``nn/attention.py`` over whole
+    caches (already written): masked scores, one softmax, the weighted sum."""
+    b, _, h, d = q.shape
+    hkv = ck.shape[2]
+    kv_pos = torch.arange(ck.shape[1], device=q.device)
+    vmask = (kv_pos[None, :] <= pos[:, None])[:, None, None, None, :]
+    qg = q.reshape(b, 1, h // hkv, hkv, d)
+    scores = torch.einsum("bqghd,bkhd->bghqk", qg.float(), ck.float()) * (1.0 / math.sqrt(d))
+    scores = torch.where(vmask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bghqk,bkhd->bqghd", probs, cv).reshape(b, 1, h, d)
+
+
+def body_cuda_sp(spec: dict) -> dict:
+    """On the card the 4 ranks share (``data=1 x model=4``): ``seq_gather``
+    of a rank's block of chatglm3-6b's K and V (the whole tensor forward;
+    backward, the sum of every rank's gradient of it at the rank's block),
+    and a decode step over a rank's block of the cache's positions
+    (``nn/attention.py::_decode_blocks``: the lane writes and the ranks'
+    softmax combined) against the single-process forms."""
+    from repro_torch.nn import attention
+    from repro_torch.nn.attention import AttentionSpec, KVCache
+    from repro_torch.plan.sharded import seq_axis_split, seq_gather
+    from repro_torch.sharding import ShardingRules
+
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                          % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = sp_mesh()
+    rules = ShardingRules(axis_sizes=dict(mesh.shape), mesh=mesh, seq_axis="model",
+                          seq_split=True)
+    split = seq_axis_split(rules)
+    r, tp = split[1], split[2]
+    x = sp_cuda_inputs(device)
+    size = SP_CUDA_KV[1] // tp
+    blk = x["kv"][:, r * size:(r + 1) * size].clone().requires_grad_(True)
+    whole = seq_gather(blk, 1, split)
+    (whole * x["grads"][r]).sum().backward()
+    want = x["grads"].sum(dim=0)[:, r * size:(r + 1) * size]
+    out = {"gather_equal": torch.equal(whole.detach(), x["kv"]),
+           "grad_gap": float((blk.grad - want).abs().max() / want.abs().max())}
+    b, n, h, hkv, d = SP_CUDA_DECODE
+    lanes = torch.arange(b, device=device)
+    ck, cv = x["ck"].clone(), x["cv"].clone()
+    ck[lanes, x["pos"]] = x["k"][:, 0]
+    cv[lanes, x["pos"]] = x["v"][:, 0]
+    ref = one_device_decode(x["q"], ck, cv, x["pos"])
+    m = n // tp
+    cache = KVCache(x["ck"][:, r * m:(r + 1) * m].clone(),
+                    x["cv"][:, r * m:(r + 1) * m].clone())
+    spec_ = AttentionSpec("attn", h * d, h, hkv, d)
+    got = attention._decode_blocks(spec_, x["q"], x["k"], x["v"], cache, x["pos"],
+                                   (split[0], r, tp))
+    torch.cuda.synchronize(device)
+    out.update(decode_gap=float((got - ref).abs().max()), scale=float(ref.abs().max()),
+               writes_equal=torch.equal(cache.k, ck[:, r * m:(r + 1) * m])
+               and torch.equal(cache.v, cv[:, r * m:(r + 1) * m]),
+               held=int(((x["pos"] >= r * m) & (x["pos"] < (r + 1) * m)).sum()))
+    return out
+
+
+BODIES = {"seq_parallel": body_seq_parallel, "cuda_sp": body_cuda_sp, "model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
           "train_adamw": body_train_adamw, "train_cli": body_train_cli,
           "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}

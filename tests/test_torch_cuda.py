@@ -1537,3 +1537,25 @@ def test_four_ranks_sharing_the_card_split_the_model_axis(cuda_device, tmp_path)
                 gap = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
                 assert gap <= 1e-4, (plan_file, name, gap)
                 assert torch.equal(g, ranks[0]["cuda_train"][plan_file]["grads"][name])
+
+
+@pytest.mark.cuda
+def test_sequence_split_gather_and_decode_combine_on_the_card(cuda_device, tmp_path):
+    """At chatglm3-6b's shapes on 4 ``gloo`` ranks sharing the card
+    (``data=1 x model=4``): ``seq_gather`` of a rank's 128 of 512 positions
+    of K and V gives the whole tensor bit for bit, and its backward the sum
+    of every rank's gradient at the rank's block (1e-6 of its scale: the
+    ranks add in another order); a decode step of 16 lanes over a rank's
+    8 192 of 32 768 cache positions (``_decode_blocks``: each lane's new K/V
+    written by the rank that holds its position, the blocks' softmax
+    combined) equals the single-process softmax over the whole cache
+    within 1e-4 x max |output|, on every rank."""
+    from _torch_shard_ranks import spawn
+
+    ranks = spawn("cuda_sp", 4, {}, tmp_path, timeout=300)
+    assert sum(rank["cuda_sp"]["held"] for rank in ranks) == 16
+    for rank in ranks:
+        got = rank["cuda_sp"]
+        assert got["gather_equal"] and got["writes_equal"]
+        assert got["grad_gap"] <= 1e-6
+        assert got["decode_gap"] <= 1e-4 * got["scale"]

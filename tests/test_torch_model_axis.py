@@ -363,10 +363,11 @@ def test_layout_lines_name_the_model_split():
         "of 32000 a rank")
     q = model_axis_cfg("q_block")
     rules = batch_layout(_rules(q, ShapeConfig("t", 16, 2, "train")), 2)
-    # 1 kv head turns SP on: the sequence takes the model axis before d_ff
+    # 1 kv head turns SP on: the sequence takes the model axis, every head,
+    # d_ff and the vocab stay whole on the rank's positions
     assert describe_layout(rules, 2, "sequences", q, 16).endswith(
-        "heads q_block over model=2: 2 of 4 query heads a rank, d_ff whole, "
-        "vocab 256 of 512 a rank")
+        "sequence 8 of 16 a rank, heads whole over model=2, d_ff whole, "
+        "vocab whole")
     one = ShardingRules(axis_sizes={"data": 2, "model": 1}, mesh=_mesh({"data": 0}))
     assert "model" not in describe_layout(batch_layout(one, 2), 2, "sequences", cfg)
 

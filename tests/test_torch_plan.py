@@ -118,6 +118,10 @@ EMIT = {
                                              "--serve-slots", "4"],
     "seamless-m4t-medium.train.json": ["--arch", "seamless-m4t-medium", "--mode",
                                        "train", "--tokens", "2048"],
+    "chatglm3-6b.pair.prefill.json": ["--arch", "chatglm3-6b", "--serve-slots", "16"],
+    "chatglm3-6b.pair.decode.json": ["--arch", "chatglm3-6b", "--serve-slots", "16"],
+    "chatglm3-6b.train.json": ["--arch", "chatglm3-6b", "--mode", "train",
+                               "--tokens", "2048"],
 }
 PLAN_FILES = sorted(EMIT)
 #: plans whose emission takes minutes on a CPU (the full-width rank search
