@@ -207,8 +207,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    exactly 0.25x one device's, the collectives of the batch's prefill, a
    served prefill, a decode step and step 0 equal to
    :func:`step_collectives`, K1 forward and dx and K3 in step 0 and K1 in
-   every prefill and decode step on every rank; peak memory a rank and
-   the phase's seconds are printed.
+   every prefill and decode step on every rank.  In the same spawn,
+   full-width zamba2-1.2b (12 of its 38 layers: two groups of 6) and
+   seamless-m4t-medium (12 + 12), fp32, remat full, under the rules
+   ``make_rules`` gives at a train shape of 262 144 positions (SP on from
+   200 000: their kv heads divide the axis), applied at batch 4 x seq 512
+   (512 frames), the Mamba2 scan handing its conv inputs and SSD state
+   from rank to rank and the decoder gathering the ranks' cross K/V:
+   step 0, the batch's prefill logits and four lanes served (prompt 32,
+   8 greedy steps, 64 frames) against the single device, a rank's cache
+   bytes of the split leaves exactly 0.25x one device's and the rest
+   whole, the collectives equal to :func:`step_collectives`, K1 forward
+   and dx and K3 in step 0, K1 in every prefill and decode step, K3 in
+   zamba2's prefill; peak memory a rank and the phase's seconds are
+   printed.
 5. per call: launches of one prefill and one decode step per plan
    setting; a decode step's wall time, the card's busy share and the
    device time of the setting's kernels (``torch.profiler``), under the
@@ -251,8 +263,8 @@ serving under the measured plans, ``f`` the families' serve runs, ``t``
 the families' train runs, ``e`` and ``d`` the encdec phase's counted
 generation and train steps, ``w`` the states phase's first prefill,
 first decode step and step 0 of each arch, summed over its 4 ranks,
-``p`` the SP phase's step 0, first served prefill and first decode step,
-summed over its 4 ranks),
+``p`` the SP phase's step 0, first served prefill and first decode step
+of each arch, summed over its 4 ranks),
 each path's counts zeroed just before it
 and read just after, its times at the rank plan's shapes
 (``rank_plan``), at the family shapes (``families``, K1 and K3) and at
@@ -269,6 +281,7 @@ from __future__ import annotations
 import ast
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1636,9 +1649,17 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
     rank's positions, else all-gathers the sequence (one all-gather, one
     backward all-reduce) and routes as over the batch; a prefill gathers
     the positions of its logits (one all-gather); the train step sums the
-    loss and the gradients over the batch and sequence axes.  With
-    ``remat`` each block's forward collectives run again in the backward
-    (counted forward, as the loss chunks' are).  A decode step over KV
+    loss and the gradients over the batch and sequence axes.  The hybrid's
+    Mamba2 layers under SP all-gather their conv tails and their SSD end
+    states (two all-gathers a layer and, backward, two all-reduces); the
+    encoder-decoder's frames split as its tokens do (the formula counts
+    steps whose frames and tokens split alike), its encoder attention
+    gathers K and V as the decoder's, and each decoder layer's cross K/V
+    of the rank's frames are all-gathered once, outside the remat (one
+    all-reduce backward).  With ``remat`` each block's forward
+    collectives run again in the backward (counted forward, as the loss
+    chunks' are), and the hybrid's Mamba layers inside a group (nested
+    under the group's checkpoint) run a third time.  A decode step over KV
     caches split over their positions (``kv_layout``) all-gathers the
     blocks' softmax statistics once an attention layer.  The experts'
     planned projections are not counted: they run on the rank's rows
@@ -1665,34 +1686,42 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
     rows = batch // rules.split_dp
     s = 1 if step == "decode" else seq
     prefix = frames if cfg.family == "vlm" else 0
+    f = frames or seq                                   # the encoder's frames
     with use_rules(rules):
         sp = splits_sequence(cfg.family, rows, s + prefix)
+        if cfg.family == "encdec" and step != "decode" and \
+                splits_sequence(cfg.family, rows, f) != sp:
+            raise ValueError("the formula counts steps whose frames and tokens "
+                             "split alike")
     if step == "decode":
         rules = kv_layout(rules, cfg.family, cfg.n_kv_heads, seq)
     if sp:
         rules = dataclasses.replace(rules, seq_split=True)
         s = (s + prefix) // rules.tp
+        f //= rules.tp
     again = 2 if train and cfg.remat != "none" else 1    # the remat recompute
     L, fam = cfg.n_layers, cfg.family
     # (site, spec, applications, positions a sequence)
     if fam == "hybrid":
-        sites = [("ssm", ssm_spec(cfg), L, s),
-                 ("attn", attn_spec(cfg, "shared_attn"), _hybrid_groups(cfg)[0], s)]
+        n_groups, rest = _hybrid_groups(cfg)
+        sites = [("ssm", ssm_spec(cfg), L - rest, s, again + (again > 1)),
+                 ("ssm", ssm_spec(cfg), rest, s, again),
+                 ("attn", attn_spec(cfg, "shared_attn"), n_groups, s, again)]
     elif fam == "rwkv":
-        sites = [("rwkv", rwkv_spec(cfg), L, s)]
+        sites = [("rwkv", rwkv_spec(cfg), L, s, again)]
     elif fam == "encdec":
-        sites = [("attn", attn_spec(cfg, "dec_attn"), L, s), ("cross", cfg, L, s),
-                 ("mlp", mlp_spec(cfg, "dec_mlp"), L, s)]
-        if train:
-            e, f = cfg.encoder_layers, frames or seq
-            sites = [("attn", attn_spec(cfg, "enc_attn", causal=False), e, f),
-                     ("mlp", mlp_spec(cfg, "enc_mlp"), e, f)] + sites
+        sites = [("attn", attn_spec(cfg, "dec_attn"), L, s, again),
+                 ("cross", cfg, L, s, again), ("mlp", mlp_spec(cfg, "dec_mlp"), L, s, again)]
+        if step != "decode":
+            e = cfg.encoder_layers
+            sites = [("attn", attn_spec(cfg, "enc_attn", causal=False), e, f, again),
+                     ("mlp", mlp_spec(cfg, "enc_mlp"), e, f, again)] + sites
     elif fam == "moe":
-        sites = [("attn", attn_spec(cfg), L, s), ("moe", moe_spec(cfg), L, s)]
+        sites = [("attn", attn_spec(cfg), L, s, again), ("moe", moe_spec(cfg), L, s, again)]
         if moe_spec(cfg).shared_spec is not None:
-            sites.append(("mlp", moe_spec(cfg).shared_spec, L, s))
+            sites.append(("mlp", moe_spec(cfg).shared_spec, L, s, again))
     else:
-        sites = [("attn", attn_spec(cfg), L, s), ("mlp", mlp_spec(cfg), L, s)]
+        sites = [("attn", attn_spec(cfg), L, s, again), ("mlp", mlp_spec(cfg), L, s, again)]
     sums = int(train and (rules.batch_split or sp))     # the loss's and the grads'
     fwd = {"all_gather": 0, "all_reduce": sums, "grad_all_reduce": 0}
     bwd = {"all_gather": 0, "all_reduce": 0, "grad_all_reduce": sums}
@@ -1706,7 +1735,7 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
         return "" if r is None else "reduce" if r[1].model_reduce else "tokens" if r[1].axes else ""
 
     with use_rules(rules):
-        for site, spec, n, pos in sites:
+        for site, spec, n, pos, again in sites:
             if site == "attn":
                 layout = head_layout(cfg.n_heads, cfg.n_kv_heads)
                 fwd["all_gather"] += n * again * ((layout == "kv_major") + sp
@@ -1740,9 +1769,9 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
                     bwd["all_reduce"] += n * train
             elif site == "ssm":
                 split = state_heads(spec.n_heads)
-                fwd["all_gather"] += n * split
+                fwd["all_gather"] += n * again * (split + 2 * sp)
                 bwd["all_gather"] += 4 * n * split
-                bwd["all_reduce"] += n * split
+                bwd["all_reduce"] += n * (split + 2 * sp * train)
                 projections += [(p, n, rows * pos, False)
                                 for p in (spec.in_spec, spec.out_spec)]
             elif site == "rwkv":
@@ -1755,12 +1784,13 @@ def step_collectives(cfg, plan, backend, step: str, batch: int, seq: int,
             else:                                   # the cross-attention
                 split = head_layout(cfg.n_heads, cfg.n_kv_heads) == "kv_major"
                 bwd["all_gather"] += 3 * n * split
+                fwd["all_gather"] += n * (sp + rules.cache_seq_split)   # K/V, or softmax
+                bwd["all_reduce"] += n * sp * train
                 xs = _xattn_specs(cfg)
                 projections += [(xs["wq"], n, rows * pos, False),
                                 (xs["wo"], n, rows * pos, split)]
-                if train:
-                    projections += [(xs[t], n, rows * (frames or seq), False)
-                                    for t in ("wk", "wv")]
+                if step != "decode":
+                    projections += [(xs[t], n, rows * f, False) for t in ("wk", "wv")]
         if not cfg.tie_embeddings:
             projections.append((head_spec(cfg), 1, rows * s, False))
         routes = [route(p, tokens) for p, _, tokens, _ in projections]
@@ -4048,8 +4078,8 @@ def _state_serve(arch: str, cfg, device, rules, lanes: int = STATE_LANES,
     rank its lanes).  Returns the tokens, the whole-vocab fp32 prefill
     logits and first decode step's logits of every lane (on the CPU), the
     launches and collectives of the first prefill and of the first decode
-    step and the bytes of the ``held_leaves`` cache leaves this process
-    holds."""
+    step, the bytes of the ``held_leaves`` cache leaves this process holds
+    and of every cache leaf by name."""
     import contextlib
 
     import numpy as np
@@ -4133,11 +4163,14 @@ def _state_serve(arch: str, cfg, device, rules, lanes: int = STATE_LANES,
                 tok = logits.argmax(-1)
             tokens.append(tok)
             tokens = np.stack(tokens, 1).tolist()
-        held = []
-        _map_named(lambda name, t: held.append(t.numel() * t.element_size())
-                   if name in held_leaves else None, caches)
+        named = collections.Counter()
+
+        def count(name, t):
+            named[name] += t.numel() * t.element_size()
+
+        _map_named(count, caches)
     out.update(tokens=tokens, prefill=rows.float().cpu(), decode=step.float().cpu(),
-               state_bytes=sum(held))
+               state_bytes=sum(named[k] for k in held_leaves), leaf_bytes=dict(named))
     return out
 
 
@@ -4400,32 +4433,99 @@ def _sp_cfg():
     return get_config(SP_ARCH).with_(dtype="float32", n_layers=SP_LAYERS)
 
 
-def _sp_prefill(cfg, device, rules, tokens) -> dict:
-    """``prefill_full`` of ``tokens`` (every position's logits, gathered)
-    under the prefill plan and ``rules`` (None: one device), with its
-    launches and collectives."""
+def _sp_prefill(cfg, device, rules, batch: dict, arch: str = SP_ARCH) -> dict:
+    """``prefill_full`` of ``batch`` (its tokens and an encoder-decoder's
+    frames; every position's logits, gathered) under ``arch``'s prefill
+    plan and ``rules`` (None: one device), with its launches and
+    collectives."""
     import contextlib
 
     import torch
 
     from repro_torch.kernels import launches
-    from repro_torch.models import api
+    from repro_torch.models import api, encdec
     from repro_torch.nn import plan_context
     from repro_torch.plan import load_plan
     from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
     from repro_torch.sharding import use_rules
 
-    pre = load_plan(_state_plans(SP_ARCH)[0])
+    pre = load_plan(_state_plans(arch)[0])
     with (use_rules(rules) if rules is not None else contextlib.nullcontext()), \
             torch.no_grad(), plan_context(pre):
         m = api(cfg, device=device)
         params = m.init_params(0)
+        full = m.prefill_full or functools.partial(encdec.prefill_full, cfg)
         launches.reset()
         reset_collectives()
-        logits, _ = m.prefill_full(params, {"tokens": tokens}, tokens.shape[1])
+        logits, _ = full(params, batch, batch["tokens"].shape[1])
         torch.cuda.synchronize(device)
         return {"logits": logits, "collectives": dict(COLLECTIVES),
                 "launches": launches.snapshot()}
+
+
+def _sp_step0(arch: str, cfg, device, batch: dict, rules, oracle: dict,
+              bounds: dict) -> dict:
+    """Step 0 of ``cfg`` (``arch`` cut) under its train plan at this rank's
+    block of ``batch`` under ``rules``, held to the single device's
+    ``oracle`` (loss, every leaf against ``bounds``): the gaps, launches,
+    K1 forward and dx records, the records' meshes, collectives, peak
+    memory, the layout line and the seconds."""
+    import torch
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import describe_layout
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+
+    b, s = batch["tokens"].shape
+    t0 = time.perf_counter()
+    launches.reset()
+    reset_collectives()
+    reset_execution_log()
+    torch.cuda.reset_peak_memory_stats(device)
+    loss, grads = _layout_step0(cfg, load_plan(_state_plans(arch)[2]), device, batch,
+                                rules)
+    torch.cuda.synchronize(device)
+    bwd = dict(BWD_COLLECTIVES)
+    recs = execution_log()
+    want = {k: v.to(device) for k, v in oracle["grads"].items()}
+    gaps = _leaf_gaps(grads, want)
+    out = {
+        "loss": loss, "loss_rel": abs(loss - oracle["loss"]) / abs(oracle["loss"]),
+        "norm_rel": _norm_gap(grads, want), "n_leaves": len(gaps),
+        "worst_share": max((g / bounds[k], k) for k, g in gaps.items()),
+        "launches": launches.snapshot(),
+        "k1_fwd": sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt"
+                      for r in recs),
+        "k1_dx": sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
+                     and r["backend"] == "streaming_tt" for r in recs),
+        "meshes": sorted({r["mesh"] for r in recs}),
+        "collectives": {"fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()},
+                        "bwd": bwd},
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+        "layout": describe_layout(rules, b, "sequences", cfg, s),
+        "seconds": time.perf_counter() - t0}
+    install_plan(None)
+    del grads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_sp_step0(where: str, s0: dict) -> None:
+    """Fails unless :func:`_sp_step0`'s figures meet the phase's bounds: loss
+    and grad norm rel 1e-4, every leaf within its bound, K1 forward and dx
+    and K3 launched, every record on ``model=4``."""
+    if max(s0["loss_rel"], s0["norm_rel"]) > 1e-4 or s0["worst_share"][0] > 1.0:
+        raise AssertionError(
+            f"{where}: step 0 loss rel {s0['loss_rel']}, grad norm rel "
+            f"{s0['norm_rel']}, worst leaf share {s0['worst_share']}")
+    if s0["k1_fwd"] <= 0 or s0["k1_dx"] <= 0 or \
+            s0["launches"]["tt_gemm_ws"] <= 0 or s0["meshes"] != ["model=4"]:
+        raise AssertionError(f"{where}: step 0 K1 forward {s0['k1_fwd']}, dx "
+                             f"{s0['k1_dx']}, launches {s0['launches']}, "
+                             f"meshes {s0['meshes']}")
 
 
 def sp_rank(out_dir: str) -> int:
@@ -4435,7 +4535,8 @@ def sp_rank(out_dir: str) -> int:
     prefills the same batch, and serves :data:`SP_LANES` lanes over caches
     of :data:`SP_MAX_SEQ` positions, a quarter a rank (the rules of the
     28-layer config's decode cell), holding each against the single
-    device's (the parent's oracle file).  Writes ``rank<r>.json``."""
+    device's (the parent's oracle file); then the same for each arch of
+    :data:`SPS_RUNS` (:func:`_sps_rank`).  Writes ``rank<r>.json``."""
     import datetime
 
     import torch
@@ -4443,13 +4544,9 @@ def sp_rank(out_dir: str) -> int:
 
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launches
     from repro_torch.launch.mesh import _mesh, batch_layout, describe_layout, make_rules
     from repro_torch.models.config import ShapeConfig
     from repro_torch.nn import install_plan
-    from repro_torch.plan import execution_log, load_plan, reset_execution_log
-    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
-                                          reset_collectives)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4467,41 +4564,13 @@ def sp_rank(out_dir: str) -> int:
         b, s = SP_TRAIN
         oracle = torch.load(spec["oracle"], weights_only=False)
         out = {"rank": rank, "coords": dict(mesh.coords)}
-        t0 = time.perf_counter()
         rules = batch_layout(make_rules(cfg, ShapeConfig("cli", s, b, "train"), mesh), b)
         batch = train_batch(cfg, s, b, 0, device)
-        launches.reset()
-        reset_collectives()
-        reset_execution_log()
-        torch.cuda.reset_peak_memory_stats(device)
-        loss, grads = _layout_step0(cfg, load_plan(_state_plans(SP_ARCH)[2]), device,
-                                    batch, rules)
-        torch.cuda.synchronize(device)
-        bwd = dict(BWD_COLLECTIVES)
-        recs = execution_log()
-        want = {k: v.to(device) for k, v in oracle["grads"].items()}
-        gaps = _leaf_gaps(grads, want)
-        out["step0"] = {
-            "loss": loss, "loss_rel": abs(loss - oracle["loss"]) / abs(oracle["loss"]),
-            "norm_rel": _norm_gap(grads, want), "n_leaves": len(gaps),
-            "worst_share": max((g / spec["bounds"][k], k) for k, g in gaps.items()),
-            "launches": launches.snapshot(),
-            "k1_fwd": sum(r["phase"] == "fwd" and r["backend"] == "streaming_tt"
-                          for r in recs),
-            "k1_dx": sum(r["phase"] == "bwd" and r.get("wrt") == "dx"
-                         and r["backend"] == "streaming_tt" for r in recs),
-            "meshes": sorted({r["mesh"] for r in recs}),
-            "collectives": {"fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()},
-                            "bwd": bwd},
-            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-            "layout": describe_layout(rules, b, "sequences", cfg, s),
-            "seconds": time.perf_counter() - t0}
-        install_plan(None)
-        del grads, want
-        torch.cuda.empty_cache()
+        out["step0"] = _sp_step0(SP_ARCH, cfg, device, batch, rules, oracle,
+                                 spec["bounds"])
         t0 = time.perf_counter()
         got = _sp_prefill(cfg, device, make_rules(
-            cfg, ShapeConfig("cli", s, b, "prefill"), mesh), batch["tokens"])
+            cfg, ShapeConfig("cli", s, b, "prefill"), mesh), {"tokens": batch["tokens"]})
         w = oracle["logits"].to(device)
         out["prefill"] = {"shape": list(got["logits"].shape),
                           "max_abs_diff": float((got["logits"] - w).abs().max()),
@@ -4534,12 +4603,235 @@ def sp_rank(out_dir: str) -> int:
         res["seconds"] = time.perf_counter() - t0
         out["serve"] = res
         install_plan(None)
+        del got
+        torch.cuda.empty_cache()
+        out["sps"] = {arch: _sps_rank(arch, layers, mesh, device, spec["sps"][arch])
+                      for arch, layers in SPS_RUNS}
         out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+#: the SP phase's hybrid and encoder-decoder: full-width zamba2-1.2b at 12
+#: of its 38 layers (two groups of 6) and seamless-m4t-medium at 12 + 12,
+#: fp32, seed-0 weights, remat full as configured
+SPS_RUNS = (("zamba2-1.2b", 12), ("seamless-m4t-medium", None))
+#: the positions of the train shape whose policy they run under: their 32
+#: and 16 kv heads divide model=4, so ``make_rules`` turns SP on from
+#: 200 000 positions; its rules are applied at the phase's lengths (a
+#: one-device fp32 oracle cannot hold 200 000 positions: one query chunk
+#: of zamba2's shared attention scores 4 096 x 200 000 x 32 heads, 105 GB)
+SPS_POLICY_SEQ = 1 << 18
+#: the cache leaves a rank holds a quarter of (its kv heads and SSM heads)
+SPS_HELD = {"zamba2-1.2b": ("ssm", "k", "v"),
+            "seamless-m4t-medium": ("k", "v", "cross_k", "cross_v")}
+
+
+def _sps_cfg(arch: str, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).with_(dtype="float32")
+    return cfg.with_(n_layers=layers) if layers else cfg
+
+
+def _sps_batch(cfg, device) -> dict:
+    """Step 0's batch (:data:`SP_TRAIN`; an encoder-decoder's frames as
+    many as its tokens)."""
+    b, s = SP_TRAIN
+    return train_batch(cfg, s, b, 0, device)
+
+
+def _sps_policy(cfg, mesh):
+    """``make_rules`` of ``cfg`` at a train shape of :data:`SPS_POLICY_SEQ`
+    positions on ``mesh``: SP on."""
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.models.config import ShapeConfig
+
+    return make_rules(cfg, ShapeConfig("cli", SPS_POLICY_SEQ, SP_TRAIN[0], "train"), mesh)
+
+
+def _sps_oracle(arch: str, layers, device, work: str) -> tuple[dict, dict]:
+    """The single device's step 0 (with the per-leaf bounds of
+    :func:`family_train_check`), prefill logits of every position and four
+    served lanes of ``arch``, saved under ``work``: (the ranks' spec,
+    figures of the single device)."""
+    import torch
+
+    from repro_torch.nn import install_plan
+    from repro_torch.plan import load_plan
+
+    cfg = _sps_cfg(arch, layers)
+    tr = load_plan(_state_plans(arch)[2])
+    batch = _sps_batch(cfg, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    loss, grads = _family_step0(cfg, tr, device, batch, None)
+    train_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    plain = _family_step0(cfg, tr, device, batch, "jnp")
+    wide = _family_step0(cfg.with_(dtype="float64"), tr, device, batch, "jnp")
+    bounds = {k: max(1e-4, 10 * g) for k, g in _leaf_gaps(plain[1], wide[1]).items()}
+    install_plan(None)
+    del plain, wide
+    torch.cuda.empty_cache()
+    prefill = {k: v for k, v in batch.items() if k != "labels"}
+    logits = _sp_prefill(cfg, device, None, prefill, arch)["logits"].cpu()
+    got = _state_serve(arch, cfg, device, None, held_leaves=SPS_HELD[arch])
+    install_plan(None)
+    path = os.path.join(work, f"oracle.{arch}.pt")
+    torch.save({"tokens": got["tokens"], "prefill": got["prefill"],
+                "decode": got["decode"], "loss": loss, "logits": logits,
+                "grads": {k: v.cpu() for k, v in grads.items()}}, path)
+    single = {"loss": loss, "train_peak": train_peak, "held_bytes": got["state_bytes"],
+              "leaf_bytes": got["leaf_bytes"]}
+    del grads, logits, got
+    torch.cuda.empty_cache()
+    return {"oracle": path, "bounds": bounds}, single
+
+
+def _sps_rank(arch: str, layers, mesh, device, spec: dict) -> dict:
+    """One rank's part of the SP phase for ``arch`` under :func:`_sps_policy`:
+    step 0 at its block of the positions, the batch's prefill, four lanes
+    served, each against the single device's (``spec``: the oracle file
+    and the per-leaf bounds)."""
+    import torch
+
+    from repro_torch.launch.mesh import batch_layout
+    from repro_torch.nn import install_plan
+
+    cfg = _sps_cfg(arch, layers)
+    oracle = torch.load(spec["oracle"], weights_only=False)
+    policy = _sps_policy(cfg, mesh)
+    batch = _sps_batch(cfg, device)
+    out = {"step0": _sp_step0(arch, cfg, device, batch,
+                              batch_layout(policy, SP_TRAIN[0]), oracle, spec["bounds"])}
+    t0 = time.perf_counter()
+    got = _sp_prefill(cfg, device, policy, {k: v for k, v in batch.items()
+                                            if k != "labels"}, arch)
+    w = oracle["logits"].to(device)
+    out["prefill"] = {"shape": list(got["logits"].shape),
+                      "max_abs_diff": float((got["logits"] - w).abs().max()),
+                      "scale": float(w.abs().max()),
+                      "collectives": got["collectives"], "launches": got["launches"],
+                      "seconds": time.perf_counter() - t0}
+    del got, w
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = _state_serve(arch, cfg, device, policy, held_leaves=SPS_HELD[arch])
+    res = {"tokens_equal": got["tokens"] == oracle["tokens"],
+           "held_bytes": got["state_bytes"], "leaf_bytes": got["leaf_bytes"],
+           "prefill_collectives": got["prefill_collectives"],
+           "collectives": got["collectives"],
+           "prefill_launches": got["prefill_launches"],
+           "decode_launches": got["decode_launches"]}
+    for key in ("prefill", "decode"):
+        w = oracle[key]
+        res[key] = {"shape": list(got[key].shape),
+                    "max_abs_diff": float((got[key] - w).abs().max()),
+                    "scale": float(w.abs().max())}
+    res["seconds"] = time.perf_counter() - t0
+    out["serve"] = res
+    install_plan(None)
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sps_check(arch: str, layers, ranks: list[dict], single: dict, totals: dict,
+               card: str) -> list[str]:
+    """Holds every rank's figures of ``arch`` to the single device's and to
+    :func:`step_collectives`; adds the ranks' launches of step 0, the first
+    served prefill and the first decode step to ``totals``.  Returns the
+    report lines."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.plan import load_plan
+
+    cfg = _sps_cfg(arch, layers)
+    b, s = SP_TRAIN
+    pre, dec, tr = (load_plan(p) for p in _state_plans(arch))
+    cell = ShapeConfig("cli", SPS_POLICY_SEQ, b, "train")
+    served = 1 if cfg.family == "hybrid" else STATE_LANES   # the engine's batch-1 prefill
+    want = {
+        "step 0": step_collectives(cfg, tr, None, "train", b, s, False, frames=s,
+                                   mesh=SP_MESH, cell=cell),
+        "prefill": step_collectives(cfg, pre, None, "prefill", b, s, False, frames=s,
+                                    mesh=SP_MESH, cell=cell),
+        "served prefill": step_collectives(cfg, pre, None, "prefill", served,
+                                           STATE_PROMPT, False, frames=STATE_FRAMES,
+                                           mesh=SP_MESH, cell=cell),
+        "decode step": step_collectives(cfg, dec, None, "decode", STATE_LANES,
+                                        STATE_MAX_SEQ, False, mesh=SP_MESH, cell=cell)}
+    for res in ranks:
+        got, where = res["sps"][arch], f"{arch}, rank {res['rank']}"
+        s0, pf, sv = got["step0"], got["prefill"], got["serve"]
+        seen = {"step 0": s0["collectives"], "prefill": pf["collectives"],
+                "served prefill": sv["prefill_collectives"],
+                "decode step": sv["collectives"]}
+        for key, value in want.items():
+            if seen[key] != value:
+                raise AssertionError(f"{where}: {key} collectives {seen[key]}, not {value}")
+        _check_sp_step0(where, s0)
+        if pf["shape"] != [b, s, cfg.vocab] or not pf["max_abs_diff"] <= 1e-4 * pf["scale"]:
+            raise AssertionError(f"{where}: prefill logits {pf}")
+        if not sv["tokens_equal"]:
+            raise AssertionError(f"{where}: greedy tokens differ from one device's")
+        for key in ("prefill", "decode"):
+            g = sv[key]
+            if g["shape"] != [STATE_LANES, cfg.vocab] or \
+                    not g["max_abs_diff"] <= 1e-4 * g["scale"]:
+                raise AssertionError(f"{where}: served {key} logits {g}")
+        whole = {k: v for k, v in single["leaf_bytes"].items() if k not in SPS_HELD[arch]}
+        if sv["held_bytes"] * 4 != single["held_bytes"] or \
+                {k: sv["leaf_bytes"][k] for k in whole} != whole:
+            raise AssertionError(f"{where}: cache bytes a rank {sv['leaf_bytes']}, one "
+                                 f"device {single['leaf_bytes']}: {SPS_HELD[arch]} not "
+                                 "0.25x, or the rest not whole")
+        need = [("step 0", s0["launches"], "streaming_tt"),
+                ("prefill", pf["launches"], "streaming_tt"),
+                ("served prefill", sv["prefill_launches"], "streaming_tt"),
+                ("decode step", sv["decode_launches"], "streaming_tt")]
+        if cfg.family == "hybrid":
+            need.append(("prefill", pf["launches"], "tt_gemm_ws"))
+        for what, counts, k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"{where}: {what} launched no {k}")
+        for counts in (s0["launches"], sv["prefill_launches"], sv["decode_launches"]):
+            for k, v in counts.items():
+                totals[k] += v
+    r0 = ranks[0]["sps"][arch]
+    s0, pf, sv = r0["step0"], r0["prefill"], r0["serve"]
+    depth = f"{cfg.n_layers}" + (f" + {cfg.encoder_layers}" if cfg.encoder_layers else "")
+    return [
+        f"{arch} ({depth} layers, fp32, remat {cfg.remat}) step 0 (batch {b} x seq "
+        f"{s}{', ' + str(s) + ' frames' if cfg.encoder_layers else ''}): "
+        f"{s0['layout']}; loss {s0['loss']:.7f} vs {single['loss']:.7f}, loss rel "
+        f"{max(r['sps'][arch]['step0']['loss_rel'] for r in ranks):.1e}, grad norm rel "
+        f"{max(r['sps'][arch]['step0']['norm_rel'] for r in ranks):.1e}, worst share "
+        f"of its bound {max(r['sps'][arch]['step0']['worst_share'][0] for r in ranks):.2f}"
+        f" ({s0['worst_share'][1]}) of {s0['n_leaves']} leaves; K1 forward "
+        f"{s0['k1_fwd']} and dx {s0['k1_dx']} records on rank 0; peak a rank "
+        f"{[round(r['sps'][arch]['step0']['peak_gib'], 3) for r in ranks]} GiB vs one "
+        f"device {single['train_peak']:.3f} GiB; rank 0 {s0['seconds']:.1f} s",
+        f"  prefill logits (batch {b} x {s}, every position): max abs diff "
+        f"{max(r['sps'][arch]['prefill']['max_abs_diff'] for r in ranks):.3e} (max "
+        f"|logit| {pf['scale']:.3e}); rank 0 {pf['seconds']:.1f} s",
+        f"  serve ({STATE_LANES} lanes, prompt {STATE_PROMPT}, {STATE_GEN} greedy steps"
+        f"{', ' + str(STATE_FRAMES) + ' frames' if cfg.encoder_layers else ''}): tokens "
+        f"equal on {sum(r['sps'][arch]['serve']['tokens_equal'] for r in ranks)}/4 "
+        f"ranks; prefill logits max abs diff "
+        f"{max(r['sps'][arch]['serve']['prefill']['max_abs_diff'] for r in ranks):.3e},"
+        f" decode {max(r['sps'][arch]['serve']['decode']['max_abs_diff'] for r in ranks):.3e}"
+        f" (max |logit| {sv['prefill']['scale']:.3e}, {sv['decode']['scale']:.3e}); "
+        f"cache bytes a rank {sv['leaf_bytes']} of one device's {single['leaf_bytes']}"
+        f" ({'/'.join(SPS_HELD[arch])} 0.25x); rank 0 {sv['seconds']:.1f} s",
+        f"  collectives (the formula's): step 0 forward {s0['collectives']['fwd']}, "
+        f"backward {s0['collectives']['bwd']}; batch prefill {pf['collectives']}; "
+        f"served prefill {sv['prefill_collectives']}; decode step {sv['collectives']}; "
+        f"launches rank 0: step 0 { {k: v for k, v in s0['launches'].items() if v} }, "
+        f"prefill { {k: v for k, v in pf['launches'].items() if v} }, served prefill "
+        f"{ {k: v for k, v in sv['prefill_launches'].items() if v} }, decode step "
+        f"{ {k: v for k, v in sv['decode_launches'].items() if v} }"]
 
 
 def sp_phase(device, card: str) -> tuple[dict, list[str]]:
@@ -4560,9 +4852,11 @@ def sp_phase(device, card: str) -> tuple[dict, list[str]]:
     step's logits within 1e-4 x max |logit|, a rank's KV-cache bytes
     exactly 0.25x one device's; (d) the collectives of the batch's prefill,
     of a served prompt's prefill, of a decode step and of step 0 equal
-    :func:`step_collectives`.  Returns the launches of the ranks' step 0,
-    first served prefill and first decode step, summed over every rank,
-    and the report lines."""
+    :func:`step_collectives`; then (e) full-width zamba2-1.2b (12 layers)
+    and seamless-m4t-medium (12 + 12) in the same spawn, each the same
+    figures under :func:`_sps_policy` (:func:`_sps_check`).  Returns the
+    launches of the ranks' step 0, first served prefill and first decode
+    step of each arch, summed over every rank, and the report lines."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4589,7 +4883,7 @@ def sp_phase(device, card: str) -> tuple[dict, list[str]]:
         install_plan(None)
         del plain, wide
         torch.cuda.empty_cache()
-        logits = _sp_prefill(cfg, device, None, batch["tokens"])["logits"].cpu()
+        logits = _sp_prefill(cfg, device, None, {"tokens": batch["tokens"]})["logits"].cpu()
         got = _state_serve(SP_ARCH, cfg, device, None, lanes=SP_LANES, prompt=SP_PROMPT,
                            gen_tokens=SP_GEN, max_seq=SP_MAX_SEQ, held_leaves=("k", "v"))
         install_plan(None)
@@ -4597,15 +4891,18 @@ def sp_phase(device, card: str) -> tuple[dict, list[str]]:
         torch.save({"tokens": got["tokens"], "prefill": got["prefill"],
                     "decode": got["decode"], "loss": loss, "logits": logits,
                     "grads": {k: v.cpu() for k, v in grads.items()}}, oracle)
-        single = {"kv_bytes": got["state_bytes"], "loss": loss, "train_peak": train_peak,
-                  "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        single = {"kv_bytes": got["state_bytes"], "loss": loss, "train_peak": train_peak}
         del grads, logits, got
         torch.cuda.empty_cache()
+        sps_spec, sps_single = {}, {}
+        for arch, layers in SPS_RUNS:
+            sps_spec[arch], sps_single[arch] = _sps_oracle(arch, layers, device, work)
+        single["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         oracle_s = time.perf_counter() - t_phase
         run_dir = os.path.join(work, "run")
         os.makedirs(run_dir)
         with open(os.path.join(run_dir, "spec.json"), "w") as f:
-            json.dump({"oracle": oracle, "bounds": bounds}, f)
+            json.dump({"oracle": oracle, "bounds": bounds, "sps": sps_spec}, f)
         wall = spawn_ranks([sys.executable, os.path.abspath(__file__), "--sp-rank",
                             run_dir], 4, run_dir, SHARD_TIMEOUT_S,
                            env=dict(os.environ, OMP_NUM_THREADS="1"))
@@ -4635,15 +4932,7 @@ def sp_phase(device, card: str) -> tuple[dict, list[str]]:
                 if got[key] != value:
                     raise AssertionError(f"{where}: {key} collectives {got[key]}, "
                                          f"not {value}")
-            if max(s0["loss_rel"], s0["norm_rel"]) > 1e-4 or s0["worst_share"][0] > 1.0:
-                raise AssertionError(
-                    f"{where}: step 0 loss rel {s0['loss_rel']}, grad norm rel "
-                    f"{s0['norm_rel']}, worst leaf share {s0['worst_share']}")
-            if s0["k1_fwd"] <= 0 or s0["k1_dx"] <= 0 or \
-                    s0["launches"]["tt_gemm_ws"] <= 0 or s0["meshes"] != ["model=4"]:
-                raise AssertionError(f"{where}: step 0 K1 forward {s0['k1_fwd']}, dx "
-                                     f"{s0['k1_dx']}, launches {s0['launches']}, "
-                                     f"meshes {s0['meshes']}")
+            _check_sp_step0(where, s0)
             if pf["shape"] != [b, s, cfg.vocab] or \
                     not pf["max_abs_diff"] <= 1e-4 * pf["scale"]:
                 raise AssertionError(f"{where}: prefill logits {pf}")
@@ -4710,6 +4999,18 @@ def sp_phase(device, card: str) -> tuple[dict, list[str]]:
             f"{ {k: v for k, v in s0['launches'].items() if v} }, served prefill "
             f"{ {k: v for k, v in sv['prefill_launches'].items() if v} }, decode step "
             f"{ {k: v for k, v in sv['decode_launches'].items() if v} }")
+        from repro_torch.launch.mesh import Mesh
+
+        shape_mesh = Mesh({"data": SP_MESH[0], "model": SP_MESH[1]},
+                          {"data": 0, "model": 0}, {})
+        notes.append(
+            f"zamba2-1.2b and seamless-m4t-medium: the rules make_rules gives at a train "
+            f"shape of {SPS_POLICY_SEQ} positions on data=1 x model=4 (seq_axis="
+            f"{_sps_policy(_sps_cfg(*SPS_RUNS[0]), shape_mesh).seq_axis}: SP from 200 000 "
+            f"positions, their 32 and 16 kv heads dividing the axis), applied at batch "
+            f"{b} x seq {s}, prompts of {STATE_PROMPT} and {STATE_FRAMES} frames")
+        for arch, layers in SPS_RUNS:
+            notes += _sps_check(arch, layers, ranks, sps_single[arch], totals, card)
         notes.append(f"peak memory a rank {[round(r['peak_gib'], 3) for r in ranks]} GiB; "
                      f"single device (oracle) {single['peak_gib']:.3f} GiB; phase "
                      f"{time.perf_counter() - t_phase:.1f} s")
@@ -5128,8 +5429,9 @@ def main() -> int:
         log(f"states: {time.perf_counter() - t0:.1f} s; launches, every rank: "
             f"{states_counts}")
 
-        log("--- sp: full-width chatglm3-6b (8 of 28 layers) on 4 ranks sharing "
-            "the card, its sequence split over model=4")
+        log("--- sp: full-width chatglm3-6b (8 of 28 layers), zamba2-1.2b (12 of 38) "
+            "and seamless-m4t-medium (12 + 12) on 4 ranks sharing the card, their "
+            "sequences split over model=4")
         t0 = time.perf_counter()
         sp_counts, notes = sp_phase(device, card)
         for n in notes:

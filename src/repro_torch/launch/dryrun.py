@@ -38,10 +38,12 @@ encoder-decoder's cross-attention heads and cross K/V cache
 ``state_heads``), through the same functions as on ranks, their
 collectives over the shape-only group; the experts stay whole, as the
 reference's ``expert_in`` constraint has them.  Where the policy turns
-SP on (``sp_enabled``) a dense, MoE or VLM train or prefill cell traces a
-rank at its block of the positions (``models/lm.py::seq_block``: every
-head, d_ff and the vocab whole on it, K and V all-gathered, each gather
-counted at its bytes and, in a train step, its backward all-reduce), and
+SP on (``sp_enabled``) a train or prefill cell of any family but RWKV
+traces a rank at its block of the positions (``models/lm.py::seq_block``;
+the encoder-decoder's frames and tokens: every head, d_ff and the vocab
+whole on it, K and V all-gathered, the hybrid's conv tails and SSD end
+states and the encoder-decoder's cross K/V too, each gather counted at
+its bytes and, in a train step, its backward all-reduce), and
 a decode cell whose KV cache takes the ``seq`` entry at its block of the
 cache's positions (``sharding.kv_layout``), the blocks' attention
 combined by one all-gather a layer.  The SSD scan's C.B scores, which do not depend on

@@ -33,7 +33,8 @@ the model on it (:mod:`repro_torch.sharding`).  Of the caches' model-axis
 entries the KV caches' heads and, under SP, their positions are applied
 (:func:`applied_cache_shardings`: a rank holds its block of the kv heads
 or of the positions, as its attention computes them), and so are the SSM
-and WKV states' heads and the encoder-decoder's cross K/V heads.
+and WKV states' heads and the encoder-decoder's cross K/V heads or, under
+SP, frames.
 """
 
 from __future__ import annotations
@@ -357,19 +358,22 @@ def applied_cache_shardings(cfg: ModelConfig, caches: Any,
     ``kv_major`` head layout, ``nn/attention.py``), of the
     encoder-decoder's cross K/V (``models/encdec.py``) and of the SSM and
     WKV states (``nn/ssm.py``, ``nn/rwkv.py``), and the SP ``seq`` entry of
-    a KV cache of the :data:`~repro_torch.sharding.SP_FAMILIES` (a rank
-    holds its block of the positions: ``nn/attention.py``'s decode combines
-    the ranks' blocks).  The hybrid's shared-attention cache and the
-    encoder-decoder's keep their positions whole, and so do two state
-    leaves whose model entry the port departs from, ``None`` here: the
-    SSM's ``conv`` history (the
+    the KV caches of every :data:`~repro_torch.sharding.SP_FAMILIES` model
+    (the hybrid's shared attention and the encoder-decoder's ``self_kv``
+    included) and of the encoder-decoder's ``cross_k`` / ``cross_v`` (a
+    rank holds its block of the positions or frames: the decode combines
+    the ranks' blocks).  Two state leaves whose model entry the port
+    departs from are ``None`` here: the SSM's ``conv`` history (the
     reference splits its channels contiguously, a block that mixes the
     rank's x channels with B and C, which every rank convolves whole; a
     rank holds ``win``'s whole output, so the whole history costs no
-    collective) and RWKV's ``shift*`` token shifts (the last token of x,
-    which every rank holds whole for the whole projections)."""
+    collective, and under SP the scan's halo gather hands every rank the
+    whole sequence's last inputs) and RWKV's ``shift*`` token shifts (the
+    last token of x, which every rank holds whole for the whole
+    projections)."""
     heads = {"k": 2, "v": 2, "cross_k": 2, "cross_v": 2, "ssm": 1, "wkv": 1}
-    positions = {"k": 1, "v": 1} if cfg.family in SP_FAMILIES else {}
+    positions = ({"k": 1, "v": 1, "cross_k": 1, "cross_v": 1}
+                 if cfg.family in SP_FAMILIES else {})
 
     def one(name, t):
         spec = _cache_pspec(name, (1,) + tuple(t.shape), cfg, rules)[1:]
@@ -480,7 +484,9 @@ def describe_model_split(cfg: ModelConfig, rules: ShardingRules,
         parts.append(f"KV cache positions {max_seq // tp} of {max_seq} a rank")
     if cfg.family == "encdec":
         parts.append(f"cross kv heads {cfg.n_kv_heads // tp} of {cfg.n_kv_heads} "
-                     "a rank" if layout == "kv_major" else "cross kv heads whole")
+                     "a rank" if layout == "kv_major" else
+                     f"cross K/V frames 1/{tp} a rank" if step.cache_seq_split
+                     else "cross kv heads whole")
     if cfg.family not in ("hybrid", "rwkv"):
         parts.append(f"d_ff {cfg.d_ff // tp} of {cfg.d_ff} a rank" if ff
                      else "d_ff whole")

@@ -23,7 +23,8 @@ d_ff and the vocab (:mod:`repro_torch.sharding`); where the policy turns
 SP on for the decode cell (``make_rules``: a KV cache over 12 GiB a
 device whose kv heads do not divide the model axis) each rank holds its
 block of the cache's positions and a prompt whose length divides the
-axis prefills as the ranks' blocks of its positions.  The report names
+axis prefills as the ranks' blocks of its positions (the hybrid's scan
+handing its state from rank to rank, ``nn/ssm.py``).  The report names
 each phase's layout and the model split (the prefill's at the first
 request's bucketed prompt).  A rank's card is
 ``cuda:{local_rank % device_count}``; the backend is ``nccl`` when every

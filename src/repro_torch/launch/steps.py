@@ -14,7 +14,8 @@ rank's share, and the train step sums the gradients over the batch axes
 the jitted step, before the clip.  Where SP splits a step's sequence
 (``models/lm.py::seq_block``) the model takes the rank's block of the
 positions itself, its loss is the rank's share of them too, and the sums
-run over the batch axes and the sequence's axis.
+run over the batch axes and the sequence's axis (an encoder-decoder's
+step splits where its frames or its tokens take the axis).
 """
 
 from __future__ import annotations

@@ -31,12 +31,12 @@ d_ff and the vocab (:mod:`repro_torch.sharding`), the loss is the same on
 every rank of it, and no gradient is summed over it after the backward:
 its loss is its share of the global mean, and the step sums every
 gradient over the batch axes before the clip (``launch/steps.py``).
-Where the policy turns SP on (a dense, MoE or VLM arch whose kv heads do
-not divide the model axis) each rank of a model group takes its block of
-the positions instead (the layout line names it, e.g. ``sequence 128 of
-512 a rank``), its loss is its share of them, and the step sums the
-gradients over the model axis too.  Where
-they do not, the batch stays replicated and each planned TT projection
+Where the policy turns SP on (an arch but RWKV whose kv heads do not
+divide the model axis, or a run of 200 000 positions or more) each rank
+of a model group takes its block of the positions instead (the layout
+line names it, e.g. ``sequence 128 of 512 a rank``), its loss is its
+share of them, and the step sums the gradients over the model axis too.
+Where they do not, the batch stays replicated and each planned TT projection
 splits its tokens over the ranks, forward and backward
 (:mod:`repro_torch.plan.sharded`).  The report names the layout.  Each
 rank keeps the AdamW moments of its block of every leaf

@@ -38,10 +38,11 @@ class ModelAPI:
     #: full-logits prefill: (params, batch, max_seq) -> ((B, S, V), caches);
     #: a VLM batch may carry its ``frontend`` prefix.  The serve scheduler
     #: slices the last real token of a bucket-padded prompt from it.
-    #: ``None`` for families without one (encdec)
+    #: ``None`` for the encdec, as in the reference (``models.encdec.
+    #: prefill_full`` gives its every position's logits)
     prefill_full: Optional[Callable] = None
     #: batch -> whether the installed rules split a step's sequence on it
-    #: (SP: ``lm.seq_block``); the encoder-decoder keeps it whole
+    #: (SP: ``lm.seq_block``; the encoder-decoder's frames or tokens)
     seq_split: Callable = lambda batch: False
 
 
@@ -92,6 +93,7 @@ def api(cfg: ModelConfig, plan=_PLAN_UNSET, *,
             decode_step=lambda p, t, c, pos: _encdec.decode_step(cfg, p, t, c, pos),
             init_caches=lambda batch, max_seq: _encdec.init_caches(
                 cfg, batch, max_seq, min(ENC_LEN_CAP, max_seq), device=device),
+            seq_split=lambda b: _encdec.splits_batch_sequence(cfg, b),
         )
     return ModelAPI(
         init_params=init_params,

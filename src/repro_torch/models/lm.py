@@ -17,16 +17,17 @@ shared attention block applied after each group, then the tail of
 reference wraps its scan bodies in ``jax.checkpoint``: each block, and
 each hybrid group (its Mamba layers and the shared attention).
 
-Under SP (:func:`repro_torch.sharding.splits_sequence`: the dense, MoE and
-VLM families, where the installed rules give a step's sequence the
-model axis) a rank takes its block of the positions after the embedding
-and the VLM prefix (the reference's ``lm.py:251``; without a prefix the
-tokens' block is embedded alone) and runs the layers, the final norm and
-the head on it under ``seq_split``: RoPE and the causal mask read the
-block's global positions, attention gathers K and V.  The prefix rows
-are dropped on the ranks that hold them.  The loss is the rank's share
-(:func:`train_loss`), and the prefill gathers the logits' positions
-(:func:`prefill_full`, :func:`prefill`).
+Under SP (:func:`repro_torch.sharding.splits_sequence`: every family but
+RWKV, where the installed rules give a step's sequence the model axis) a
+rank takes its block of the positions after the embedding and the VLM
+prefix (the reference's ``lm.py:251``; without a prefix the tokens' block
+is embedded alone) and runs the layers, the final norm and the head on
+it under ``seq_split``: RoPE and the causal mask read the block's global
+positions, attention gathers K and V, and the hybrid's Mamba2 layers
+hand their conv inputs and SSD state from rank to rank (``nn/ssm.py``).
+The prefix rows are dropped on the ranks that hold them.  The loss is the
+rank's share (:func:`train_loss`), and the prefill gathers the logits'
+positions (:func:`prefill_full`, :func:`prefill`).
 """
 
 from __future__ import annotations

@@ -38,7 +38,13 @@ axis) every head is the rank's, and so are only its block of the
 positions: q, k and v come from the rank's rows, RoPE turns them at
 their global positions, K and V are all-gathered over the axis in one
 :func:`~repro_torch.plan.sharded.seq_gather` and the rank's queries
-attend over all of them from the block's first position on.  The
+attend over all of them from the block's first position on (causal, or
+the encoder's bidirectional attention), in query chunks of ``q_chunk /
+tp``: a rank scores every head, so that chunk keeps its scores at the
+reference layout's, whose device scores ``q_chunk`` queries of
+``H / tp`` heads (or of a block of the positions).  A prefill into a cache
+that holds the rank's block of the kv heads (the decode layout, where
+the kv heads divide the axis) writes that block of every position.  The
 reference moves q from the sequence to the heads where the query heads
 divide the axis (Megatron-SP, ``_shard_heads``); the values are the
 same.  A KV cache under ``cache_seq_split`` holds the rank's block of
@@ -262,13 +268,15 @@ def attention_apply(
 
     rules = get_rules()
     seq = seq_axis_split(rules)
-    q_offset = 0
+    q_offset, q_chunk = 0, spec.q_chunk
     if seq is not None:
         # the rank's positions: K and V of every position, one gather
         hkv = k.shape[2]
         kv = seq_gather(torch.cat([k, v], dim=2), 1, seq)
         k, v = kv[:, :, :hkv], kv[:, :, hkv:]
         q_offset = seq[1] * s
+        # every head's scores of 1/tp of the reference layout's query chunk
+        q_chunk = max(q_chunk // seq[2], 1)
     cache_block = (model_axis_split(rules) if cache is not None
                    and rules is not None and rules.cache_seq_split else None)
 
@@ -281,10 +289,16 @@ def attention_apply(
                 "per-lane (B,) cache_pos is decode-only; prefill writes "
                 "one contiguous prompt per call (the serve scheduler "
                 "prefills each request at batch 1)")
-        _write_prompt(cache, k, v, int(idx), cache_block)
+        ck, cv = k, v
+        held = cache.k.shape[2]
+        if seq is not None and held != k.shape[2]:
+            # an SP prefill into a cache of the rank's kv heads (the decode
+            # layout): every position gathered, the rank's heads written
+            ck, cv = (t.narrow(2, seq[1] * held, held) for t in (k, v))
+        _write_prompt(cache, ck, cv, int(idx), cache_block)
     if cache is None or s > 1:
         out = _chunked_attention(q, *_kv_for_heads(spec, layout, split, n_local, k, v),
-                                 spec.causal, spec.q_chunk, grouped, q_offset)
+                                 spec.causal, q_chunk, grouped, q_offset)
     elif cache_block is not None:
         out = _decode_blocks(spec, q, k, v, cache, cache_pos, cache_block)
     else:

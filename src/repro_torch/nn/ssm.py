@@ -28,6 +28,29 @@ history is held whole: the reference's spec splits its 4 224 channels
 contiguously, a block that mixes the two heads' blocks with B and C, and
 each rank holds ``win``'s whole output, so the whole history costs no
 collective.
+
+Under SP (``ShardingRules.seq_split``: the hybrid's sequence holds the
+model axis) a rank holds positions ``[r * S / tp, (r + 1) * S / tp)`` of
+every head, and the scan hands two things from rank to rank, each in one
+all-gather (:func:`~repro_torch.plan.sharded.seq_stack`, whose backward
+sums the gradient once):
+
+* the conv's halo: every rank's last ``min(d_conv - 1, S / tp)`` inputs
+  (all conv channels); a rank's ``d_conv - 1`` inputs before its block
+  are the last of the ranks' before it (:func:`conv_halo`; a block shorter
+  than ``d_conv - 1`` takes them from several ranks), after zeros or the
+  cache's history;
+* the SSD state: a rank scans its block from a zero state
+  (:func:`_ssd_chunked`, its chunk length chosen from the whole sequence:
+  :func:`chunk_len`), sends its end state and its block's total log-decay
+  per head, folds the ranks' in rank order (:func:`fold_states`) and adds
+  the term of the state entering its block, ``C_t . exp(cum_t) . init``
+  (:func:`init_term`): ``y`` is linear in the initial state, so this
+  equals a rerun of the block from it.
+
+The whole sequence's end state and conv history come out of the same two
+gathers on every rank, so a prefill into a cache stores them (the end
+state cut to the rank's block of the heads where the cache holds one).
 """
 
 from __future__ import annotations
@@ -119,6 +142,21 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b[None, None, :]
 
 
+def chunk_len(s: int, chunk: int, seq_len: Optional[int] = None) -> int:
+    """The SSD chunk length of a scan over ``s`` positions: the reference's
+    rule (``chunk``, 64 past 8 192 positions, one chunk where it does not
+    divide) applied to the whole sequence's ``seq_len`` positions (``s``
+    when not given: the whole sequence is scanned), and one chunk for a
+    block of ``s`` positions that it does not divide."""
+    total = seq_len or s
+    l = min(chunk, total)
+    if total > 8192:
+        l = min(l, 64)  # bound the (b,c,l,l,h) decay tensor at long context
+    if total % l:
+        l = total  # ragged fallback: a single chunk
+    return l if s % l == 0 else s
+
+
 def _ssd_chunked(
     x: torch.Tensor,      # (B, S, H, P), already scaled by dt
     da: torch.Tensor,     # (B, S, H), log-decay increments (<= 0)
@@ -126,18 +164,16 @@ def _ssd_chunked(
     cmat: torch.Tensor,   # (B, S, N)
     chunk: int,
     init_state: Optional[torch.Tensor] = None,  # (B, H, N, P)
+    seq_len: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD scan: y_t = C_t^T h_t,  h_t = exp(da_t) h_{t-1} + B_t x_t^T.
 
-    Returns (y (B,S,H,P), final_state (B,H,N,P)).
+    Returns (y (B,S,H,P), final_state (B,H,N,P)).  ``seq_len``: the whole
+    sequence's positions, where ``x`` is a block of it (:func:`chunk_len`).
     """
     b, s, h, p = x.shape
     n = bmat.shape[-1]
-    l = min(chunk, s)
-    if s > 8192:
-        l = min(l, 64)  # bound the (b,c,l,l,h) decay tensor at long context
-    if s % l:
-        l = s  # ragged fallback: a single chunk
+    l = chunk_len(s, chunk, seq_len)
     c = s // l
     xc = x.reshape(b, c, l, h, p)
     dac = da.reshape(b, c, l, h)
@@ -177,6 +213,78 @@ def _ssd_chunked(
     return y, state
 
 
+def conv_halo(tails: torch.Tensor, upto: int, history: Optional[torch.Tensor],
+              k: int) -> torch.Tensor:
+    """The ``k - 1`` conv inputs before block ``upto`` of a sequence split
+    into blocks: ``tails (tp, B, t, C)`` holds every block's last ``t =
+    min(k - 1, block)`` inputs in block order, ``history (B, k - 1, C)`` the
+    inputs before the sequence (None: zeros).  ``upto = tp`` gives the
+    whole sequence's last ``k - 1`` inputs (the next call's history).  The
+    result is a slice of all of ``tails``: every block's gradient flows
+    through it (as zeros where it is not read)."""
+    n, b, t, c = tails.shape
+    if history is None:
+        history = tails.new_zeros((b, k - 1, c))
+    rows = torch.cat([history.to(tails.dtype), tails.transpose(0, 1).reshape(b, n * t, c)],
+                     dim=1)
+    return rows[:, upto * t:upto * t + k - 1]
+
+
+def fold_states(ends: torch.Tensor, totals: torch.Tensor,
+                init: Optional[torch.Tensor], index: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD state entering block ``index`` and the one leaving the last
+    block, from every block's end state when scanned from zero ``ends (tp,
+    B, H, N, P)`` and total log-decay ``totals (tp, B, H)``, in block order,
+    after the state ``init (B, H, N, P)`` before the sequence (None: zero):
+    ``state_j = exp(T_j) state_{j-1} + S_j``, the chunk recurrence of
+    :func:`_ssd_chunked` over blocks.  Both are read from the stack of
+    every state, so every block's gradient flows through them."""
+    state = init if init is not None else torch.zeros_like(ends[0])
+    states = [state]
+    for j in range(ends.shape[0]):
+        state = state * torch.exp(totals[j])[..., None, None] + ends[j]
+        states.append(state)
+    states = torch.stack(states)
+    return states[index], states[-1]
+
+
+def init_term(cmat: torch.Tensor, da: torch.Tensor, init: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The part of a block's SSD output that its entering state ``init (B,
+    H, N, P)`` gives: ``C_t . exp(cum_t) . init`` with ``cum_t`` the block's
+    cumulative log-decay ``da (B, S, H)`` up to t; ``(B, S, H, P)``."""
+    decay = torch.exp(torch.cumsum(da, dim=1)).to(dtype)
+    return torch.einsum("bsn,bsh,bhnp->bshp", cmat, decay, init.to(dtype))
+
+
+def _ssd_handoff(x, da, bmat, cmat, chunk: int, init_state, seq):
+    """:func:`_ssd_chunked` of the rank's block of the positions under SP
+    (``seq``: :func:`~repro_torch.plan.sharded.seq_axis_split`): the block
+    scanned from zero, then the term of the state entering it, from every
+    rank's end state and total log-decay (one all-gather, with the rank's
+    block of ``init_state``'s heads where it holds a block).  Returns the
+    block's ``y`` and the whole sequence's end state (every head)."""
+    from repro_torch.plan.sharded import seq_stack
+
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    _, index, tp = seq
+    y, end = _ssd_chunked(x, da, bmat, cmat, chunk, seq_len=s * tp)
+    parts = [end.reshape(b, -1), da.sum(dim=1)]
+    held = init_state is not None and init_state.shape[1] != h
+    if held:                 # a block of the cache's heads: sent alongside
+        parts.append(init_state.reshape(b, -1).to(end.dtype))
+    msgs = seq_stack(torch.cat(parts, dim=1), seq)         # (tp, B, ...)
+    ends = msgs[..., :h * n * p].reshape(tp, b, h, n, p)
+    totals = msgs[..., h * n * p:h * n * p + h]
+    if held:
+        init_state = msgs[..., h * n * p + h:].reshape(tp, b, h // tp, n, p)
+        init_state = init_state.transpose(0, 1).reshape(b, h, n, p)
+    start, final = fold_states(ends, totals, init_state, index)
+    return y + init_term(cmat, da, start, x.dtype), final
+
+
 def _head_block(spec: SSMSpec, params: dict, split, zxbcdt: torch.Tensor,
                 conv_hist: Optional[torch.Tensor]):
     """This rank's share of ``win``'s whole output ``[z | x | B | C | dt]``
@@ -211,10 +319,14 @@ def _head_block(spec: SSMSpec, params: dict, split, zxbcdt: torch.Tensor,
 
 
 def _scan_heads(spec: SSMSpec, z, xbc, dt, conv_w, conv_b, conv_hist,
-                per_head, init_state: Optional[torch.Tensor] = None):
+                per_head, init_state: Optional[torch.Tensor] = None, seq=None):
     """The conv, the SSD scan and the gate on the heads that
     :func:`_head_block` gives (all of them, or a rank's block): ``(y * silu(z)
-    (B, S, heads * head_dim), final state (B, heads, d_state, head_dim))``."""
+    (B, S, heads * head_dim), final state (B, heads, d_state, head_dim))``.
+    Under SP (``seq``) ``xbc`` is the rank's block of the positions,
+    ``conv_hist`` its halo (:func:`conv_halo`), and the scan hands its
+    state on (:func:`_ssd_handoff`): the final state is the whole
+    sequence's."""
     b, s, _ = z.shape
     p, n = spec.head_dim, spec.d_state
     dt_bias, a_log, d = per_head
@@ -224,7 +336,10 @@ def _scan_heads(spec: SSMSpec, z, xbc, dt, conv_w, conv_b, conv_hist,
     dt = F.softplus(dt.to(torch.float32) + dt_bias)                 # (b,s,h)
     da = -torch.exp(a_log)[None, None, :] * dt                       # <= 0
     xd = x * dt[..., None].to(x.dtype)
-    y, final = _ssd_chunked(xd, da, bmat, cmat, spec.chunk, init_state)
+    if seq is None:
+        y, final = _ssd_chunked(xd, da, bmat, cmat, spec.chunk, init_state)
+    else:
+        y, final = _ssd_handoff(xd, da, bmat, cmat, spec.chunk, init_state, seq)
     y = y + d[None, None, :, None].to(y.dtype) * x
     return y.reshape(b, s, -1) * F.silu(z), final
 
@@ -239,23 +354,41 @@ def ssm_apply(
     SSD state continue from it (decode, or prefill into a cache).  Under
     a model-axis split of the heads (:func:`~repro_torch.sharding.
     state_heads`) the rank computes its block of them and ``state.ssm``
-    holds its heads (:func:`init_ssm_state`)."""
-    from repro_torch.plan.sharded import model_axis_split, model_gather
+    holds its heads (:func:`init_ssm_state`).  Under SP ``u`` is the rank's
+    block of the positions (every head); the new state is the whole
+    sequence's, its heads cut to the block ``state.ssm`` holds."""
+    from repro_torch.plan.sharded import (model_axis_split, model_gather,
+                                          seq_axis_split, seq_stack)
 
-    split = model_axis_split(get_rules()) if state_heads(spec.n_heads) else None
+    rules = get_rules()
+    seq = seq_axis_split(rules)
+    split = model_axis_split(rules) if state_heads(spec.n_heads) else None
+    k = spec.d_conv
     zxbcdt = linear_apply(spec.in_spec, params["win"], u)
-    y, final = _scan_heads(spec, *_head_block(
-        spec, params, split, zxbcdt, state.conv if state is not None else None),
-        state.ssm if state is not None else None)
+    z, xbc, dt, conv_w, conv_b, hist, per_head = _head_block(
+        spec, params, split, zxbcdt, state.conv if state is not None else None)
+    tails = None
+    if seq is not None:         # every rank's last inputs: the halo (one gather)
+        s = xbc.shape[1]
+        tails = seq_stack(xbc[:, s - min(k - 1, s):], seq)       # (tp, B, t, C)
+        hist = conv_halo(tails, seq[1], hist, k)
+    y, final = _scan_heads(spec, z, xbc, dt, conv_w, conv_b, hist, per_head,
+                           state.ssm if state is not None else None, seq)
     if split is not None:
         y = model_gather(y, -1, split)          # the norm reads all of d_inner
     out = linear_apply(spec.out_spec, params["wout"], rmsnorm(params["norm"], y))
 
     new_state = None
     if state is not None:
-        k = spec.d_conv
-        whole = zxbcdt[..., spec.d_inner:spec.d_inner + spec.conv_channels]
-        hist = torch.cat([state.conv, whole.to(state.conv.dtype)], dim=1)[:, -(k - 1):, :]
+        if tails is not None:                   # the whole sequence's, under SP
+            hist = conv_halo(tails, seq[2], state.conv, k).to(state.conv.dtype)
+            held = state.ssm.shape[1]
+            if held != spec.n_heads:            # the cache's block of the heads
+                final = final.narrow(1, seq[1] * held, held)
+        else:
+            whole = zxbcdt[..., spec.d_inner:spec.d_inner + spec.conv_channels]
+            hist = torch.cat([state.conv, whole.to(state.conv.dtype)],
+                             dim=1)[:, -(k - 1):, :]
         new_state = SSMState(conv=hist, ssm=final)
     return out, new_state
 

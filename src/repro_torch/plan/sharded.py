@@ -59,9 +59,11 @@ train step sums every gradient over the batch axes once, after the
 backward (``launch/steps.py``): a core gradient summed here over the data
 axes too would count ``dp`` times.  Under ``seq_split`` (SP) each rank's
 loss is its positions' share too, and the step sums over the sequence's
-axis as well; the one collective inside the model is :func:`seq_gather`
-(K and V): all-gathered forward, its backward sums the whole gradient over
-the ranks and takes the rank's block (a reduce-scatter).  ``model_block``'s
+axis as well; the collectives inside the model are :func:`seq_gather`
+(K and V, the encoder-decoder's cross K/V) and :func:`seq_stack` (the
+Mamba2 scan's hand-off: every rank's conv tail and SSD end state): each
+all-gathered forward, its backward sums the whole gradient over the ranks
+and takes the rank's block (a reduce-scatter).  ``model_block``'s
 backward all-gathers, so a split routed through it would hand every rank
 the whole gradient and the step's sum would count it ``tp`` times.
 
@@ -435,6 +437,19 @@ def seq_gather(t: torch.Tensor, dim: int, split) -> torch.Tensor:
     rank's share with respect to its own positions."""
     group, index, _ = split
     return _GatherShares.apply(t, dim, index, group)
+
+
+def seq_stack(t: torch.Tensor, split) -> torch.Tensor:
+    """Every rank's ``t`` over the sequence's axis (``split``:
+    :func:`seq_axis_split`), stacked along a new leading dim in rank order
+    (``(tp, *t.shape)``): one all-gather.  The backward all-reduces the
+    stack's whole gradient and takes the rank's entry, as
+    :func:`seq_gather`'s, so each rank ends with the gradient of every
+    rank's share with respect to its own ``t``.  Every rank must read the
+    stack into its loss (a slice of it will do), so that every rank runs
+    the backward's all-reduce."""
+    group, index, _ = split
+    return _GatherShares.apply(t.unsqueeze(0), 0, index, group)
 
 
 def sum_over_ranks(t: torch.Tensor, group: Any) -> torch.Tensor:

@@ -39,13 +39,16 @@ prefill writes that block and ``admit`` copies it; the logits, a block of
 the vocab on each rank, are gathered over the model axis before the
 host samples them, so the scheduler still sees ``(n_slots, V)``.
 
-Under SP (the dense, MoE and VLM families where the rules' ``seq_axis``
-is set) a bucketed prompt whose length the model axis divides prefills
-as each rank's block of its positions, the logits' positions gathered
-(``models/lm.py``), and one that does not stays whole.  Where the caches'
-positions take the axis (``kv_layout``: ``_cache_pspec``'s ``seq``
-entry) a rank holds its block of every lane's positions: the prefill
-writes the part of the prompt in it, a decode step combines the ranks'
+Under SP (every family but RWKV where the rules' ``seq_axis`` is set) a
+bucketed prompt whose length the model axis divides prefills as each
+rank's block of its positions, the logits' positions gathered
+(``models/lm.py``; the hybrid's scan hands its state from rank to rank
+and stores the whole prompt's state and conv history), and one that does
+not stays whole.  Where the caches' positions take the axis
+(``kv_layout``: ``_cache_pspec``'s ``seq`` entry) a rank holds its block
+of every lane's positions, and elsewhere its block of the kv heads (and
+of the SSM heads) as a decode step holds them: the prefill writes the
+part of the prompt in it, a decode step combines the ranks'
 blocks of the attention (``nn/attention.py``), and every rank ends with
 the same logits, so the host scheduler samples the same tokens.
 

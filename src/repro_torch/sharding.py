@@ -44,20 +44,24 @@ along the model axis, as the reference's ``expert_in`` constraint
 ``("batch", None, None, None)`` has them.
 
 Under sequence parallelism (SP: the policy's ``seq_axis``, the model axis
-when the kv heads do not divide it) a step of the dense, MoE and VLM
-families whose sequence takes the axis (:func:`splits_sequence`, as
-``partition_spec(("batch", "seq", None))`` places it) holds each rank's
-block of the positions: ``models/lm.py`` takes the rank's block after
-the embedding and the VLM prefix (the reference's ``lm.py:251``) and runs
-the layers under :attr:`ShardingRules.seq_split`.  The model axis then
-belongs to the sequence: the heads, d_ff and the vocab stay whole
-(:func:`model_dim`), a planned projection runs on the rank's rows, and
-attention gathers K and V over the axis.  A KV cache of those families
-holds the rank's block of the positions where ``_cache_pspec`` gives
-its ``seq`` entry (:func:`kv_seq_split`, :attr:`ShardingRules.
-cache_seq_split`).  The hybrid and the encoder-decoder keep the sequence
-whole (:data:`SP_FAMILIES`).  :func:`shard` checks its axes and returns
-its input unchanged: the layer that computes a block takes it.
+when the kv heads do not divide it, or at 200 000 positions and more) a
+step of any family but RWKV whose sequence takes the axis
+(:func:`splits_sequence`, as ``partition_spec(("batch", "seq", None))``
+places it) holds each rank's block of the positions: ``models/lm.py``
+takes the rank's block after the embedding and the VLM prefix (the
+reference's ``lm.py:251``) and runs the layers under
+:attr:`ShardingRules.seq_split`; the encoder-decoder splits its frames
+and its tokens each where they take the axis (``models/encdec.py``).
+The model axis then belongs to the sequence: the heads, d_ff, the SSM
+heads and the vocab stay whole (:func:`model_dim`), a planned projection
+runs on the rank's rows, attention gathers K and V over the axis, and
+the hybrid's Mamba2 scan hands its conv inputs and its SSD state from
+rank to rank (``nn/ssm.py``).  A KV cache holds the rank's block of the
+positions where ``_cache_pspec`` gives its ``seq`` entry
+(:func:`kv_seq_split`, :attr:`ShardingRules.cache_seq_split`), and so do
+the encoder-decoder's cross K/V.  RWKV keeps the sequence whole
+(:data:`SP_FAMILIES`).  :func:`shard` checks its axes and returns its
+input unchanged: the layer that computes a block takes it.
 """
 
 from __future__ import annotations
@@ -206,15 +210,16 @@ def use_rules(rules: Optional[ShardingRules]):
         set_rules(prev)
 
 
-#: the families whose sequence SP splits; the hybrid (a Mamba2 scan would
-#: hand its state from rank to rank) and the encoder-decoder keep it whole
-SP_FAMILIES = ("dense", "moe", "vlm")
+#: the families whose sequence SP splits: every family the reference's
+#: ``sp_enabled`` turns SP on for, all but the attention-free RWKV
+SP_FAMILIES = ("dense", "moe", "vlm", "hybrid", "encdec")
 
 
 def splits_sequence(family: str, batch: int, seq: int) -> bool:
     """Whether the installed rules split the ``seq`` positions of a step of
     ``batch`` rows (the rank's block under ``batch_split``) of a
-    :data:`SP_FAMILIES` model over the sequence's axis: SP is on and
+    :data:`SP_FAMILIES` model (an encoder-decoder's frames or tokens,
+    each on its own) over the sequence's axis: SP is on and
     :meth:`ShardingRules.partition_spec` gives the ``"seq"`` dim of
     ``("batch", "seq", None)`` the axis (the global batch decides, as in
     :func:`model_dim`).  False inside a split (:attr:`seq_split`)."""
@@ -310,9 +315,10 @@ def state_heads(n_heads: int) -> bool:
     """Whether the installed rules split the heads of an SSM or WKV layer
     over the model axis: the reference's ``("batch", "seq", "model",
     None)`` on the heads (``nn/ssm.py``'s x, ``nn/rwkv.py``'s r, k and v),
-    which is also ``_cache_pspec``'s split of their decode states.  The
-    hybrid and RWKV keep the sequence whole (:data:`SP_FAMILIES`), so the
-    sequence never takes the axis from the heads here."""
+    which is also ``_cache_pspec``'s split of their decode states.  Under
+    ``seq_split`` the hybrid's sequence has taken the axis first, as
+    ``partition_spec`` gives it, and the heads stay whole (False); a
+    decode step (one position) leaves the axis to the heads again."""
     return model_dim((1, 1, n_heads, 1), "batch", "seq", "model", None) == 2
 
 

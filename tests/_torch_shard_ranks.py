@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import io
 import json
 import math
@@ -1164,6 +1165,186 @@ def body_seq_parallel(spec: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SP sequence split of the hybrid and the encoder-decoder on data=1 x model=4
+# ---------------------------------------------------------------------------
+
+#: the hybrid's and the encoder-decoder's smoke configs, under the rules of
+#: :func:`sps_rules` (SP on: each rank 4 of the batch's 16 positions and
+#: frames, and 2 of a served prompt's 8: fewer than ``d_conv - 1``)
+SPS_ARCHS = ("zamba2-1.2b", "seamless-m4t-medium")
+#: the encoder-decoder's frames of the forward and of step 0
+SPS_FRAMES = 16
+#: seamless-smoke with 2 kv heads: served under the same rules, its
+#: decode caches hold a rank's block of the positions and of the frames
+SPS_KV2 = {"n_kv_heads": 2}
+#: seamless-smoke's steps whose frames or tokens alone divide model=4:
+#: (frames, tokens)
+SPS_MIXED = {"frames": (16, 6), "tokens": (10, 16)}
+
+
+def sps_rules(mesh, **kw):
+    """The reference tests' SP rules (``tests/test_shard_exec.py``): the
+    batch over ``data``, the model and the sequence over ``model``."""
+    from repro_torch.sharding import ShardingRules
+
+    return ShardingRules(axis_sizes=dict(mesh.shape), batch_axes=("data",),
+                         model_axis="model", seq_axis="model", mesh=mesh, **kw)
+
+
+def sps_batch(cfg, frames: int = SPS_FRAMES, seq: int = SP_BATCH[1]) -> dict:
+    """Tokens and labels (:data:`SP_BATCH`'s rows, ``seq`` positions) and the
+    encoder-decoder's ``frames`` frames."""
+    rng = np.random.default_rng(53)
+    b = SP_BATCH[0]
+    batch = {k: rng.integers(0, cfg.vocab, size=(b, seq)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frontend"] = rng.standard_normal(
+            (b, frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _collectives_of(run) -> dict:
+    """``run()``'s collectives, forward and backward."""
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+
+    reset_collectives()
+    out = run()
+    bwd = dict(BWD_COLLECTIVES)
+    return out, {"fwd": {k: v - bwd[k] for k, v in COLLECTIVES.items()}, "bwd": bwd}
+
+
+def sps_serve(cfg, params, rules, pre, dec) -> dict:
+    """The two lane prompts served under ``rules`` (every lane on every
+    rank): the hybrid through a 2-lane ``ServeEngine``, the encoder-decoder
+    (with :func:`lane_frames`) through the step builders, its decode step
+    under the caches' rules (``kv_layout``).  The whole-vocab prefill
+    logits and greedy first tokens, one decode step's logits, the first
+    prefill's and the decode step's collectives and the rank's cache leaf
+    shapes."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.nn import plan_context
+    from repro_torch.plan.sharded import COLLECTIVES, reset_collectives
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import kv_layout, use_rules
+    from repro_torch.tree import leaves
+
+    out = {}
+    with use_rules(rules), torch.no_grad():
+        if cfg.family == "encdec":
+            batch = {"tokens": torch.from_numpy(lane_prompts(cfg.vocab)),
+                     "frontend": torch.from_numpy(lane_frames(cfg))}
+            reset_collectives()
+            with plan_context(pre):
+                rows, caches = make_prefill_step(cfg, LANE_MAX_SEQ)(params, batch)
+            out["prefill_collectives"] = dict(COLLECTIVES)
+            first = rows.argmax(dim=-1)
+            reset_collectives()
+            with plan_context(dec), use_rules(kv_layout(rules, cfg.family,
+                                                        cfg.n_kv_heads, LANE_MAX_SEQ)):
+                step, caches = make_decode_step(cfg)(
+                    params, first[:, None], caches, torch.tensor(LANE_PROMPT_LEN))
+            first = [int(t) for t in first]
+        else:
+            eng = ServeEngine(cfg, params, n_slots=2, max_seq=LANE_MAX_SEQ,
+                              prompt_bucket=8, prefill_plan=pre, decode_plan=dec)
+            caches = eng.fresh_caches()
+            rows, first = [], []
+            for lane, prompt in enumerate(lane_prompts(cfg.vocab)):
+                reset_collectives()
+                row, small = eng.prefill_request(prompt.tolist())
+                if lane == 0:
+                    out["prefill_collectives"] = dict(COLLECTIVES)
+                caches = eng.admit(caches, small, lane)
+                rows.append(torch.from_numpy(row))
+                first.append(int(np.argmax(row)))
+            rows = torch.stack(rows)
+            reset_collectives()
+            step, caches = eng.decode(np.array(first), np.full(2, LANE_PROMPT_LEN),
+                                      caches)
+            step = torch.from_numpy(step)
+        out.update(decode_collectives=dict(COLLECTIVES), prefill=rows.float(),
+                   first=first, decode=step.float(),
+                   cache_shapes=[tuple(t.shape) for t in leaves(caches)])
+    return out
+
+
+def body_seq_parallel_states(spec: dict) -> dict:
+    """Each of :data:`SPS_ARCHS` on ``data=1 x model=4`` under
+    :func:`sps_rules`, on the weights saved at ``spec["params"][arch]`` and
+    its K1 plans ``spec["plans"][arch]``: the whole prefill logits of every
+    position of :func:`sps_batch` under the prefill plan (the
+    encoder-decoder's through ``encdec.prefill_full``) (its records'
+    meshes and shard shapes, its collectives); step 0 under the train plan
+    through ``loss_and_grads`` (loss, every gradient leaf, collectives),
+    and again under ``remat="full"``; two lanes served (:func:`sps_serve`).
+    Seamless-smoke's steps of :data:`SPS_MIXED` (one of frames and tokens
+    split): step 0 and the last-token prefill logits.  Then
+    seamless-smoke with :data:`SPS_KV2` served without a plan on the
+    weights at ``spec["params"]["kv2"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import batch_layout
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import api, encdec
+    from repro_torch.nn import plan_context
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.sharding import use_rules
+    from repro_torch.tree import leaves
+
+    mesh = sp_mesh()
+    out = {"coords": dict(mesh.coords), "cases": {}}
+    b, s = SP_BATCH
+    rules = batch_layout(sps_rules(mesh), b)
+    for arch in SPS_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        pre, dec, train = (load_plan(spec["plans"][arch][k])
+                           for k in ("prefill", "decode", "train"))
+        params = torch.load(spec["params"][arch], weights_only=False)
+        batch = {k: torch.from_numpy(v) for k, v in sps_batch(cfg).items()}
+        case = {}
+        with use_rules(rules), plan_context(pre), torch.no_grad():
+            reset_execution_log()
+            full = (functools.partial(encdec.prefill_full, cfg) if cfg.family == "encdec"
+                    else api(cfg, device="cpu").prefill_full)
+            (logits, _), case["prefill_collectives"] = _collectives_of(
+                lambda: full(params, {k: v for k, v in batch.items() if k != "labels"}, s))
+            case["records"] = sorted({(r["name"], r["mesh"], tuple(r["shard_shape"] or ()))
+                                      for r in execution_log()})
+        case["forward"] = logits
+        for p in leaves(params):
+            p.requires_grad_(True)
+        for key, c in (("step0", cfg), ("remat", cfg.with_(remat="full"))):
+            with plan_context(train), use_rules(rules):
+                (loss, grads), coll = _collectives_of(
+                    lambda: loss_and_grads(api(c, device="cpu"), params, batch))
+            case[key] = {"loss": float(loss), "grads": named_leaves(grads),
+                         "collectives": coll}
+        for p in leaves(params):
+            p.requires_grad_(False)
+        case["serve"] = sps_serve(cfg, params, rules, pre, dec)
+        out["cases"][arch] = case
+        if cfg.family != "encdec":
+            continue
+        for key, (frames, seq) in SPS_MIXED.items():
+            batch = {k: torch.from_numpy(v) for k, v in sps_batch(cfg, frames, seq).items()}
+            with use_rules(rules), torch.no_grad():
+                rows, _ = encdec.prefill(cfg, params, batch, seq)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            with plan_context(train), use_rules(rules):
+                loss, grads = loss_and_grads(api(cfg, device="cpu"), params, batch)
+            for p in leaves(params):
+                p.requires_grad_(False)
+            out["cases"][f"mixed-{key}"] = {"prefill": rows, "loss": float(loss),
+                                            "grads": named_leaves(grads)}
+    cfg = get_config("seamless-m4t-medium", smoke=True).with_(**SPS_KV2)
+    out["cases"]["kv2"] = {"serve": sps_serve(
+        cfg, torch.load(spec["params"]["kv2"], weights_only=False), rules, None, None)}
+    return out
+
+
 #: chatglm3-6b's K and V on the card's SP path: a rank's 128 of 512
 #: positions of 4 sequences, K and V of 2 kv heads each, head dim 128; and
 #: its decode step: 16 lanes over 32 768 cache positions, 32 query heads
@@ -1252,7 +1433,75 @@ def body_cuda_sp(spec: dict) -> dict:
     return out
 
 
-BODIES = {"seq_parallel": body_seq_parallel, "cuda_sp": body_cuda_sp, "model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
+#: zamba2-1.2b's SSD on the card's SP path: 4 sequences of 512 positions
+#: (128 a rank), 64 heads of 64, state 64, in chunks of 128; its conv: 4 224
+#: channels, ``d_conv`` 4
+SPS_CUDA = (4, 512, 64, 64, 64, 128)
+SPS_CUDA_CONV = (4224, 4)
+
+
+def body_cuda_sps(spec: dict) -> dict:
+    """On the card the 4 ranks share (``data=1 x model=4``): the Mamba2
+    scan's hand-off (``nn/ssm.py::_ssd_handoff``: the rank's block scanned
+    from zero, every rank's end state and total decay stacked by
+    ``seq_stack``, folded, the entering state's term added) and a conv over
+    the rank's block with the halo of the ranks before it
+    (``seq_stack`` of the tails, ``conv_halo``), forward and backward,
+    against the single-process scan and conv of the whole sequence that
+    every rank also runs: the gaps relative to each tensor's scale."""
+    from repro_torch.nn import ssm
+    from repro_torch.plan.sharded import seq_axis_split, seq_stack
+    from repro_torch.sharding import ShardingRules
+
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                          % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = sp_mesh()
+    split = seq_axis_split(ShardingRules(axis_sizes=dict(mesh.shape), mesh=mesh,
+                                         seq_axis="model", seq_split=True))
+    r, tp = split[1], split[2]
+    b, s, h, p, n, chunk = SPS_CUDA
+    c, k = SPS_CUDA_CONV
+    gen = torch.Generator().manual_seed(61)
+    x = {"x": torch.randn(b, s, h, p, generator=gen),
+         # a block's decay about e^-1: the hand-off carries weight
+         "da": -torch.rand(b, s, h, generator=gen) * (8.0 / s),
+         "bmat": torch.randn(b, s, n, generator=gen),
+         "cmat": torch.randn(b, s, n, generator=gen),
+         "u": torch.randn(b, s, c, generator=gen)}
+    w, bias = torch.randn(k, c, generator=gen), torch.randn(c, generator=gen)
+    gy, gc = torch.randn(b, s, h, p, generator=gen), torch.randn(b, s, c, generator=gen)
+    x = {key: v.to(device).requires_grad_(True) for key, v in x.items()}
+    w, bias, gy, gc = (t.to(device) for t in (w, bias, gy, gc))
+    m = s // tp
+    blk = slice(r * m, (r + 1) * m)
+    y, end = ssm._ssd_chunked(x["x"], x["da"], x["bmat"], x["cmat"], chunk)
+    conv = ssm._causal_conv(x["u"], w, bias)
+    ((y * gy).sum() + (conv * gc).sum()).backward()
+    xb = {key: v.detach()[:, blk].clone().requires_grad_(True) for key, v in x.items()}
+    yb, endb = ssm._ssd_handoff(xb["x"], xb["da"], xb["bmat"], xb["cmat"], chunk, None,
+                                split)
+    tails = seq_stack(xb["u"][:, m - min(k - 1, m):], split)
+    halo = ssm.conv_halo(tails, r, None, k)
+    convb = ssm._causal_conv(xb["u"], w, bias, halo)
+    ((yb * gy[:, blk]).sum() + (convb * gc[:, blk]).sum()).backward()
+    torch.cuda.synchronize(device)
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    before = x["u"].detach()[:, max(r * m - (k - 1), 0):r * m]
+    before = torch.cat([before.new_zeros((b, k - 1 - before.shape[1], c)), before], 1)
+    out = {"y": gap(yb, y.detach()[:, blk]), "end": gap(endb, end.detach()),
+           "conv": gap(convb, conv.detach()[:, blk]),
+           "halo_equal": torch.equal(halo.detach(), before)}
+    out.update({f"grad_{key}": gap(xb[key].grad, v.grad[:, blk]) for key, v in x.items()})
+    return out
+
+
+BODIES = {"seq_parallel": body_seq_parallel, "cuda_sps": body_cuda_sps,
+          "seq_parallel_states": body_seq_parallel_states, "cuda_sp": body_cuda_sp, "model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
           "train_adamw": body_train_adamw, "train_cli": body_train_cli,
           "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}

@@ -1559,3 +1559,22 @@ def test_sequence_split_gather_and_decode_combine_on_the_card(cuda_device, tmp_p
         assert got["gather_equal"] and got["writes_equal"]
         assert got["grad_gap"] <= 1e-6
         assert got["decode_gap"] <= 1e-4 * got["scale"]
+
+
+@pytest.mark.cuda
+def test_scan_hand_off_and_conv_halo_on_the_card(cuda_device, tmp_path):
+    """At zamba2-1.2b's SSD and conv widths on 4 ``gloo`` ranks sharing the
+    card (``data=1 x model=4``, 128 of 512 positions a rank): the blockwise
+    scan with its state hand-off (one ``seq_stack`` of the end states and
+    decays) and the conv over a rank's block with the ranks' halo give the
+    single-process scan's output, end state and conv within 1e-4 of their
+    scale, the halo bit for bit, and the backward every input's gradient
+    at the rank's block within 1e-4 (the stack's backward sums every
+    rank's share once)."""
+    from _torch_shard_ranks import spawn
+
+    ranks = spawn("cuda_sps", 4, {}, tmp_path, timeout=300)
+    for rank in ranks:
+        got = dict(rank["cuda_sps"])
+        assert got.pop("halo_equal")
+        assert got and all(gap <= 1e-4 for gap in got.values()), got

@@ -292,8 +292,9 @@ def test_chatglm3_policy_on_four_model_ranks():
     with use_rules(rules):
         assert splits_sequence("dense", 4, 512) and splits_sequence("vlm", 1, 32)
         assert not splits_sequence("dense", 4, 514)        # 514 % 4
-        assert not splits_sequence("hybrid", 4, 512)       # kept whole
-        assert not splits_sequence("encdec", 4, 512)
+        assert splits_sequence("hybrid", 4, 512)           # as the reference
+        assert splits_sequence("encdec", 4, 512)
+        assert not splits_sequence("rwkv", 4, 512)         # attention-free
 
 
 @pytest.mark.parametrize("arch", BATCH_ARCHS)
@@ -330,7 +331,8 @@ def test_applied_cache_shardings_keep_the_seq_entry():
     """A KV cache of the SP policy: ``cache_shardings`` gives its positions
     the model axis, and the port applies it (a quarter of the positions a
     rank: ``init_caches`` under the same rules makes exactly that block);
-    the hybrid's shared-attention cache keeps its positions whole."""
+    so does the hybrid's shared-attention cache (2 kv heads: the heads do
+    not divide the axis), beside its SSM states' block of the heads."""
     cfg = get_config("chatglm3-6b", smoke=True)
     shape = ShapeConfig("t", *SP_DECODE_CELL, "decode")
     whole = api(cfg, device="meta").init_caches(16, 64)
@@ -348,11 +350,16 @@ def test_applied_cache_shardings_keep_the_seq_entry():
         assert sum(t.numel() for t in leaves(blocks)) * TP == \
             sum(t.numel() for t in leaves(whole))
     hybrid = get_config("zamba2-1.2b", smoke=True).with_(n_kv_heads=2)
-    rules = make_rules(hybrid, shape, _mesh())
+    rules = kv_layout(make_rules(hybrid, shape, _mesh()), hybrid.family,
+                      hybrid.n_kv_heads, 64)
     caches = api(hybrid, device="meta").init_caches(16, 64)
     assert cache_shardings(hybrid, caches["attn"], rules)[0].k == (None, "model", None, None)
     assert {spec for layer in applied_cache_shardings(hybrid, caches["attn"], rules)
-            for spec in layer} == {(None, None, None, None)}
+            for spec in layer} == {(None, "model", None, None)}
+    with use_rules(rules):
+        made = api(hybrid, device="meta").init_caches(16, 64)
+    blocks = LayoutBlocks(applied_cache_shardings(hybrid, caches, rules), rules).block(caches)
+    assert [t.shape for t in leaves(made)] == [t.shape for t in leaves(blocks)]
 
 
 def test_layout_lines_name_the_sequence_split():
