@@ -65,6 +65,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens, K2-K4 at 64,128,16, 37,2048,16 and 32,16,256 and K5 at the
    mlp.wg segment against their plain versions at 8e-2 (the reference's
    bf16 tolerance), and WS == OS == IS bit for bit at each GEMM shape.
+   The experts' batched launches (:func:`check_batched`): batched K1 at
+   qwen2-moe-a2.7b's ``moe.eu`` / ``moe.ed`` over 60 experts at a served
+   step's 4 slots and the train step's 172 (forward and dx) and batched
+   K3 at every weight-gradient GEMM of those layers, each against its
+   batched plain version, bit for bit against the 60 unbatched launches,
+   timed beside them, one batched library call and the bound; then one
+   full-width MoE layer's forward and backward under
+   ``torch.cuda.set_sync_debug_mode("error")`` (:func:`moe_sync_check`).
 3b. rank space: every candidate of the full-width rank search compiles to
    the plan it would emit; K1 runs each layer's path at 4, 32 and 2048
    tokens and K2-K4 each path's GEMMs at 4 and 32 tokens (WS == OS == IS
@@ -127,9 +135,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    layer runs on the plain executor, every step launches K1 forward and
    dx and K3 (K3 and K5 under tt_gemm); collectives a step, step ms a
    rank and peak memory are printed.
-4b. families (after the shard-train phase): full-width qwen2-moe-a2.7b
-   (at 6 of its 24 layers, :data:`FAMILY_DEPTH`), full-width, full-depth
-   zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16 as
+4b. families (after the shard-train phase): full-width, full-depth
+   qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16 as
    configured) served through ``python -m repro_torch.launch.serve``'s code
    path under their plan pairs (emitted in the dse phase) with
    ``--strict-plan``, continuous then oneshot (the tokens must match);
@@ -137,26 +144,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the card (1e-4 x max |logit|; rwkv6-7b at 4 of its 32 layers, see
    :data:`FAMILY_CHECK_LAYERS`) and in bf16 (reported); launches of one
    prefill (K1, and K3 for zamba2 and rwkv6, required) and one decode step
-   (K1 required); a profiled decode step and the peak device memory per
+   (K1 required; qwen2-moe's K1 launches, the experts' batched ones
+   included, equal to :func:`moe_launches`' count from its plans, or the
+   run fails); a profiled decode step and the peak device memory per
    arch; K1 and K3 at every new main-path shape against their plain
    versions, timed beside one ``torch.einsum`` / ``torch.matmul`` and the
    bound.
-4c. families train (after the families phase): full-width qwen2-moe-a2.7b
-   (at 6 layers, :data:`FAMILY_DEPTH`), full-width, full-depth
-   zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16,
+4c. families train (after the families phase): full-width, full-depth
+   qwen2-moe-a2.7b, zamba2-1.2b and rwkv6-7b (seed-0 weights, bf16,
    ``remat="full"``, ``loss_chunk=256``) through ``python -m
    repro_torch.launch.train``'s code path under their train plans
    (emitted in the dse phase), batch 4 x seq 512: AdamW steps
-   (:data:`FAMILY_TRAIN_RUNS`: 3 each, qwen2-moe 2), zamba2 also under
+   (:data:`FAMILY_TRAIN_RUNS`: 3 each), zamba2 also under
    ``zamba2-1.2b.train.tt_gemm.json`` (K5 fused segments) and for 2 steps
    with ``--grad-compress`` (its checkpoint must restore).  Every loss and
    gradient norm finite, every step launches K1 forward and dx and K3
-   (the tt_gemm run: K3 and K5), or the run fails.  Step 0 in fp32
+   (the tt_gemm run: K3 and K5; qwen2-moe's K1 and batched K3 launches a
+   step those :func:`moe_launches` counts from its plan), or the run
+   fails.  Step 0 in fp32
    through the kernels against the plain executor on the card: the loss
    and the gradient norm at rel 1e-4, every gradient leaf at ``||g -
    g_plain|| / ||g_plain||`` <= 1e-4 or 10x the plain executor's own
    fp32-vs-float64 gap of that leaf (rwkv6-7b at 4 layers, 4, 8, 16 and
-   32 layers reported; qwen2-moe-a2.7b at 6 of its 24); per arch the step
+   32 layers reported); per arch the step
    ms, train tokens/s, launches per step (the remat recompute
    included), peak device memory and one profiled step (busy share, top
    device ops).
@@ -254,7 +264,8 @@ JSON.  The kernels JSON gives each kernel's launches per main path,
 "serve_tuned": v, "serve_families": f, "train_families": t,
 "serve_encdec": e, "train_encdec": d, "serve_sharded": h,
 "train_sharded": g, "states_sharded": w, "sp_sharded": p, "examples": x}``
-(``r`` is the
+(the experts' batched kernels, ``streaming_tt_batched`` and
+``tt_gemm_ws_batched``, launch on the families' paths; ``r`` is the
 part of ``n`` from the
 rank plan's runs; ``x`` the quickstart's launches in its own process; ``h`` the shard phase's serve runs, summed over every rank of both
 spawns; ``g`` the shard-train phase's train runs, summed over every rank
@@ -280,7 +291,6 @@ from __future__ import annotations
 
 import ast
 import collections
-import contextlib
 import functools
 import json
 import math
@@ -1025,7 +1035,8 @@ def dx_networks():
 def _einsum_call(tn, x, cores):
     """One ``torch.einsum`` over X and the cores (the streamed node first,
     the cores from the last node back), in the plain version's output
-    layout ``(tokens, out_dim)``."""
+    layout ``(tokens, out_dim)``; an ``x (E, tokens, N_in)``: every operand
+    and the output lead with the experts' axis."""
     import torch
 
     from repro_torch.kernels import streaming_tt
@@ -1034,15 +1045,238 @@ def _einsum_call(tn, x, cores):
     for n in tn.nodes:
         for e in n.edges:
             letters.setdefault(e, chr(ord("a") + len(letters)))
+    z = "Z" if x.dim() == 3 else ""
     stream = streaming_tt._stream_node(tn)
     core_nodes = [n for n in tn.nodes if n.kind != "input"]
     out_edges = streaming_tt._stream_layout(tn)[3]
-    eq = (",".join("".join(letters[e] for e in n.edges)
+    eq = (",".join(z + "".join(letters[e] for e in n.edges)
                    for n in [stream] + core_nodes[::-1])
-          + "->" + "".join(letters[e] for e in out_edges))
-    x3 = x.reshape((x.shape[0],) + stream.dims[1:])
+          + "->" + z + "".join(letters[e] for e in out_edges))
+    lead = tuple(x.shape[:-1])
+    x3 = x.reshape(lead + stream.dims[1:])
     ops_ = [x3] + list(cores)[::-1]
-    return lambda: torch.einsum(eq, *ops_).reshape(x.shape[0], -1)
+    return lambda: torch.einsum(eq, *ops_).reshape(lead + (-1,))
+
+
+#: the MoE whose experts run batched (phase 3, and full depth in 4b / 4c)
+MOE_ARCH = "qwen2-moe-a2.7b"
+#: (label, plan, layer, slots an expert) of the experts' batched K1 checks:
+#: a served step's 4 slots (a 32-token prompt's prefill and a 4-lane
+#: decode step both give ``cap`` = 4), and the train step's 4 x 512
+#: tokens: 4 router groups of 512, ``cap = ceil(4 * 512 * 1.25 / 60)`` =
+#: 43 slots each, 172 an expert
+MOE_BATCHED = (("serve", "qwen2-moe-a2.7b.pair.prefill.json", "moe.eu", 4),
+               ("serve", "qwen2-moe-a2.7b.pair.decode.json", "moe.ed", 4),
+               ("train", "qwen2-moe-a2.7b.train.json", "moe.eu", 172),
+               ("train", "qwen2-moe-a2.7b.train.json", "moe.ed", 172))
+
+
+def _batched_timing(label: str, batched, loop, plain, library, nbytes: int,
+                    flops: int) -> dict:
+    """One batched call timed (CUDA events and CUDA-graph replay) beside the
+    loop of E unbatched launches, the plain version, one library call and
+    the bound."""
+    b_ms, b_by = bound(nbytes, flops)
+    ms, host_ms = timed(batched)
+    loop_ms, loop_host_ms = timed(loop, reps=10, warmup=2)
+    return dict(at=label, ms=ms, host_ms=host_ms, graph_ms=graph_ms(batched),
+                loop_ms=loop_ms, loop_host_ms=loop_host_ms,
+                loop_graph_ms=graph_ms(loop, reps=5),
+                plain_ms=timed(plain, reps=3, warmup=1)[0],
+                library_ms=timed(library)[0], library_graph_ms=graph_ms(library),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _log_batched(name: str, t: dict) -> None:
+    log_timing(name, t)
+    log(f"    the {MOE_EXPERTS} unbatched launches: {_fmt(t['loop_ms'])} (host "
+        f"{_fmt(t['loop_host_ms'])}, graph {_fmt(t['loop_graph_ms'])})")
+
+
+#: experts of :data:`MOE_ARCH`
+MOE_EXPERTS = 60
+
+
+def check_batched(device) -> tuple[list[dict], list[str]]:
+    """The experts' batched launches at full-width qwen2-moe-a2.7b's shapes
+    (:data:`MOE_BATCHED`): batched K1 forward (and, under the train plan,
+    along the dx network) and batched K3 (WS) at every weight-gradient
+    GEMM of the train plan's ``moe.eu`` and ``moe.ed``, over 60 experts of
+    random cores.  Each within 1e-4 (K1) / 1e-5 (K3) of the output's scale
+    against its batched plain version, bit for bit the 60 unbatched
+    launches, or the run fails; each timed beside those 60 launches, one
+    batched ``torch.einsum`` along the path (K1) / ``torch.bmm`` (K3) and
+    the bound.  Returns the two kernels-line rows (K1 at the train
+    forward of ``moe.eu``, K3 at its largest GEMM, every case under
+    ``shapes``) and report lines."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backward import backward_networks, grad_input_network
+    from repro_torch.dse_cli import model_dse_layers
+    from repro_torch.kernels import ops, streaming_tt, tt_gemm
+    from repro_torch.plan import load_plan
+    from repro_torch.plan.executor import as_candidate_path
+
+    E = MOE_EXPERTS
+    nets = {n.split("[")[0]: tn for n, tn in
+            model_dse_layers(get_config(MOE_ARCH), tokens=8)}
+    gen = torch.Generator().manual_seed(13)
+    k1, k3, gemms, notes = [], [], set(), []
+    err1 = err3 = 0.0
+    for label, plan_file, name, slots in MOE_BATCHED:
+        lp = next(l for l in load_plan(os.path.join(PLANS, plan_file)).layers
+                  if l.name == name)
+        cases = [("forward", nets[name], lp.path_steps, lp.tiling.block_tokens)]
+        for op in lp.backward:
+            if op.wrt == "dx":
+                cases.append(("dx", grad_input_network(nets[name]), op.path_steps,
+                              op.tiling.block_tokens))
+            else:
+                full = streaming_tt._rebatch(nets[name], slots)
+                net = dict(backward_networks(full))[op.wrt]
+                t = op.tiling
+                gemms |= {(g.M, g.K, g.N, ops.clamp_block(t.block_m, g.M),
+                           ops.clamp_block(t.block_k, g.K),
+                           ops.clamp_block(t.block_n, g.N))
+                          for g in net.gemm_sequence(op.path_steps)}
+        for kind, net, steps, block in cases:
+            bt = ops.clamp_block(block, slots)
+            net_b = streaming_tt._rebatch(net, bt)
+            path = as_candidate_path(net_b, steps)
+            cores = [(torch.randn((E,) + n.dims, generator=gen) * 0.2).to(device)
+                     for n in net.nodes if n.kind != "input"]
+            n_in = math.prod(streaming_tt._stream_node(net).dims[1:])
+            x = torch.randn((E, slots, n_in), generator=gen).to(device)
+
+            def batched():
+                return streaming_tt.streaming_tt_linear_batched(
+                    x, cores, net_b, path)
+
+            def loop():
+                return [streaming_tt.streaming_tt_linear(
+                    x[e], [c[e] for c in cores], net_b, path, block_tokens=bt)
+                    for e in range(E)]
+
+            def plain():
+                return streaming_tt.streaming_tt_linear_batched_plain(
+                    x, cores, net_b, path)
+
+            got, singles, want = batched(), loop(), plain()
+            torch.cuda.synchronize()
+            at = f"{name} {kind} ({label}, {plan_file}), {E} experts x {slots} slots"
+            e1 = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or e1 > 1e-4 * max(
+                    1.0, want.abs().max().item()):
+                raise AssertionError(f"batched K1 {at}: err {e1}")
+            if not all(torch.equal(got[e], singles[e]) for e in range(E)):
+                raise AssertionError(f"batched K1 {at}: not bit for bit the "
+                                     f"{E} unbatched launches")
+            err1 = max(err1, e1)
+            library = _einsum_call(net, x, cores)
+            assert (library() - want).abs().max().item() <= 1e-4 * max(
+                1.0, want.abs().max().item())
+            macs = E * sum(g.macs for g in streaming_tt._rebatch(net, slots)
+                           .gemm_sequence(steps))
+            nbytes = 4 * (x.numel() + sum(c.numel() for c in cores) + got.numel())
+            row = _batched_timing(at, batched, loop, plain, library, nbytes, 2 * macs)
+            _log_batched("streaming_tt_batched", row)
+            k1.append(row)
+            del x, cores, got, singles, want
+    for m, k, n, bm, bk, bn in sorted(gemms):
+        a = torch.randn((E, m, k), generator=gen).to(device)
+        b = torch.randn((E, k, n), generator=gen).to(device)
+        blk = dict(block_m=bm, block_k=bk, block_n=bn)
+
+        def batched():
+            return tt_gemm.tt_gemm_batched(a, b, dataflow="WS", **blk)
+
+        def loop():
+            return [tt_gemm.tt_gemm(a[e], b[e], dataflow="WS", **blk) for e in range(E)]
+
+        def plain():
+            return tt_gemm.tt_gemm_batched_plain(a, b, dataflow="WS", **blk)
+
+        def library():
+            return torch.bmm(a, b)
+
+        got, singles, want = batched(), loop(), plain()
+        torch.cuda.synchronize()
+        at = (f"weight gradient {E} x M,K,N={m},{k},{n} blocks {bm},{bk},{bn} "
+              f"({MOE_BATCHED[2][1]}, moe.eu / moe.ed at 172 slots)")
+        e3 = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or e3 > 1e-5 * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"batched K3 {at}: err {e3}")
+        if not all(torch.equal(got[e], singles[e]) for e in range(E)):
+            raise AssertionError(f"batched K3 {at}: not bit for bit the {E} "
+                                 "unbatched launches")
+        err3 = max(err3, e3)
+        row = _batched_timing(at, batched, loop, plain, library,
+                              4 * E * (m * k + k * n + m * n), 2 * E * m * k * n)
+        _log_batched("tt_gemm_ws_batched", row)
+        k3.append(row)
+        del a, b, got, singles, want
+    torch.cuda.empty_cache()
+    for name, rows, err in (("streaming_tt_batched", k1, err1),
+                            ("tt_gemm_ws_batched", k3, err3)):
+        notes.append(f"{name}: {len(rows)} cases, max abs err {err:.3e}, every "
+                     f"case bit for bit the {E} unbatched launches; graph ms "
+                     f"summed {sum(r['graph_ms'] or 0 for r in rows):.4f}, the "
+                     f"unbatched launches {sum(r['loop_graph_ms'] or 0 for r in rows):.4f}, "
+                     f"library {sum(r['library_graph_ms'] or 0 for r in rows):.4f}, "
+                     f"bound {sum(r['bound_ms'] for r in rows):.4f}")
+    top1 = next(r for r in k1 if r["at"].startswith("moe.eu forward (train"))
+    top3 = max(k3, key=lambda r: r["bound_ms"])
+    return ([dict(name="streaming_tt_batched", max_abs_err=err1, shapes=k1, **top1),
+             dict(name="tt_gemm_ws_batched", max_abs_err=err3, shapes=k3, **top3)],
+            notes)
+
+
+def moe_sync_check(device) -> list[str]:
+    """One full-width qwen2-moe-a2.7b MoE layer (60 experts, bf16, seed-0
+    weights) under its train plan at batch 4 x seq 512: after one warm-up
+    call, ``moe_apply`` forward and backward under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    sync; the experts on the batched kernels."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import blocks
+    from repro_torch.nn import install_plan, moe
+    from repro_torch.plan import load_plan
+    from repro_torch.tree import leaves
+
+    cfg = get_config(MOE_ARCH)
+    spec = blocks.moe_spec(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params = moe.moe_init(spec, torch.Generator().manual_seed(0), dtype, device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    x = torch.randn((4, 512, cfg.d_model), generator=torch.Generator().manual_seed(1)
+                    ).to(device, dtype).requires_grad_(True)
+    install_plan(load_plan(os.path.join(PLANS, f"{MOE_ARCH}.train.json")))
+    try:
+        for debug in (False, True):
+            launches.reset()
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                y, aux = moe.moe_apply(spec, params, x)
+                (y.float().sum() + aux).backward()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    finally:
+        install_plan(None)
+    counts = {k: v for k, v in launches.snapshot().items() if v}
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(x.grad.float()).all()
+            and counts.get("streaming_tt_batched") == 6
+            and counts.get("tt_gemm_ws_batched", 0) > 0):
+        raise AssertionError(f"moe_apply under sync debug: launches {counts}")
+    return [f"{MOE_ARCH} moe_apply (one layer, 60 experts, bf16, 4 x 512, the train "
+            "plan), forward and backward under torch.cuda.set_sync_debug_mode"
+            f"('error'): no host sync; launches {counts}"]
 
 
 def gemm_shapes(layers) -> tuple[dict, dict]:
@@ -3084,8 +3318,8 @@ def family_pair(arch: str) -> tuple[str, str]:
 
 def family_serve(arch: str) -> tuple[dict, list[str]]:
     """``python -m repro_torch.launch.serve --arch ARCH --plan-prefill ..
-    --plan-decode .. --strict-plan`` at full width and depth (qwen2-moe
-    at :data:`FAMILY_DEPTH` layers; seed-0 weights, the config's dtype),
+    --plan-decode .. --strict-plan`` at full width and depth (seed-0
+    weights, the config's dtype),
     continuous then oneshot; per-request
     tokens must agree.  Returns the two runs' launches and report lines."""
     from repro_torch.configs import get_config
@@ -3310,6 +3544,34 @@ def family_kernel_shapes(device) -> tuple[dict, list[str]]:
     return {"streaming_tt": k1, "tt_gemm_ws": k3}, notes
 
 
+def moe_launches(plan, n_layers: int, step: str) -> dict[str, int]:
+    """K1 launches, and the experts' batched K3 launches, of one ``step``
+    (``"prefill"``, ``"decode"`` or ``"train"``: forward, the
+    ``remat="full"`` recompute and the backward) of a full-depth MoE model
+    under ``plan``, counted from the plan: each planned layer runs once a
+    layer (the experts' ``moe.e*`` projections one batched call for all
+    experts); every ``streaming_tt`` entry and dx op is one K1 launch,
+    every step of a WS ``tt_gemm`` backward op one K3 launch.  The plan's
+    ``head`` entry never runs: the LM head is tied to the embedding's cores
+    (``nn/embedding.py::head_apply``)."""
+    out = {"streaming_tt": 0, "streaming_tt_batched": 0, "tt_gemm_ws_batched": 0}
+    for lp in plan.layers:
+        if lp.name == "head":
+            continue
+        experts = lp.name.startswith("moe.e")
+        key = "streaming_tt_batched" if experts else "streaming_tt"
+        if step != "train":
+            out[key] += n_layers * (lp.backend == "streaming_tt")
+            continue
+        dx = sum(op.wrt == "dx" and op.backend == "streaming_tt"
+                 for op in lp.backward)
+        out[key] += n_layers * (2 * (lp.backend == "streaming_tt") + dx)
+        if experts and lp.dataflow == "WS":
+            out["tt_gemm_ws_batched"] += n_layers * sum(
+                len(op.path_steps) for op in lp.backward if op.backend == "tt_gemm")
+    return out
+
+
 def family_engine(arch: str, device) -> list[str]:
     """Per arch: launches of one prefill (32-token prompt) and one decode
     step (4 lanes), the prefill kernels of :data:`FAMILIES` required; a
@@ -3345,6 +3607,16 @@ def family_engine(arch: str, device) -> list[str]:
         raise AssertionError(f"{arch}: a decode step launched no streaming_tt")
     notes = [f"{arch}: launches per prefill {per_prefill}, per decode step "
              f"(4 lanes) {per_decode}"]
+    if cfg.family == "moe":
+        for step, plan, got in (("prefill", pre, per_prefill),
+                                ("decode", dec, per_decode)):
+            want = moe_launches(plan, cfg.n_layers, step)
+            if any(got.get(k, 0) != v for k, v in want.items()):
+                raise AssertionError(f"{arch}: launches a {step} {got}, the "
+                                     f"plan's count {want}")
+            notes.append(f"{arch}: K1 launches a {step} "
+                         f"{want['streaming_tt'] + want['streaming_tt_batched']} = "
+                         f"the count from its plan at {cfg.n_layers} layers {want}")
     notes += profile_decode(engine_step(eng, caches), arch, ("K1 streaming_tt",))
     peak = torch.cuda.max_memory_allocated() / 2**30
     notes.append(f"{arch}: peak device memory {peak:.2f} GiB "
@@ -3352,42 +3624,11 @@ def family_engine(arch: str, device) -> list[str]:
     return notes
 
 
-#: layers the families phases (4b, 4c) run an arch at, at full width,
-#: where not its full depth: qwen2-moe-a2.7b's 24 layers cost ~370 s of
-#: host time over the two phases (one K1 call per active expert, ~168 000
-#: wrapper calls a train step), which put the whole run at 1 182 s of its
-#: 1 200 s limit, so it runs at 6, the depth of its step-0 check
-FAMILY_DEPTH = {"qwen2-moe-a2.7b": 6}
-
-
-@contextlib.contextmanager
-def family_depth(arch: str):
-    """Inside, ``get_config(arch)`` (``launch.serve``'s and ``launch.train``'s
-    too) gives ``arch``'s
-    full-width config at :data:`FAMILY_DEPTH` layers."""
-    import importlib
-
-    from repro_torch import configs
-
-    n = FAMILY_DEPTH.get(arch)
-    if n is None:
-        yield
-        return
-    mod = importlib.import_module(f"repro_torch.configs.{configs._MODULES[arch]}")
-    full = mod.FULL
-    mod.FULL = full.with_(n_layers=n)
-    try:
-        yield
-    finally:
-        mod.FULL = full
-
-
 def families_phase(device) -> tuple[dict, dict, list[str]]:
     """Phase 4b: serve, check, time and profile each arch of
-    :data:`FAMILIES` (at :data:`FAMILY_DEPTH` layers where it names the
-    arch).  Returns the launches of the serve runs (counts zeroed just
-    before them, read just after), the kernel rows at the family shapes and
-    the report lines."""
+    :data:`FAMILIES` at full depth.  Returns the launches of the serve
+    runs (counts zeroed just before them, read just after), the kernel
+    rows at the family shapes and the report lines."""
     import torch
 
     from repro_torch.kernels import launches
@@ -3398,13 +3639,10 @@ def families_phase(device) -> tuple[dict, dict, list[str]]:
     for arch in FAMILIES:
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        with family_depth(arch):
-            c, n = family_serve(arch)
-            counts[arch] = c
-            notes += n + family_logits(arch, device) + family_engine(arch, device)
-        notes.append(f"{arch}: families phase {time.perf_counter() - t0:.1f} s"
-                     + (f" (at {FAMILY_DEPTH[arch]} layers)" if arch in FAMILY_DEPTH
-                        else ""))
+        c, n = family_serve(arch)
+        counts[arch] = c
+        notes += n + family_logits(arch, device) + family_engine(arch, device)
+        notes.append(f"{arch}: families phase {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     total = {k: sum(c[k] for c in counts.values()) for k in launches.snapshot()}
     notes.append(f"families serve-path launches per arch: {counts}")
@@ -3418,14 +3656,11 @@ def families_phase(device) -> tuple[dict, dict, list[str]]:
 
 #: full-width train runs of the families-train phase: (arch, train plan,
 #: extra argv, steps); each runs ``python -m repro_torch.launch.train``'s
-#: code path at full width and depth (qwen2-moe-a2.7b at
-#: :data:`FAMILY_DEPTH` layers), in the config's dtype, remat and
+#: code path at full width and depth, in the config's dtype, remat and
 #: loss_chunk, batch 4 x seq 512 (the plans' 2048 tokens; two interleaved
-#: loss chunks of 256).  qwen2-moe-a2.7b takes 2 steps, not 3: at full
-#: depth a step made ~168 000 wrapper calls (28-56 s on an H100,
-#: host-bound)
+#: loss chunks of 256)
 FAMILY_TRAIN_RUNS = (
-    ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b.train.json", [], 2),
+    ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b.train.json", [], 3),
     ("zamba2-1.2b", "zamba2-1.2b.train.json", [], 3),
     ("zamba2-1.2b", "zamba2-1.2b.train.tt_gemm.json", [], 3),
     ("rwkv6-7b", "rwkv6-7b.train.json", [], 3),
@@ -3433,11 +3668,11 @@ FAMILY_TRAIN_RUNS = (
 )
 FAMILY_TRAIN = ["--batch", "4", "--seq", "512", "--log-every", "1"]
 FAMILY_TRAIN_TOKENS = 4 * 512
-#: execution-log ring for the phase: a qwen2-moe step writes ~45 000
-#: records (one per planned call, forward, recompute and backward), more
-#: than the default 4096, and K1's forward and dx launches are told apart
-#: by their records
-FAMILY_TRAIN_LOG = 400_000
+#: execution-log ring for the phase: a run's records (one per planned
+#: call, forward, recompute and backward; a qwen2-moe step writes ~2 200,
+#: its experts one record a projection) must all stay, since K1's forward
+#: and dx launches are told apart by them; a run that drops one fails
+FAMILY_TRAIN_LOG = 50_000
 
 
 def _family_train_run(arch, plan_file, extra, steps, ckpt) -> tuple[object, list[str]]:
@@ -3446,7 +3681,7 @@ def _family_train_run(arch, plan_file, extra, steps, ckpt) -> tuple[object, list
     the kernels its plan names: K1 forward and dx and K3 under an auto
     plan, K3 and K5 under the tt_gemm plan."""
     from repro_torch.launch.train import run
-    from repro_torch.plan import execution_log
+    from repro_torch.plan import execution_log, execution_log_dropped
 
     log(f"--- families train: {arch}, {plan_file} {' '.join(extra)}")
     out = run(["--arch", arch, "--plan", os.path.join(PLANS, plan_file), "--steps",
@@ -3468,6 +3703,19 @@ def _family_train_run(arch, plan_file, extra, steps, ckpt) -> tuple[object, list
                 raise AssertionError(f"train {label}: step {i} launched no {k}")
     if "tt_gemm" not in plan_file and (k1_fwd <= 0 or k1_dx <= 0):
         raise AssertionError(f"train {label}: K1 forward {k1_fwd}, dx {k1_dx} calls")
+    if execution_log_dropped():
+        raise AssertionError(f"train {label}: the execution log dropped "
+                             f"{execution_log_dropped()} records")
+    if arch == MOE_ARCH:
+        from repro_torch.configs import get_config
+        from repro_torch.plan import load_plan
+
+        want = moe_launches(load_plan(os.path.join(PLANS, plan_file)),
+                            get_config(arch).n_layers, "train")
+        for i, per in enumerate(out.launches):
+            if any(per[k] != v for k, v in want.items()):
+                raise AssertionError(f"train {label}: step {i} launches {per}, "
+                                     f"the plan's count {want}")
     steady = out.step_s[1:]
     ms = 1e3 * sum(steady) / len(steady)
     per_step = {k: v for k, v in out.launches[-1].items() if v}
@@ -3542,18 +3790,12 @@ def _leaf_gaps(got: dict, want: dict) -> dict:
 #: depths at which rwkv6-7b's step 0 is reported (its gate is at
 #: :data:`FAMILY_CHECK_LAYERS`)
 FAMILY_DEPTHS = (4, 8, 16, 32)
-#: qwen2-moe-a2.7b's step-0 check runs 6 of its 24 layers: its three
-#: host-bound step-0 passes took 100 s of the run at full depth, the time
-#: the shard-train phase needs (its train runs too:
-#: :data:`FAMILY_DEPTH`)
-FAMILY_TRAIN_CHECK_LAYERS = {"qwen2-moe-a2.7b": 6}
 
 
 def family_train_check(arch, plan_file, device) -> list[str]:
     """Step 0 through the kernels in fp32 against the plain executor along
     the same paths (``--plan-backend jnp``) on the card, at the depth of
-    :data:`FAMILY_CHECK_LAYERS` or :data:`FAMILY_TRAIN_CHECK_LAYERS` (full
-    depth for the others): the loss and
+    :data:`FAMILY_CHECK_LAYERS` (full depth for the others): the loss and
     the global gradient norm within rel 1e-4, and every gradient leaf
     within ``||g_kernels - g_plain|| / ||g_plain|| <= max(1e-4, 10 r)``,
     where ``r`` is the same gap between the plain executor in fp32 and in
@@ -3573,8 +3815,7 @@ def family_train_check(arch, plan_file, device) -> list[str]:
     plan = load_plan(os.path.join(PLANS, plan_file))
     full = get_config(arch).with_(dtype="float32")
     batch = train_batch(full, 512, 4, 0, device)
-    depth = FAMILY_CHECK_LAYERS.get(
-        arch, FAMILY_TRAIN_CHECK_LAYERS.get(arch, full.n_layers))
+    depth = FAMILY_CHECK_LAYERS.get(arch, full.n_layers)
     depths = FAMILY_DEPTHS if arch in FAMILY_CHECK_LAYERS else (depth,)
     notes = []
     try:
@@ -3620,11 +3861,10 @@ def family_train_check(arch, plan_file, device) -> list[str]:
 
 def families_train_phase(device, ckpt_root: str) -> tuple[dict, list[str]]:
     """Phase 4c: AdamW steps (:data:`FAMILY_TRAIN_RUNS`) of full-width
-    qwen2-moe-a2.7b (at :data:`FAMILY_DEPTH` layers), and full-width,
-    full-depth zamba2-1.2b (also under its tt_gemm train plan, and two steps with
-    ``--grad-compress``, whose checkpoint must restore) and rwkv6-7b; the
-    step-0 check against the plain executor; a profiled step and the peak
-    device memory per arch.  Returns the launches of the train runs
+    qwen2-moe-a2.7b, zamba2-1.2b (also under its tt_gemm train plan, and
+    two steps with ``--grad-compress``, whose checkpoint must restore) and
+    rwkv6-7b; the step-0 check against the plain executor; a profiled step
+    and the peak device memory per arch.  Returns the launches of the train runs
     (counts zeroed just before them, read just after) and report lines."""
     import torch
 
@@ -3645,8 +3885,7 @@ def families_train_phase(device, ckpt_root: str) -> tuple[dict, list[str]]:
             t0 = time.perf_counter()
             ckpt = os.path.join(ckpt_root, f"family-{i}")
             launches.reset()
-            with family_depth(arch):
-                out, more = _family_train_run(arch, plan_file, extra, steps, ckpt)
+            out, more = _family_train_run(arch, plan_file, extra, steps, ckpt)
             for k, v in launches.snapshot().items():
                 counts[k] += v
             notes += more
@@ -3675,11 +3914,10 @@ def families_train_phase(device, ckpt_root: str) -> tuple[dict, list[str]]:
         if extra:
             continue
         t0 = time.perf_counter()
-        with family_depth(arch):
-            notes += family_train_check(arch, plan_file, device)
-            if plan_file == f"{arch}.train.json":
-                notes += train_profile(arch, plan_file, 512, 4,
-                                       ("K1 streaming_tt", "K3 tt_gemm_ws"), device)
+        notes += family_train_check(arch, plan_file, device)
+        if plan_file == f"{arch}.train.json":
+            notes += train_profile(arch, plan_file, 512, 4,
+                                   ("K1 streaming_tt", "K3 tt_gemm_ws"), device)
         notes.append(f"{arch} {plan_file}: check and profile "
                      f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -5330,6 +5568,14 @@ def main() -> int:
         bf16_errs, notes = check_bf16(device, layers)
         for n in notes:
             log(f"  {n}")
+        log("--- the experts' batched launches (60 experts of "
+            f"{MOE_ARCH}) against their plain versions and the unbatched launches")
+        t0 = time.perf_counter()
+        rows, notes = check_batched(device)
+        kernels += rows
+        for n in notes + moe_sync_check(device):
+            log(f"  {n}")
+        log(f"batched: {time.perf_counter() - t0:.1f} s")
         log("--- kernels over the rank space (every candidate's plan)")
         rank_rows, refusals, notes = check_rank_space(device, searches[RANK_PLAN])
         for n in notes:
@@ -5477,7 +5723,13 @@ def main() -> int:
                "tt_gemm_is": ("src/repro_torch/csrc/tt_gemm.cu",
                               "src/repro/kernels/tt_gemm.py:178"),
                "fused_path": ("src/repro_torch/csrc/fused_path.cu",
-                              "src/repro/kernels/fused_path.py:286")}
+                              "src/repro/kernels/fused_path.py:286"),
+               # the reference's jax.vmap of these calls over the experts
+               # (src/repro/nn/moe.py:148)
+               "streaming_tt_batched": ("src/repro_torch/csrc/streaming_tt.cu",
+                                        "src/repro/kernels/streaming_tt.py:149"),
+               "tt_gemm_ws_batched": ("src/repro_torch/csrc/tt_gemm.cu",
+                                      "src/repro/kernels/tt_gemm.py:178")}
     report = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": sources[k["name"]][0],
          "replaces": sources[k["name"]][1],
@@ -5496,7 +5748,7 @@ def main() -> int:
                       "sp_sharded": sp_counts[k["name"]],
                       "examples": example_counts[k["name"]]},
          "max_abs_err": k["max_abs_err"],
-         "bf16_max_abs_err": bf16_errs[k["name"]],
+         "bf16_max_abs_err": bf16_errs.get(k["name"]),
          "ms": k["ms"], "graph_ms": k["graph_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -5510,6 +5762,12 @@ def main() -> int:
                                       "bound_ms", "bound_by")}
              for r in family_rows[k["name"]]["rows"]]}}
             if k["name"] in family_rows else {}),
+         **({"experts": {"shapes": [
+             {key: r[key] for key in ("at", "ms", "host_ms", "graph_ms", "loop_ms",
+                                      "loop_host_ms", "loop_graph_ms", "plain_ms",
+                                      "library_ms", "library_graph_ms",
+                                      "bound_ms", "bound_by")}
+             for r in k["shapes"]]}} if "shapes" in k else {}),
          **({"encdec": {"max_abs_err": encdec_rows[k["name"]]["err"], "shapes": [
              {key: r[key] for key in ("at", "ms", "host_ms", "graph_ms", "plain_ms",
                                       "library_ms", "library_graph_ms",

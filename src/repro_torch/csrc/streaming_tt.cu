@@ -42,6 +42,16 @@
 //      launched with programmatic dependent launch, so its X staging
 //      overlaps the free phase.
 //
+// Experts.  One launch sequence also runs E experts of one geometry, as
+// the reference's jax.vmap of the projection over the stacked expert axis
+// runs (src/repro/nn/moe.py:148, one pallas_call whose grid gains a
+// leading expert axis): the free phase's grid gains a y axis and the
+// stream kernel's a z axis, one index per expert, and each expert reads
+// its own cores, X rows, workspace region and Y rows through per-expert
+// strides.  Every expert keeps the program and the tile and slice layout
+// an unbatched launch at the same token count takes, so its rows are bit
+// for bit the unbatched launch's.
+//
 // Bits.  Every output is one ascending fp32 FMA chain per k-group and an
 // ascending fold of the groups; the groups are fixed by the step's shape,
 // never by the token count, the tile, the slices or the grid, and a row
@@ -81,9 +91,13 @@ struct FreeOp {
 
 // ops [0, n_inter) are intermediates, computed whole by every block; ops
 // [n_inter, n_ops) feed the token steps and are split over the blocks
+// An expert (blockIdx.y) reads core i at cores[i] + e * core_stride[i] and
+// its workspace region at ws + e * ws_stride.
 struct FreeParams {
   const float* cores[kMaxCores];
   float* ws;
+  long long ws_stride;
+  long long core_stride[kMaxCores];
   int n_ops, n_inter, n_stage, smem_floats, blocks, pad;
   int stage_core[kMaxCores], stage_off[kMaxCores], stage_len[kMaxCores];
   FreeOp ops[kMaxFreeOps];
@@ -103,10 +117,13 @@ struct TokOp {
   int pad;
 };
 
+// An expert (blockIdx.z) reads its X rows at x + e * x_stride, its
+// workspace region at ws + e * ws_stride and writes Y at y + e * y_stride.
 struct StreamParams {
   const float* x;
   float* y;
   const float* ws;
+  long long x_stride, y_stride, ws_stride;
   AxisMap xrow, xk;  // relayout of X into a dense (P, K) buffer
   int tokens, n_in, out_dim;
   int tile, n_tiles, slices;
@@ -150,9 +167,18 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// this block's expert's workspace region (the free phase's grid y)
+__device__ __forceinline__ float* expert_ws(const FreeParams& p) {
+  return p.ws + blockIdx.y * p.ws_stride;
+}
+
+__device__ __forceinline__ const float* expert_core(const FreeParams& p, int core) {
+  return p.cores[core] + blockIdx.y * p.core_stride[core];
+}
+
 __device__ __forceinline__ const float* global_operand(const FreeParams& p, int core,
                                                       int off) {
-  return core >= 0 ? p.cores[core] : p.ws + off;
+  return core >= 0 ? expert_core(p, core) : expert_ws(p) + off;
 }
 
 // one token-free op over items t = tid, tid + nth, ...: row m and the four
@@ -203,7 +229,7 @@ __device__ void run_free_op(const FreeParams& p, float* fsm, const FreeOp op,
       if (op.out_sh >= 0)
         fsm[op.out_sh + o] = v[j];
       else
-        p.ws[op.out_off + o] = v[j];
+        expert_ws(p)[op.out_off + o] = v[j];
     }
   }
 }
@@ -213,7 +239,7 @@ __device__ void run_free_op(const FreeParams& p, float* fsm, const FreeOp op,
 // float4 store, coalesced whatever the layout permutes
 __device__ void run_copy(const FreeParams& p, const FreeOp op, int tid, int nth) {
   const float* a = global_operand(p, op.a_core, op.a_off);
-  float4* out = reinterpret_cast<float4*>(p.ws + op.out_off);
+  float4* out = reinterpret_cast<float4*>(expert_ws(p) + op.out_off);
 #pragma unroll 1
   for (int q = tid; q < op.dst_len >> 2; q += nth) {
     float v[4];
@@ -255,7 +281,7 @@ tt_free_kernel(const __grid_constant__ FreeParams p) {
   extern __shared__ __align__(16) float fsm[];
   // the cores the ops read, all copies in flight at once
   for (int i = 0; i < p.n_stage; ++i) {
-    const float* src = p.cores[p.stage_core[i]];
+    const float* src = expert_core(p, p.stage_core[i]);
     float* dst = fsm + p.stage_off[i];
     for (int j = threadIdx.x; j < p.stage_len[i]; j += blockDim.x)
       cp_async4(dst + j, src + j, true);
@@ -268,10 +294,18 @@ tt_free_kernel(const __grid_constant__ FreeParams p) {
     run_free_ops<false>(p, fsm);
 }
 
+// the operands of one expert (the stream kernel's grid z)
+struct Expert {
+  const float* x;
+  float* y;
+  const float* ws;
+};
+
 // one output vector (token t, row p, columns 4 * q4 .. + 3) of a step
-__device__ __forceinline__ void store_out(const StreamParams& p, const TokOp& st,
-                                          float* smem, int t, int pp, int q4,
-                                          float4 v, int t0, int valid) {
+__device__ __forceinline__ void store_out(const StreamParams& p, const Expert& ex,
+                                          const TokOp& st, float* smem, int t,
+                                          int pp, int q4, float4 v, int t0,
+                                          int valid) {
   const int q = 4 * q4;
   const float vals[4] = {v.x, v.y, v.z, v.w};
   if (st.dst >= 0) {
@@ -282,7 +316,7 @@ __device__ __forceinline__ void store_out(const StreamParams& p, const TokOp& st
     return;
   }
   if (t >= valid) return;
-  float* d = p.y + (long long)(t0 + t) * p.out_dim + at(st.orow, pp);
+  float* d = ex.y + (long long)(t0 + t) * p.out_dim + at(st.orow, pp);
   if (st.vec_store) {
     *reinterpret_cast<float4*>(d + q) = v;
     return;
@@ -300,16 +334,16 @@ __device__ __forceinline__ void store_out(const StreamParams& p, const TokOp& st
 // kWShared: W is staged in shared memory.  Each combination compiles to
 // its own loop, so shared-memory operands are read with LDS.
 template <bool kXGlobal, bool kWShared>
-__device__ void run_step(const StreamParams& p, int s, float* smem, int t0,
-                         int valid, int qv_lo, int qv_hi) {
+__device__ void run_step(const StreamParams& p, const Expert& ex, int s, float* smem,
+                         int t0, int valid, int qv_lo, int qv_hi) {
   const TokOp st = p.steps[s];
   const bool last = s == p.n_steps - 1;
   const int lo = last ? qv_lo : 0;
   const int nqv = last ? qv_hi - qv_lo : st.Qp >> 2;
   const float* W = kWShared ? smem + (last ? p.w_last_off : st.w_smem)
-                            : p.ws + st.w_off;
+                            : ex.ws + st.w_off;
   const int wstride = last ? 4 * nqv : st.Qp;
-  const float* T = kXGlobal ? p.x + (long long)t0 * p.n_in : smem + p.buf_off[st.src];
+  const float* T = kXGlobal ? ex.x + (long long)t0 * p.n_in : smem + p.buf_off[st.src];
   const int rmax = kXGlobal ? valid - 1 : p.tile - 1;
   float4* part = reinterpret_cast<float4*>(smem + p.part_off);
   const int nq4 = p.tile >> 2;
@@ -350,7 +384,7 @@ __device__ void run_step(const StreamParams& p, int s, float* smem, int t0,
     for (int i = 0; i < 4; ++i) {
       const float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       if (G == 1)
-        store_out(p, st, smem, 4 * tq + i, pp, lo + qv, v, t0, valid);
+        store_out(p, ex, st, smem, 4 * tq + i, pp, lo + qv, v, t0, valid);
       else
         part[((g * p.tile + 4 * tq + i) * P + pp) * nqv + qv] = v;
     }
@@ -371,7 +405,7 @@ __device__ void run_step(const StreamParams& p, int s, float* smem, int t0,
         v.z = __fadd_rn(v.z, u.z);
         v.w = __fadd_rn(v.w, u.w);
       }
-      store_out(p, st, smem, t, pp, lo + qv, v, t0, valid);
+      store_out(p, ex, st, smem, t, pp, lo + qv, v, t0, valid);
     }
   }
   __syncthreads();
@@ -384,21 +418,23 @@ tt_stream_kernel(const __grid_constant__ StreamParams p) {
   const int qv_all = p.steps[p.n_steps - 1].Qp >> 2;
   const int qv_lo = (int)((long long)blockIdx.y * qv_all / p.slices);
   const int qv_hi = (int)((long long)(blockIdx.y + 1) * qv_all / p.slices);
-  const bool x_vec = (p.n_in & 3) == 0 && ((uintptr_t)p.x & 15) == 0;
+  const Expert ex{p.x + blockIdx.z * p.x_stride, p.y + blockIdx.z * p.y_stride,
+                  p.ws + blockIdx.z * p.ws_stride};
+  const bool x_vec = (p.n_in & 3) == 0 && ((uintptr_t)ex.x & 15) == 0;
   bool staged = false;
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const int t0 = tile * p.tile;
     const int valid = min(p.tile, p.tokens - t0);
     // this tile's X rows; rows past the last token are zero
     float* xs = smem + p.buf_off[p.relayout ? 1 : 0];
-    const float* xg = p.x + (long long)t0 * p.n_in;
+    const float* xg = ex.x + (long long)t0 * p.n_in;
     const int n = p.x_global ? 0 : p.tile * p.n_in, lim = valid * p.n_in;
     if (x_vec) {
       for (int i = 4 * tid; i < n; i += 4 * kThreads)
-        cp_async16(xs + i, i < lim ? xg + i : p.x, i < lim);
+        cp_async16(xs + i, i < lim ? xg + i : ex.x, i < lim);
     } else {
       for (int i = tid; i < n; i += kThreads)
-        cp_async4(xs + i, i < lim ? xg + i : p.x, i < lim);
+        cp_async4(xs + i, i < lim ? xg + i : ex.x, i < lim);
     }
     // two copy groups on the first tile: X and the operands of the steps
     // before the last, then the last step's slice, which lands while the
@@ -411,7 +447,7 @@ tt_stream_kernel(const __grid_constant__ StreamParams p) {
         const TokOp& st = p.steps[s];
         if (st.w_smem >= 0)
           for (int i = tid; i < (st.K * st.Qp) >> 2; i += kThreads)
-            cp_async16(smem + st.w_smem + 4 * i, p.ws + st.w_off + 4 * i, true);
+            cp_async16(smem + st.w_smem + 4 * i, ex.ws + st.w_off + 4 * i, true);
       }
       cp_async_commit();
       const TokOp& st = p.steps[p.n_steps - 1];
@@ -419,7 +455,7 @@ tt_stream_kernel(const __grid_constant__ StreamParams p) {
       for (int i = tid; i < st.K * w; i += kThreads) {
         const int k = i / w, v = i - k * w;
         cp_async16(smem + p.w_last_off + 4 * i,
-                   p.ws + st.w_off + k * st.Qp + 4 * (qv_lo + v), true);
+                   ex.ws + st.w_off + k * st.Qp + 4 * (qv_lo + v), true);
       }
       cp_async_commit();
       cp_async_wait_one();
@@ -449,11 +485,11 @@ tt_stream_kernel(const __grid_constant__ StreamParams p) {
       const bool xg = s == 0 && p.x_global;
       const bool wsh = s == p.n_steps - 1 || p.steps[s].w_smem >= 0;
       if (xg)
-        wsh ? run_step<true, true>(p, s, smem, t0, valid, qv_lo, qv_hi)
-            : run_step<true, false>(p, s, smem, t0, valid, qv_lo, qv_hi);
+        wsh ? run_step<true, true>(p, ex, s, smem, t0, valid, qv_lo, qv_hi)
+            : run_step<true, false>(p, ex, s, smem, t0, valid, qv_lo, qv_hi);
       else
-        wsh ? run_step<false, true>(p, s, smem, t0, valid, qv_lo, qv_hi)
-            : run_step<false, false>(p, s, smem, t0, valid, qv_lo, qv_hi);
+        wsh ? run_step<false, true>(p, ex, s, smem, t0, valid, qv_lo, qv_hi)
+            : run_step<false, false>(p, ex, s, smem, t0, valid, qv_lo, qv_hi);
     }
   }
 }
@@ -464,24 +500,37 @@ int g_free_smem_set[64];
 }  // namespace
 
 // Runs the free phase (when the program has token-free ops), then the
-// token stream, on `stream`.  `geo`: tile, n_tiles, slices, buf0, buf1,
-// part, w_last (shared-memory offsets in floats), blocks, smem bytes,
-// x_global.
+// token stream, on `stream`, for `experts` experts of one program: expert
+// e reads core i at cores[i] + e * core_strides[i], X at x + e * tokens *
+// n_in, its workspace at ws + e * ws_stride, and writes Y at y + e *
+// tokens * out_dim (one expert: the strides are not read).  `geo`: tile,
+// n_tiles, slices, buf0, buf1, part, w_last (shared-memory offsets in
+// floats), blocks, smem bytes, x_global.
 // Returns the first non-zero cudaError_t, else 0.
 extern "C" int streaming_tt_launch(FreeParams* fp, StreamParams* sp,
-                                   const void* const* cores, int n_cores,
-                                   const float* x, float* y, float* ws,
-                                   int tokens, const int* geo, void* stream) {
+                                   const void* const* cores,
+                                   const long long* core_strides, int n_cores,
+                                   int experts, const float* x, float* y, float* ws,
+                                   long long ws_stride, int tokens, const int* geo,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (sp->n_steps < 1 || sp->n_steps > kMaxTokSteps || fp->n_ops > kMaxFreeOps ||
       fp->n_stage > kMaxCores || n_cores > kMaxCores || geo[8] > kSmemLimit ||
-      geo[0] % 4 != 0 || (fp->n_ops > 0 && fp->blocks < 1))
+      geo[0] % 4 != 0 || (fp->n_ops > 0 && fp->blocks < 1) || experts < 1 ||
+      experts > 65535 || geo[2] > 65535 || ws_stride % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_cores; ++i) fp->cores[i] = (const float*)cores[i];
+  for (int i = 0; i < n_cores; ++i) {
+    fp->cores[i] = (const float*)cores[i];
+    fp->core_stride[i] = experts > 1 ? core_strides[i] : 0;
+  }
   fp->ws = ws;
+  fp->ws_stride = ws_stride;
   sp->x = x;
   sp->y = y;
   sp->ws = ws;
+  sp->x_stride = (long long)tokens * sp->n_in;
+  sp->y_stride = (long long)tokens * sp->out_dim;
+  sp->ws_stride = ws_stride;
   sp->tokens = tokens;
   sp->tile = geo[0];
   sp->n_tiles = geo[1];
@@ -505,7 +554,7 @@ extern "C" int streaming_tt_launch(FreeParams* fp, StreamParams* sp,
       if (err != cudaSuccess) return (int)err;
       g_free_smem_set[dev] = kSmemLimit;
     }
-    tt_free_kernel<<<fp->blocks, kFreeThreads, bytes, s>>>(*fp);
+    tt_free_kernel<<<dim3(fp->blocks, experts), kFreeThreads, bytes, s>>>(*fp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -520,7 +569,7 @@ extern "C" int streaming_tt_launch(FreeParams* fp, StreamParams* sp,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)geo[7], (unsigned)geo[2], 1);
+  cfg.gridDim = dim3((unsigned)geo[7], (unsigned)geo[2], (unsigned)experts);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)geo[8];
   cfg.stream = s;

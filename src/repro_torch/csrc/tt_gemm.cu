@@ -387,12 +387,25 @@ __global__ void __launch_bounds__(kThreads) is_kernel(const BandArgs p) {
 //     fold kernel below sums them into C in ascending kb order);
 //   * else to a register fold when the range is one m-tile;
 //   * else to C, read-add-written once per k-fold (the reference's WS).
+//
+// Batched (the experts' weight gradients): blockIdx.y is the batch index,
+// and each batch item reads and writes its own A, B, C and W at the
+// strides of one (M, K, N) problem, over the grid an unbatched launch
+// takes, so its outputs are that launch's bits.
 template <int TR>
 __global__ void __launch_bounds__(kThreads)
 ws_kernel(const float* __restrict__ A, const float* __restrict__ B,
           float* __restrict__ C, float* __restrict__ W, int M, int K, int N,
           int bk, int bn, int ty_n, int mt_per_range, int kg, int vec) {
   extern __shared__ __align__(16) float ws_smem[];
+  {
+    const long long e = blockIdx.y;
+    const int n_kb_all = (K + bk - 1) / bk;
+    A += e * M * K;
+    B += e * K * N;
+    C += e * M * N;
+    if (W != nullptr) W += e * n_kb_all * M * N;
+  }
   const int n_tx = (bn + 3) / 4;
   const int ldb = 4 * n_tx;
   const int bkp = kpad(bk);
@@ -482,6 +495,9 @@ ws_kernel(const float* __restrict__ A, const float* __restrict__ B,
 __global__ void __launch_bounds__(kThreads)
 ws_fold_kernel(const float* __restrict__ W, float* __restrict__ C,
                long long mn, int n_kb) {
+  // batch item blockIdx.y: its own workspace and C
+  W += (long long)blockIdx.y * n_kb * mn;
+  C += (long long)blockIdx.y * mn;
   const long long i0 =
       4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (i0 >= mn) return;
@@ -570,16 +586,18 @@ extern "C" int tt_gemm_launch(int dataflow, const float* A, const float* B,
 // WS over the grid kernels/tt_gemm.py::ws_grid chose: `tr` rows a thread,
 // `ty_n` row groups (m-tile tr * ty_n rows), `mt_per_range` m-tiles per
 // m-range, `kg` k-blocks per k-group.  With more than one k-group, W
-// (n_kb * M * N floats, allocated by the caller) takes the partials and
-// a second launch folds them into C.  Returns the first failing launch's
-// cudaError_t, or 0.
+// (n_kb * M * N floats a batch item, allocated by the caller) takes the
+// partials and a second launch folds them into C.  `batch` problems of
+// one shape, each stored whole after the previous one (A: M * K floats
+// each, B: K * N, C: M * N), run as one launch (the grid's y axis).
+// Returns the first failing launch's cudaError_t, or 0.
 extern "C" int tt_gemm_ws_launch(const float* A, const float* B, float* C,
                                  float* W, int M, int K, int N, int bk,
                                  int bn, int tr, int ty_n, int mt_per_range,
-                                 int kg, void* stream) {
+                                 int kg, int batch, void* stream) {
   const int n_tx = (bn + 3) / 4;
   if (tr < 1 || tr > kTileRows || ty_n < 1 || n_tx * ty_n > kThreads ||
-      mt_per_range < 1 || kg < 1 || bk < 1)
+      mt_per_range < 1 || kg < 1 || bk < 1 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const int n_kb = (K + bk - 1) / bk;
   const long long n_mt = (M + (long long)tr * ty_n - 1) / (tr * ty_n);
@@ -601,13 +619,13 @@ extern "C" int tt_gemm_ws_launch(const float* A, const float* B, float* C,
   Kernel* kernel = kernels[tr - 1];
   cudaError_t err = caps[tr - 1].allow(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3((unsigned)blocks, batch), kThreads, smem, (cudaStream_t)stream>>>(
       A, B, C, W, M, K, N, bk, bn, ty_n, mt_per_range, kg, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return (int)err;
   const long long mn = (long long)M * N;
   const long long fold_blocks = ((mn + 3) / 4 + kThreads - 1) / kThreads;
-  ws_fold_kernel<<<(unsigned)fold_blocks, kThreads, 0,
+  ws_fold_kernel<<<dim3((unsigned)fold_blocks, batch), kThreads, 0,
                    (cudaStream_t)stream>>>(W, C, mn, n_kb);
   return (int)cudaGetLastError();
 }

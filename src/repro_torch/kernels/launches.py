@@ -14,6 +14,9 @@ COUNTS: dict[str, int] = {
     "tt_gemm_ws": 0,
     "tt_gemm_is": 0,
     "fused_path": 0,
+    # the experts' batched launches: one for every expert of a projection
+    "streaming_tt_batched": 0,
+    "tt_gemm_ws_batched": 0,
 }
 
 

@@ -8,14 +8,13 @@ Nothing falls back silently.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.backward import (GRAD_NODE, backward_networks,
                                        grad_input_network)
-from repro_torch.core.contraction import execute_path
+from repro_torch.core.contraction import as_matrices, execute_path
 from repro_torch.core.paths import CandidatePath, find_topk_paths
 from repro_torch.core.tensor_network import TensorNetwork
 
@@ -125,24 +124,22 @@ def gemm_contract(
     order (A's free axes then B's).  Blocks are clamped to the runtime
     dims.  Each step's result takes its operand's dtype, as the
     reference's ``gemm_contract`` does (so a bf16 path rounds per step).
+    Operands behind a leading batch axis (``lead=1``, the experts' axis:
+    the reference's ``jax.vmap``) run as one :func:`tt_gemm.tt_gemm_batched`
+    call over ``(E, M, K) @ (E, K, N)``, each item the unbatched step's
+    bits.
     """
 
-    def contract(ta: torch.Tensor, tb: torch.Tensor, axes) -> torch.Tensor:
-        ax_a, ax_b = axes
-        a_free = [i for i in range(ta.dim()) if i not in ax_a]
-        b_free = [i for i in range(tb.dim()) if i not in ax_b]
-        a_dims = [ta.shape[i] for i in a_free]
-        b_dims = [tb.shape[i] for i in b_free]
-        m = math.prod(a_dims)
-        n = math.prod(b_dims)
-        k = math.prod(ta.shape[i] for i in ax_a)
-        a2 = ta.permute(a_free + list(ax_a)).reshape(m, k).contiguous()
-        b2 = tb.permute(list(ax_b) + b_free).reshape(k, n).contiguous()
-        c2 = gemm(a2, b2, dataflow=dataflow,
-                  block_m=clamp_block(block_m, m),
-                  block_k=clamp_block(block_k, k),
-                  block_n=clamp_block(block_n, n))
-        return c2.reshape(tuple(a_dims) + tuple(b_dims))
+    def contract(ta: torch.Tensor, tb: torch.Tensor, axes,
+                 lead: int = 0) -> torch.Tensor:
+        a2, b2, shape = as_matrices(ta, tb, axes, lead)
+        (m, k), n = a2.shape[-2:], b2.shape[-1]
+        blocks = dict(dataflow=dataflow, block_m=clamp_block(block_m, m),
+                      block_k=clamp_block(block_k, k),
+                      block_n=clamp_block(block_n, n))
+        c2 = (_tt_gemm.tt_gemm_batched(a2, b2, **blocks) if lead
+              else gemm(a2, b2, **blocks))
+        return c2.reshape(shape)
 
     return contract
 
@@ -180,8 +177,14 @@ def tt_linear_backward(
     K1 over the grad-input network; every other gradient runs
     ``execute_path`` over the whole batch with the route's ``contract_fn``.
     Returns ``(dx, dcores)``.
+
+    An ``x (E, tokens, d_in)`` with ``dy (E, tokens, d_out)`` and every
+    core stacked ``(E,) + dims`` carries the experts' leading axis: each
+    gradient network runs once for all of them (batched K1 for dx, one
+    batched product a step for the rest), and the gradients carry it too.
     """
-    tokens = x.shape[0]
+    lead = tuple(x.shape[:-2])
+    tokens = x.shape[-2]
     tn = _streaming._rebatch(tn, tokens)
     x_node = _streaming._stream_node(tn)
     core_names = [n.name for n in tn.nodes if n.kind != "input"]
@@ -197,16 +200,18 @@ def tt_linear_backward(
             net_block = grad_input_network(
                 _streaming._rebatch(tn, route.block_tokens))
             path = _streaming._path_for(net_block, route.steps)
-            dx = _streaming.streaming_tt_linear(
-                dy, list(cores), net_block, path,
-                block_tokens=route.block_tokens)
+            dx = (_streaming.streaming_tt_linear_batched(
+                      dy, list(cores), net_block, path) if lead
+                  else _streaming.streaming_tt_linear(
+                      dy, list(cores), net_block, path,
+                      block_tokens=route.block_tokens))
             continue
         tensors = {n.name: named[n.name] for n in net.nodes
                    if n.name in named}
         if wrt != "dx":
-            tensors[x_node.name] = x.reshape(x_node.dims)
+            tensors[x_node.name] = x.reshape(lead + x_node.dims)
         grad_node = next(n for n in net.nodes if n.name == GRAD_NODE)
-        tensors[GRAD_NODE] = dy.reshape(grad_node.dims)
+        tensors[GRAD_NODE] = dy.reshape(lead + grad_node.dims)
         steps = (route.steps if route.steps is not None
                  else find_topk_paths(net, k=1)[0].steps)
         out_edges = node_edges[x_node.name if wrt == "dx" else wrt]
@@ -214,7 +219,7 @@ def tt_linear_backward(
                          preferred_dtype=torch.float32,
                          contract_fn=route.contract_fn)
         if wrt == "dx":
-            dx = g.reshape(tokens, -1)
+            dx = g.reshape(lead + (tokens, -1))
         else:
             dcores[wrt] = g.to(named[wrt].dtype)
     if dx is None:

@@ -34,19 +34,21 @@ def tt_linear_ref(
     path: CandidatePath,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """TT-linear forward along ``path`` on the whole batch at once."""
+    """TT-linear forward along ``path`` on the whole batch at once.  An
+    ``x (E, tokens, d_in)`` with every core stacked ``(E,) + dims`` runs
+    E projections, each step one batched product (the experts')."""
     out_dtype = out_dtype or x.dtype
     in_modes = tuple(
         d for n in tn.nodes if n.name == "X"
         for e, d in zip(n.edges, n.dims) if e != "b"
     )
-    tokens = x.shape[0]
+    lead, tokens = tuple(x.shape[:-2]), x.shape[-2]
     tn = _with_batch(tn, tokens)
-    tensors = {"X": x.reshape((tokens,) + in_modes)}
+    tensors = {"X": x.reshape(lead + (tokens,) + in_modes)}
     names = [n.name for n in tn.nodes if n.name != "X"]
     tensors.update(zip(names, cores))
     n_out_edges = len(tn.free_edges) - 1
     out_edges = ("b",) + tuple(f"i{t + 1}" for t in range(n_out_edges))
     y = execute_path(tn, path, tensors, out_edges=out_edges,
                      preferred_dtype=torch.float32)
-    return y.reshape(tokens, -1).to(out_dtype)
+    return y.reshape(lead + (tokens, -1)).to(out_dtype)

@@ -724,6 +724,8 @@ class _FreeOp(ctypes.Structure):
 
 class _FreeParams(ctypes.Structure):
     _fields_ = [("cores", ctypes.c_void_p * _MAX_CORES), ("ws", ctypes.c_void_p),
+                ("ws_stride", ctypes.c_longlong),
+                ("core_stride", ctypes.c_longlong * _MAX_CORES),
                 ("n_ops", ctypes.c_int), ("n_inter", ctypes.c_int),
                 ("n_stage", ctypes.c_int), ("smem_floats", ctypes.c_int),
                 ("blocks", ctypes.c_int), ("pad", ctypes.c_int),
@@ -746,7 +748,8 @@ class _TokOp(ctypes.Structure):
 
 class _StreamParams(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
-                ("ws", ctypes.c_void_p),
+                ("ws", ctypes.c_void_p), ("x_stride", ctypes.c_longlong),
+                ("y_stride", ctypes.c_longlong), ("ws_stride", ctypes.c_longlong),
                 ("xrow", _Map), ("xk", _Map),
                 ("tokens", ctypes.c_int), ("n_in", ctypes.c_int),
                 ("out_dim", ctypes.c_int), ("tile", ctypes.c_int),
@@ -850,6 +853,69 @@ def program_for(tn: TensorNetwork, path: CandidatePath) -> Program:
     return prog
 
 
+def _check_operands(x: torch.Tensor, cores: Sequence[torch.Tensor]) -> None:
+    dev = x.device
+    for t in (x, *cores):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("streaming_tt: x and every core must sit on one "
+                             "CUDA device (or all on the CPU)")
+        if not t.is_contiguous():
+            raise ValueError("streaming_tt: x and the cores must be contiguous")
+
+
+def _run(prog: Program, x: torch.Tensor, cores: Sequence[torch.Tensor],
+         grid: Optional[Grid], counter: str) -> torch.Tensor:
+    """One launch sequence on checked fp32 CUDA operands: ``x (tokens,
+    N_in)`` and the cores, or E experts: ``x (E, tokens, N_in)``, core
+    ``i`` of shape ``(E,) + core_dims[i]``; returns the fp32 ``(tokens,
+    out_dim)`` / ``(E, tokens, out_dim)``.  Each expert runs the grid an
+    unbatched call at ``tokens`` takes (or ``grid``), so its rows are that
+    call's bits."""
+    dev = x.device
+    lead = tuple(x.shape[:-2])
+    experts, tokens = math.prod(lead), x.shape[-2]
+    if len(cores) != len(prog.core_dims) or any(
+            tuple(c.shape) != lead + d for c, d in zip(cores, prog.core_dims)):
+        raise ValueError("streaming_tt: core shapes do not match the network")
+    if x.shape[-1] != prog.n_in:
+        raise ValueError("x inner dim does not match network input modes")
+    y = torch.empty(lead + (tokens, prog.out_dim), dtype=torch.float32, device=dev)
+    if tokens == 0 or experts == 0:
+        return y
+    ws_stride = _round4(max(prog.ws_elems, 1))
+    if max(experts * tokens * prog.n_in, experts * tokens * prog.out_dim,
+           experts * ws_stride) >= 2**31:
+        raise ValueError("streaming_tt: activation too large for 32-bit offsets")
+    if experts > 65535:
+        raise ValueError(f"streaming_tt: {experts} experts, over the grid's "
+                         "65535")
+    st = _device_state(prog, dev)
+    if grid is None:
+        geo = st.grids.get(tokens)
+        if geo is None:
+            if len(st.grids) >= 1024:
+                st.grids.clear()
+            geo = st.grids[tokens] = _geometry(launch_grid(prog, tokens, st.n_sm))
+    else:
+        geo = _geometry(grid)
+    ws = torch.empty(experts * ws_stride, dtype=torch.float32, device=dev)
+    lib = _lib()
+    n = len(cores)
+    rc = lib.streaming_tt_launch(
+        ctypes.addressof(st.free), ctypes.addressof(st.stream),
+        (ctypes.c_void_p * n)(*[c.data_ptr() for c in cores]),
+        (ctypes.c_longlong * n)(*[math.prod(d) for d in prog.core_dims]),
+        n, experts, x.data_ptr(), y.data_ptr(), ws.data_ptr(), ws_stride, tokens,
+        geo, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(
+            f"streaming_tt launch failed: "
+            f"{lib.streaming_tt_error_string(rc).decode()} (experts {experts}, "
+            f"tokens {tokens}, grid {list(geo)})")
+    launches.COUNTS[counter] += 1
+    return y
+
+
 def streaming_tt_linear(
     x: torch.Tensor,
     cores: Sequence[torch.Tensor],
@@ -871,62 +937,64 @@ def streaming_tt_linear(
     :func:`streaming_tt_linear_plain`; CUDA tensors launch the kernel (at
     most two launches, one count) or raise.
     """
-    dev = x.device
-    if dev.type == "cpu" and all(c.device.type == "cpu" for c in cores):
+    if x.device.type == "cpu" and all(c.device.type == "cpu" for c in cores):
         return streaming_tt_linear_plain(x, cores, tn, path,
                                          out_dtype=out_dtype)
-    for t in (x, *cores):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError("streaming_tt: x and every core must sit on one "
-                             "CUDA device (or all on the CPU)")
-        if not t.is_contiguous():
-            raise ValueError("streaming_tt: x and the cores must be contiguous")
+    _check_operands(x, cores)
     out_dtype = out_dtype or x.dtype
     x, *cores = widen("streaming_tt", x, *cores)
     if x.dim() != 2:
         raise ValueError("streaming_tt: x must be a (tokens, N_in) tensor")
-    prog = program_for(tn, path)
-    if len(cores) != len(prog.core_dims) or any(
-            c.shape != d for c, d in zip(cores, prog.core_dims)):
-        raise ValueError("streaming_tt: core shapes do not match the network")
-    tokens = x.shape[0]
-    if x.shape[1] != prog.n_in:
-        raise ValueError("x inner dim does not match network input modes")
-    y = torch.empty((tokens, prog.out_dim), dtype=torch.float32, device=dev)
-    if tokens == 0:
-        return y.to(out_dtype)
-    if max(tokens * prog.n_in, tokens * prog.out_dim) >= 2**31:
-        raise ValueError("streaming_tt: activation too large for 32-bit offsets")
-    st = _device_state(prog, dev)
-    if grid is None:
-        geo = st.grids.get(tokens)
-        if geo is None:
-            if len(st.grids) >= 1024:
-                st.grids.clear()
-            geo = st.grids[tokens] = _geometry(launch_grid(prog, tokens, st.n_sm))
-    else:
-        geo = _geometry(grid)
-    ws = torch.empty(max(prog.ws_elems, 1), dtype=torch.float32, device=dev)
-    lib = _lib()
-    rc = lib.streaming_tt_launch(
-        ctypes.addressof(st.free), ctypes.addressof(st.stream),
-        (ctypes.c_void_p * len(cores))(*[c.data_ptr() for c in cores]),
-        len(cores), x.data_ptr(), y.data_ptr(), ws.data_ptr(), tokens, geo,
-        torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(
-            f"streaming_tt launch failed: "
-            f"{lib.streaming_tt_error_string(rc).decode()} (tokens {tokens}, "
-            f"grid {list(geo)})")
-    launches.COUNTS["streaming_tt"] += 1
-    return y.to(out_dtype)
+    return _run(program_for(tn, path), x, cores, grid, "streaming_tt").to(out_dtype)
+
+
+def streaming_tt_linear_batched_plain(
+    x: torch.Tensor,
+    cores: Sequence[torch.Tensor],
+    tn: TensorNetwork,
+    path: CandidatePath,
+) -> torch.Tensor:
+    """Plain version of :func:`streaming_tt_linear_batched`: the plain K1
+    of each expert, stacked."""
+    return torch.stack([
+        streaming_tt_linear_plain(x[e], [c[e] for c in cores], tn, path)
+        for e in range(x.shape[0])])
+
+
+def streaming_tt_linear_batched(
+    x: torch.Tensor,
+    cores: Sequence[torch.Tensor],
+    tn: TensorNetwork,
+    path: CandidatePath,
+) -> torch.Tensor:
+    """:func:`streaming_tt_linear` of E experts in one launch sequence (the
+    reference's ``jax.vmap`` of K1 over the stacked expert axis): ``x (E,
+    tokens, N_in)``, each core stacked ``(E,) + core dims``; returns ``(E,
+    tokens, out_dim)``.  Every expert runs the program and grid an
+    unbatched call at ``tokens`` runs, so expert ``e``'s rows equal
+    ``streaming_tt_linear(x[e], [c[e] for c in cores], ...)`` bit for bit.
+    bf16 operands are widened once for all experts, and the fp32 result
+    is cast once to x's dtype.  CPU tensors take
+    :func:`streaming_tt_linear_batched_plain`; CUDA tensors launch the
+    kernel (one count) or raise."""
+    if x.device.type == "cpu" and all(c.device.type == "cpu" for c in cores):
+        return streaming_tt_linear_batched_plain(x, cores, tn, path)
+    _check_operands(x, cores)
+    if x.dim() != 3:
+        raise ValueError("streaming_tt: x must be an (experts, tokens, N_in) "
+                         "tensor")
+    dtype = x.dtype
+    x, *cores = widen("streaming_tt", x, *cores)
+    return _run(program_for(tn, path), x, cores, None,
+                "streaming_tt_batched").to(dtype)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("streaming_tt")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.streaming_tt_launch.argtypes = [p, p, p, i, p, p, p, i, p, p]
+        lib.streaming_tt_launch.argtypes = [p, p, p, p, i, i, p, p, p,
+                                            ctypes.c_longlong, i, p, p]
         lib.streaming_tt_launch.restype = i
         lib.streaming_tt_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.streaming_tt_limits.restype = None

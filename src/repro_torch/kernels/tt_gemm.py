@@ -620,23 +620,29 @@ def _band_gemm(a: torch.Tensor, b: torch.Tensor, grid: BandGrid) -> torch.Tensor
 def _ws_gemm(a: torch.Tensor, b: torch.Tensor, grid: WSGrid) -> torch.Tensor:
     """One WS call on checked CUDA operands over ``grid``: the kernel and,
     when K is split, the fold (two CUDA launches, one count).  Tests pass
-    their own grid here to show the result does not depend on it."""
-    m, k = a.shape
-    n = b.shape[1]
+    their own grid here to show the result does not depend on it.
+    ``a (E, M, K)`` and ``b (E, K, N)`` run E problems in one launch
+    sequence, each over ``grid`` (the batched count)."""
+    batched = a.dim() == 3
+    e = a.shape[0] if batched else 1
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     if (grid.m, grid.k, grid.n) != (m, k, n):
         raise ValueError(f"tt_gemm WS: grid for {(grid.m, grid.k, grid.n)}, "
                          f"operands {(m, k, n)}")
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
+    c = torch.empty(a.shape[:-1] + (n,), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0 or e == 0:
         return c
     if k == 0:
         return c.zero_()
-    if max(m * k, k * n, grid.n_kblocks * m * n) >= 2**31:
+    if max(e * m * k, e * k * n, e * grid.n_kblocks * m * n) >= 2**31:
         raise ValueError("tt_gemm: operand too large for 32-bit dims")
+    if e > 65535:
+        raise ValueError(f"tt_gemm WS: a batch of {e}, over the grid's 65535")
     if grid.smem_bytes > SMEM_LIMIT_BYTES:
         raise ValueError(f"tt_gemm WS: grid needs {grid.smem_bytes} B of "
                          "shared memory")
-    work = (torch.empty(grid.workspace_elems, dtype=torch.float32,
+    work = (torch.empty(e * grid.workspace_elems, dtype=torch.float32,
                         device=a.device) if grid.split else None)
     lib = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -644,13 +650,73 @@ def _ws_gemm(a: torch.Tensor, b: torch.Tensor, grid: WSGrid) -> torch.Tensor:
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if work is None else work.data_ptr(), m, k, n, grid.block_k,
         grid.block_n, grid.rows_per_thread, grid.row_groups,
-        grid.mtiles_per_range, grid.kblocks_per_group, stream)
+        grid.mtiles_per_range, grid.kblocks_per_group, e, stream)
     if rc != 0:
         raise RuntimeError(
             f"tt_gemm WS launch failed: {lib.tt_gemm_error_string(rc).decode()}"
-            f" (M={m} K={k} N={n}, {grid})")
-    launches.COUNTS[_COUNTER["WS"]] += 1
+            f" (batch {e}, M={m} K={k} N={n}, {grid})")
+    launches.COUNTS["tt_gemm_ws_batched" if batched else _COUNTER["WS"]] += 1
     return c
+
+
+def tt_gemm_batched_plain(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    dataflow: DataflowName = "WS",
+    block_m: int = 128,
+    block_k: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Plain version of :func:`tt_gemm_batched`: :func:`tt_gemm_plain` of
+    each batch item, stacked."""
+    return torch.stack([
+        tt_gemm_plain(a[e], b[e], dataflow=dataflow, block_m=block_m,
+                      block_k=block_k, block_n=block_n)
+        for e in range(a.shape[0])])
+
+
+def tt_gemm_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    dataflow: DataflowName = "WS",
+    block_m: int = 128,
+    block_k: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """``a[e] @ b[e]`` for every ``e`` of ``a (E, M, K)`` and ``b (E, K,
+    N)`` (the reference's ``jax.vmap`` of ``tt_gemm`` over the stacked
+    expert axis).  Each item is :func:`tt_gemm`'s result bit for bit: the
+    same blocks, the same k-fold.  WS runs every item in one launch
+    sequence (one count, ``tt_gemm_ws_batched``); OS and IS launch their
+    unbatched kernel once per item.  bf16 operands are widened once for
+    the batch, and the result takes a's dtype.  CPU tensors take
+    :func:`tt_gemm_batched_plain`; CUDA tensors launch or raise."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return tt_gemm_batched_plain(a, b, dataflow=dataflow, block_m=block_m,
+                                     block_k=block_k, block_n=block_n)
+    _check_blocks(dataflow, block_m, block_k, block_n)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(
+            f"tt_gemm: operands on {a.device} and {b.device}; need both on "
+            "one CUDA device (or both on the CPU)")
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[1]):
+        raise ValueError(f"tt_gemm: bad batched shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if dataflow != "WS":
+        return torch.stack([
+            tt_gemm(a[e], b[e], dataflow=dataflow, block_m=block_m,
+                    block_k=block_k, block_n=block_n)
+            for e in range(a.shape[0])])
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("tt_gemm: operands must be contiguous")
+    a32, b32 = widen("tt_gemm", a, b)
+    _, m, k = a.shape
+    grid = ws_grid(m, k, b.shape[2], block_m=block_m, block_k=block_k,
+                   block_n=block_n, n_sm=_n_sm(a.device))
+    return _ws_gemm(a32, b32, grid).to(a.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -659,7 +725,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tt_gemm_launch.argtypes = [i, p, p, p] + [i] * 10 + [p]
         lib.tt_gemm_launch.restype = i
-        lib.tt_gemm_ws_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.tt_gemm_ws_launch.argtypes = [p, p, p, p] + [i] * 10 + [p]
         lib.tt_gemm_ws_launch.restype = i
         lib.tt_gemm_error_string.argtypes = [i]
         lib.tt_gemm_error_string.restype = ctypes.c_char_p

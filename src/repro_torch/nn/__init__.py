@@ -16,7 +16,7 @@ from .linear import (
     planned_layer,
     planned_path_index,
 )
-from .norms import rmsnorm, rmsnorm_init
+from .norms import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 from .rope import apply_rope, rope_for
 from .embedding import EmbeddingSpec, embedding_apply, embedding_init, head_apply
 from .mlp import MLPSpec, mlp_apply, mlp_init
@@ -43,7 +43,8 @@ __all__ = [
     "installed_factorizations", "kept_plan",
     "linear_apply", "linear_flops", "linear_init", "plan_context",
     "planned_layer", "planned_path_index",
-    "rmsnorm", "rmsnorm_init", "apply_rope", "rope_for",
+    "layernorm", "layernorm_init", "rmsnorm", "rmsnorm_init",
+    "apply_rope", "rope_for",
     "EmbeddingSpec", "embedding_apply", "embedding_init", "head_apply",
     "MLPSpec", "mlp_apply", "mlp_init",
     "AttentionSpec", "KVCache", "attention_apply", "attention_init",

@@ -479,6 +479,46 @@ def linear_apply(
     return y
 
 
+def linear_apply_batched(spec: LinearSpec, params: dict,
+                         x: torch.Tensor) -> torch.Tensor:
+    """One kernel-planned TT projection of E stacked weights (the MoE's
+    experts): ``x (E, T, d_in) -> (E, T, d_out)``, each leaf of ``params``
+    stacked on a leading expert axis.
+
+    The port of the reference's ``jax.vmap`` of :func:`linear_apply` over
+    the expert axis: one
+    :func:`~repro_torch.plan.executor.planned_tt_linear_batched` call for
+    every expert, on the route each expert's call would take (locally, or
+    :func:`~repro_torch.plan.sharded.sharded_tt_linear` at ``T`` rows,
+    whose splits and collectives the experts then share).  Expert ``e``'s
+    output is ``linear_apply(spec, params[e], x[e])``'s.  No activation
+    RMS is captured, as the reference's capture skips traced inputs.
+    """
+    lp = planned_layer(spec.name)
+    if not (spec.tensorized and runs_on_kernels(lp)):
+        raise ValueError(f"{spec.name}: the batched route needs a tensorized "
+                         "projection planned on a kernel")
+    tokens = x.shape[1]
+    cores = [params[f"core{k}"]
+             for k in range(len(spec.out_modes) + len(spec.in_modes))]
+    sharded = sharded_route(spec, lp, tokens)
+    if sharded is None:
+        from repro_torch.plan.executor import planned_tt_linear_batched
+
+        y = planned_tt_linear_batched(lp, x, cores, spec.in_modes,
+                                      spec.out_modes, spec.tt_ranks)
+    else:
+        from repro_torch.plan.sharded import sharded_tt_linear
+
+        rules, decision = sharded
+        y = sharded_tt_linear(lp, x, cores, spec.in_modes, spec.out_modes,
+                              spec.tt_ranks, rules=rules, decision=decision)
+    y = y.to(x.dtype)
+    if spec.bias:
+        y = y + params["b"][:, None, :].to(y.dtype)
+    return y
+
+
 def linear_flops(spec: LinearSpec, tokens: int, path_index: int = 0) -> int:
     """Forward FLOPs for ``tokens`` rows (dense vs TT path)."""
     if not spec.tensorized:

@@ -7,16 +7,21 @@ claim capacity slots in (token, choice) order, ``cap = max(4, min(ceil(k
 g cf / E), g))`` slots per expert and group; a pair past the capacity is
 dropped.  The dispatch writes each kept token into its slot (the
 reference's one-hot einsum, whose sums hold one nonzero term, as an
-index copy); the combine gathers each token's k slot outputs and sums
-them over its choices in fp32.
+index copy; a dropped pair writes to a spare slot past the capacity,
+which is cut away); the combine gathers each token's k slot outputs and
+sums them over its choices in fp32.  Neither reads the routing back to
+the host: every shape is fixed by the config and the input's shape, so
+the same code runs on ``meta`` (the dry run) and on a card without a
+host sync.
 
 Expert weights are stacked on a leading expert axis.  The reference runs
 the experts' projections under ``jax.vmap``; here a projection planned for
-a kernel backend runs one planned call per expert at ``(G * cap, d)``
-tokens, skipping the experts no kept pair reached (their inputs are zero,
-so their outputs are exactly zero), and a projection on the plain executor
-runs every expert in one ``torch.func.vmap`` call.  Shared experts
-(Qwen2-MoE style) are merged into one wide always-on FFN.
+a kernel backend runs every expert in one batched planned call at ``(E,
+G * cap, d)`` (``nn.linear.linear_apply_batched``: one launch of each
+kernel for all experts, forward and backward, the experts no kept pair
+reached at zero input, as the reference's), and a projection on the plain
+executor runs every expert in one ``torch.func.vmap`` call.  Shared
+experts (Qwen2-MoE style) are merged into one wide always-on FFN.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .linear import (
     LinearSpec,
     TTConfig,
     linear_apply,
+    linear_apply_batched,
     linear_init,
     planned_layer,
     runs_on_kernels,
@@ -97,32 +103,25 @@ def moe_init(spec: MoESpec, generator: torch.Generator,
     return params
 
 
-def _runs_a_kernel(spec: LinearSpec) -> bool:
-    return runs_on_kernels(planned_layer(spec.name))
-
-
-def _experts_linear(spec: LinearSpec, stacked: dict, x: torch.Tensor,
-                    active: list[int]) -> torch.Tensor:
-    """One projection of every expert: ``x (E, T, d_in) -> (E, T, d_out)``."""
-    if _runs_a_kernel(spec):
-        out = x.new_zeros(x.shape[:2] + (spec.d_out,))
-        for e in active:
-            out[e] = linear_apply(spec, {k: v[e] for k, v in stacked.items()}, x[e])
-        return out
+def _experts_linear(spec: LinearSpec, stacked: dict,
+                    x: torch.Tensor) -> torch.Tensor:
+    """One projection of every expert: ``x (E, T, d_in) -> (E, T, d_out)``,
+    one batched planned call on a kernel plan, else ``torch.func.vmap``."""
+    if spec.tensorized and runs_on_kernels(planned_layer(spec.name)):
+        return linear_apply_batched(spec, stacked, x)
     return torch.func.vmap(lambda p, xe: linear_apply(spec, p, xe))(stacked, x)
 
 
-def _experts_ffn(spec: MoESpec, params: dict, x: torch.Tensor,
-                 active: list[int]) -> torch.Tensor:
+def _experts_ffn(spec: MoESpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Every expert's FFN on its ``(T, d_model)`` slots (the reference's
     ``_expert_ffn`` under ``jax.vmap``)."""
-    up = _experts_linear(spec.expert_up, params["eu"], x, active)
+    up = _experts_linear(spec.expert_up, params["eu"], x)
     if spec.kind == "swiglu":
-        gate = _experts_linear(spec.expert_gate, params["eg"], x, active)
+        gate = _experts_linear(spec.expert_gate, params["eg"], x)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return _experts_linear(spec.expert_down, params["ed"], h, active)
+    return _experts_linear(spec.expert_down, params["ed"], h)
 
 
 def route(spec: MoESpec, params: dict, xg: torch.Tensor):
@@ -220,36 +219,29 @@ def _routed(spec: MoESpec, params: dict, x: torch.Tensor, g: int,
     cap = int(math.ceil(K * g * spec.capacity_factor / E))
     cap = max(4, min(cap, g))
 
-    expert_oh = F.one_hot(idx, E).to(torch.float32)         # (G, g, K, E)
+    # one-hot by comparison (no class-range check that reads data back)
+    expert_oh = (idx[..., None] == torch.arange(E, device=x.device)
+                 ).to(torch.float32)                        # (G, g, K, E)
     # capacity slot: pairs claim slots in (token, choice) priority order
     flat = expert_oh.reshape(-1, g * K, E)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(-1, g, K, E)
     slot = torch.sum(pos * expert_oh, dim=-1).to(torch.long)  # (G, g, K)
     keep = slot < cap
 
-    # dispatch: kept pair (gi, t, k) -> expert_in[gi, idx, slot] = x[gi, t]
-    if x.device.type == "meta":
-        # shapes only (the dry run): which pairs are kept is data, so every
-        # pair is dispatched and every expert runs at full capacity, the
-        # work the reference's one-hot einsum does
-        gi, ti, ki = (t.reshape(-1) for t in torch.meshgrid(
-            *(torch.arange(n, device=x.device) for n in (n_groups, g, K)),
-            indexing="ij"))
-        active = list(range(E))
-    else:
-        gi, ti, ki = torch.nonzero(keep, as_tuple=True)
-        active = torch.unique(idx[gi, ti, ki]).tolist()
-    expert_in = xg.new_zeros((n_groups, E, cap, d))
-    expert_in[gi, idx[gi, ti, ki], slot[gi, ti, ki]] = xg[gi, ti]
+    # dispatch: pair (gi, t, k) -> expert_in[gi, idx, slot] = x[gi, t]; a
+    # dropped pair lands in the spare slot ``cap``, which is cut away
+    gsel = torch.arange(n_groups, device=x.device)[:, None, None]
+    expert_in = xg.new_zeros((n_groups, E, cap + 1, d))
+    expert_in[gsel, idx, slot.clamp(max=cap)] = \
+        xg[:, :, None, :].expand(-1, -1, K, -1)
 
-    ein = expert_in.transpose(0, 1).reshape(E, -1, d)       # (E, G*C, D)
-    eout = _experts_ffn(spec, params, ein, active)
+    ein = expert_in[:, :, :cap].transpose(0, 1).reshape(E, -1, d)  # (E, G*C, D)
+    eout = _experts_ffn(spec, params, ein)
     expert_out = eout.reshape(E, n_groups, cap, d).transpose(0, 1)  # (G,E,C,D)
 
     # combine: each token's kept choices, weighted by their renormalised
     # gates, summed over the choices in fp32
     w = gate_vals * keep.to(torch.float32)                  # (G, g, K)
-    gsel = torch.arange(n_groups, device=x.device)[:, None, None]
     picked = expert_out[gsel, idx, slot.clamp(max=cap - 1)].to(torch.float32)
     yg = torch.sum(w[..., None] * picked, dim=2)            # (G, g, D)
     y = yg.reshape(-1, d)[:total].reshape(b, s, d).to(x.dtype)

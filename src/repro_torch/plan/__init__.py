@@ -28,6 +28,7 @@ from .executor import (
     execution_log_dropped,
     execution_stream,
     planned_tt_linear,
+    planned_tt_linear_batched,
     record_execution,
     reset_execution_log,
     shard_execution,
@@ -53,7 +54,8 @@ __all__ = [
     "compile_plan", "streaming_fits", "validate_plan",
     "as_candidate_path", "execution_log", "execution_log_dropped",
     "execution_stream",
-    "planned_tt_linear", "record_execution", "reset_execution_log",
+    "planned_tt_linear", "planned_tt_linear_batched", "record_execution",
+    "reset_execution_log",
     "shard_execution",
     "ShardDecision", "shard_decision", "sharded_tt_linear",
 ]

@@ -3,7 +3,9 @@
 Port of ``src/repro/plan/executor.py``.  Entry point is
 :func:`planned_tt_linear`, called by ``repro_torch.nn.linear`` when a plan
 entry with a kernel backend (forward or backward) is installed for the
-projection.  Backends (the plan's wire names):
+projection; :func:`planned_tt_linear_batched` runs one projection of every
+expert of an MoE layer at once (the reference's ``jax.vmap`` of it).
+Backends (the plan's wire names):
 
 - ``jnp``          the plain PyTorch executor (``kernels/ref.py``) along the
                    plan's path steps: the numerical ground truth;
@@ -44,7 +46,7 @@ from repro_torch.core.backward import backward_networks
 from repro_torch.core.contraction import core_tensors, execute_path
 from repro_torch.core.paths import CandidatePath, find_topk_paths
 from repro_torch.core.tensor_network import TensorNetwork, tt_linear_network
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, streaming_tt
 
 from .schema import BackwardOp, LayerPlan
 
@@ -267,6 +269,7 @@ def _execute_segmented(
     tensors: dict,
     out_edges: tuple[str, ...],
     tokens: int,
+    record: bool = True,
 ) -> torch.Tensor:
     """Walk the plan's fusion segments over the live work list.
 
@@ -274,14 +277,16 @@ def _execute_segmented(
     with on-chip fp32 intermediates; singleton segments keep the per-step
     ``tt_gemm`` route, so the result is bit-identical to the unsegmented
     execution.  Each segment appends its own record (``segment=(s, e)``)
-    beside the layer-level record :func:`planned_tt_linear` wrote.
+    beside the layer-level record :func:`planned_tt_linear` wrote (with
+    ``record``; the experts' per-expert walks record the first expert's).
     """
     steps = tuple(tuple(s) for s in lp.path_steps)
     contract = _gemm_contract(lp, lp.tiling)
     work: list = [(n.edges, tensors[n.name]) for n in tn.nodes]
     bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
     for (s, e) in lp.segments:
-        record_execution(lp, tokens, path_steps=steps[s:e], segment=(s, e))
+        if record:
+            record_execution(lp, tokens, path_steps=steps[s:e], segment=(s, e))
         if e - s >= 2:
             ec, val = ops.fused_segment(
                 work, steps[s:e], block_tokens=bt,
@@ -322,26 +327,43 @@ def _forward_planned(
     out_modes: tuple[int, ...],
     ranks: tuple[int, ...],
 ) -> torch.Tensor:
-    """The plan's forward contraction: ``(tokens, d_in) -> (tokens, d_out)``."""
-    tokens = x2d.shape[0]
+    """The plan's forward contraction: ``(tokens, d_in) -> (tokens, d_out)``.
+
+    An ``x2d (E, tokens, d_in)`` with every core stacked ``(E,) + dims``
+    carries the experts' leading axis.  K1, the unfused ``tt_gemm`` path
+    and the plain executor run each step once for all experts; fused
+    segments (K5) run expert by expert, every expert, one record set."""
+    lead = tuple(x2d.shape[:-2])
+    tokens = x2d.shape[-2]
     if lp.backend == "streaming_tt":
         bt = ops.clamp_block(lp.tiling.block_tokens, tokens)
         tn_block, path = _network_and_path(bt, in_modes, out_modes, ranks,
                                            lp.path_steps)
+        if lead:
+            return streaming_tt.streaming_tt_linear_batched(
+                x2d, list(cores), tn_block, path)
         return ops.tt_linear(x2d, list(cores), tn_block, path, block_tokens=bt)
 
     tn, path = _network_and_path(tokens, in_modes, out_modes, ranks,
                                  lp.path_steps)
     if lp.backend == "tt_gemm":
-        tensors = {"X": x2d.reshape((tokens,) + tuple(in_modes))}
-        tensors.update(core_tensors(tn, list(cores)))
         out_edges = ("b",) + tuple(f"i{t + 1}" for t in range(len(out_modes)))
         if fusion.has_fused(lp.segments):
-            y = _execute_segmented(lp, tn, tensors, out_edges, tokens)
-        else:
-            y = execute_path(tn, path, tensors, out_edges=out_edges,
-                             contract_fn=_gemm_contract(lp, lp.tiling))
-        return y.reshape(tokens, -1)
+            def segmented(x, cs, record):
+                tensors = {"X": x.reshape((tokens,) + tuple(in_modes))}
+                tensors.update(core_tensors(tn, list(cs)))
+                return _execute_segmented(lp, tn, tensors, out_edges, tokens,
+                                          record).reshape(tokens, -1)
+
+            if not lead:
+                return segmented(x2d, cores, True)
+            return torch.stack([segmented(x2d[e], [c[e] for c in cores], e == 0)
+                                for e in range(lead[0])])
+        tensors = {"X": x2d.reshape(lead + (tokens,) + tuple(in_modes))}
+        tensors.update(core_tensors(tn, list(cores)))
+        y = execute_path(tn, path, tensors, out_edges=out_edges,
+                         contract_fn=_gemm_contract(lp, lp.tiling))
+        return y.reshape(lead + (tokens, -1))
 
     # "jnp": the plain executor along the planned steps
     return ref.tt_linear_ref(x2d, list(cores), tn, path)
@@ -358,8 +380,10 @@ def _backward_planned(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """Contract the layer's gradient networks along the planned backward
     paths, each on its planned backend (:func:`ops.tt_linear_backward`).
-    Returns ``(dx2d, dcores)``."""
-    tokens = x2d.shape[0]
+    Returns ``(dx2d, dcores)``.  Operands behind the experts' leading axis
+    run each gradient network once for all experts, one record each (the
+    reference's trace under ``jax.vmap``)."""
+    tokens = x2d.shape[-2]
     routes = {}
     for op in _resolve_backward_ops(lp, tokens, in_modes, out_modes, ranks):
         record_execution(lp, tokens, phase="bwd", backend=op.backend,
@@ -375,7 +399,9 @@ def _backward_planned(
 
 class _PlannedTTLinear(torch.autograd.Function):
     """A kernel-backed planned projection under autograd: the forward runs
-    the plan's forward route, the backward :func:`_backward_planned`."""
+    the plan's forward route, the backward :func:`_backward_planned`
+    (over the experts' leading axis where ``x2d`` has one, every gradient
+    landing in its stacked leaf)."""
 
     @staticmethod
     def forward(ctx, x2d, lp, geometry, *cores):
@@ -425,3 +451,34 @@ def planned_tt_linear(
     if lp.backend == "jnp" and not has_kernel_backward(lp):
         return _forward_planned(lp, x2d, cores, *geometry)
     return _PlannedTTLinear.apply(x2d, lp, geometry, *cores)
+
+
+def planned_tt_linear_batched(
+    lp: LayerPlan,
+    x: torch.Tensor,
+    cores: Sequence[torch.Tensor],
+    in_modes: tuple[int, ...],
+    out_modes: tuple[int, ...],
+    ranks: tuple[int, ...],
+) -> torch.Tensor:
+    """One planned TT projection of every expert at once: ``x (E, tokens,
+    d_in) -> (E, tokens, d_out)``, each core stacked ``(E,) + dims`` (the
+    leaves as the MoE holds them).
+
+    The port of the reference's ``jax.vmap`` of :func:`planned_tt_linear`
+    over the stacked expert axis (``src/repro/nn/moe.py:148``): K1 and
+    the WS ``tt_gemm`` steps launch once for all experts, forward and
+    backward, and each gradient lands in its stacked leaf.  One record per
+    call at ``tokens`` and one per backward op, as the reference's trace
+    under ``vmap`` writes; expert ``e``'s values are
+    ``planned_tt_linear(lp, x[e], [c[e] for c in cores], ...)``'s.
+    """
+    if x.dim() != 3:
+        raise ValueError(f"{lp.name}: x must be (experts, tokens, d_in), got "
+                         f"{tuple(x.shape)}")
+    geometry = (tuple(in_modes), tuple(out_modes), tuple(ranks))
+    record_execution(lp, x.shape[1])
+    x = x.contiguous()
+    if lp.backend == "jnp" and not has_kernel_backward(lp):
+        return _forward_planned(lp, x, cores, *geometry)
+    return _PlannedTTLinear.apply(x, lp, geometry, *cores)

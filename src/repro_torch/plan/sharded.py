@@ -97,7 +97,7 @@ import torch.distributed as dist
 
 from repro_torch.sharding import ShapeGroup
 
-from .executor import planned_tt_linear, shard_execution
+from .executor import planned_tt_linear, planned_tt_linear_batched, shard_execution
 from .schema import LayerPlan
 
 #: collectives sent since the last :func:`reset_collectives`, forward
@@ -297,18 +297,26 @@ def sharded_tt_linear(
     model axis, ``(tokens, d_in / tp)``, the leading input mode's slice
     (``decision.model_reduce`` must hold): it is taken as it is, and its
     gradient is this block's alone (nothing gathered over the model axis).
+
+    An ``x2d`` of ``(E, tokens, d_in)`` with every core stacked ``(E,) +
+    dims`` is one projection of E experts
+    (:func:`~repro_torch.plan.executor.planned_tt_linear_batched`): each
+    expert's tokens split as one expert's would, and the experts share
+    every split and collective.
     """
     if x_block and not decision.model_reduce:
         raise ValueError("a column block of x needs the model reduction")
     in_modes, out_modes, ranks = tuple(in_modes), tuple(out_modes), tuple(ranks)
     mesh = rules.mesh
-    tokens = int(x2d.shape[0])
+    batched = x2d.dim() == 3
+    rows, cols = x2d.dim() - 2, x2d.dim() - 1   # the token and d_in dims
+    tokens = int(x2d.shape[rows])
     shard_tokens = tokens // decision.n_shards
     token_group = mesh.group(decision.axes) if decision.axes else None
     index = mesh.index(decision.axes)
     xs = x2d
     if decision.axes:
-        xs = _TakeBlock.apply(xs, 0, index, decision.n_shards, token_group)
+        xs = _TakeBlock.apply(xs, rows, index, decision.n_shards, token_group)
     cores = list(cores)
     local_in = in_modes
     shared = decision.axes
@@ -323,11 +331,11 @@ def sharded_tt_linear(
         # column block IS a slice of the leading input mode j1; cores are
         # ordered out_modes then in_modes, so j1's core sits at index
         # len(out_modes), its mode along dim 1 (interior (r, m, r) and
-        # final (r, m) cores alike)
+        # final (r, m) cores alike; dim 2 behind the experts' axis)
         if not x_block:
-            xs = _TakeBlock.apply(xs, 1, m, tp, model_group)
+            xs = _TakeBlock.apply(xs, cols, m, tp, model_group)
         j1 = len(out_modes)
-        cores[j1] = _TakeBlock.apply(cores[j1], 1, m, tp, model_group,
+        cores[j1] = _TakeBlock.apply(cores[j1], 1 + batched, m, tp, model_group,
                                      token_group)
         rest = [k for k in range(len(cores)) if k != j1]
     else:
@@ -337,13 +345,14 @@ def sharded_tt_linear(
                                                 *(cores[k] for k in rest))):
             cores[k] = c
     desc = decision.describe(rules.axis_sizes, rules.model_axis)
-    with shard_execution(desc, (shard_tokens, xs.shape[1])):
-        y = planned_tt_linear(lp, xs, cores, local_in, out_modes, ranks)
+    planned = planned_tt_linear_batched if batched else planned_tt_linear
+    with shard_execution(desc, (shard_tokens, xs.shape[cols])):
+        y = planned(lp, xs, cores, local_in, out_modes, ranks)
     y = y.contiguous()
     if decision.model_reduce:
         y = _SumPartials.apply(y, model_group)
     if decision.axes:
-        y = _GatherBlocks.apply(y, 0, index, token_group)
+        y = _GatherBlocks.apply(y, rows, index, token_group)
     return y
 
 

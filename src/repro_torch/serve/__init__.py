@@ -7,6 +7,7 @@ from .request import (
     Completion,
     Request,
     load_trace,
+    save_trace,
     synthetic_trace,
 )
 from .scheduler import SCHEDULES, Scheduler, ServePolicy, ServeResult
@@ -14,6 +15,6 @@ from .scheduler import SCHEDULES, Scheduler, ServePolicy, ServeResult
 __all__ = [
     "ServeEngine",
     "Scheduler", "ServePolicy", "ServeResult", "SCHEDULES",
-    "Request", "Completion", "synthetic_trace", "load_trace",
+    "Request", "Completion", "synthetic_trace", "load_trace", "save_trace",
     "percentile", "summarize",
 ]

@@ -107,6 +107,19 @@ def synthetic_trace(
     return out
 
 
+def save_trace(path: str, requests: Sequence[Request]) -> None:
+    """Write a trace JSON (prompts inlined: fully self-contained), the
+    reference's bytes; :func:`load_trace` reads it back."""
+    rows = [
+        {"arrival": r.arrival, "prompt": list(r.prompt),
+         "gen": r.max_new_tokens}
+        for r in requests
+    ]
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=2)
+        f.write("\n")
+
+
 def load_trace(path: str, vocab: int, *, seed: int = 0) -> list[Request]:
     """Load a request-trace JSON.
 

@@ -722,6 +722,113 @@ def body_moe(spec: dict) -> dict:
     return out
 
 
+#: the sharded routes of the experts' batched projections in the
+#: moe_batched body, on 2 ranks: (mesh shape (data, model), the rules'
+#: options).  ``rows``: the batch whole on every rank, each projection's
+#: rows split over ``data``; ``batch``: each rank its block of the batch
+#: (``batch_split``); ``reduce``: the leading input mode split over
+#: ``model`` and the partial outputs summed; ``seq``: each rank its block
+#: of the positions (``seq_split`` on ``model``)
+MOE_ROUTES = {"rows": ((2, 1), {}),
+              "batch": ((2, 1), {"batch_split": True}),
+              "reduce": ((1, 2), {"tt_model_reduce": True}),
+              "seq": ((1, 2), {"seq_axis": "model", "seq_split": True})}
+
+
+def body_moe_batched(spec: dict) -> dict:
+    """The MoE layer of ``spec["arch"]``'s smoke config (tensorized
+    experts, weights at ``spec["params"]``) under the K1 train plan
+    ``spec["plan"]``, on each route of :data:`MOE_ROUTES` and each input
+    case of ``spec["cases"]`` (``{case: (B, S, router_group,
+    capacity_factor)}``; ``x (B, S, D)`` and ``w`` made with numpy from
+    the seeds 70 and 71): the output gathered whole, the aux loss, dx
+    gathered and every parameter's gradient of ``sum(y w) + aux`` (summed
+    over the ranks whose losses are shares of one loss), the collectives
+    of the forward and of the backward, the same of the shared experts'
+    FFN alone on the same rows (the rest is the routed experts' and the
+    routing's), and the ``moe.*`` execution records."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models import blocks
+    from repro_torch.nn import install_plan
+    from repro_torch.nn.mlp import mlp_apply
+    from repro_torch.nn.moe import moe_apply
+    from repro_torch.plan import execution_log, load_plan, reset_execution_log
+    from repro_torch.plan.sharded import (BWD_COLLECTIVES, COLLECTIVES,
+                                          reset_collectives)
+    from repro_torch.sharding import ShardingRules, use_rules
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = get_config(spec["arch"], smoke=True)
+    base = blocks.moe_spec(cfg)
+    install_plan(load_plan(spec["plan"]))
+    out = {}
+    try:
+        for route, (shape, options) in MOE_ROUTES.items():
+            mesh = _mesh(shape, ("data", "model"))
+            rules = ShardingRules(axis_sizes=dict(mesh.shape), mesh=mesh, **options)
+            # the dim a rank holds its block of and its axis (None: the
+            # whole input on every rank)
+            dim, axis = {"batch": (0, "data"), "seq": (1, "model")}.get(
+                route, (None, None))
+            if axis is not None:
+                group, index = mesh.group((axis,)), mesh.coords[axis]
+            for case, (b, s, router_group, cf) in spec["cases"].items():
+                moe = dataclasses.replace(base, router_group=router_group,
+                                          capacity_factor=cf)
+                x, w = (torch.from_numpy(np.random.default_rng(seed).normal(
+                    size=(b, s, cfg.d_model)).astype(np.float32)) for seed in (70, 71))
+                if dim is not None:
+                    size = x.shape[dim] // 2
+                    x, w = (t.narrow(dim, index * size, size).contiguous()
+                            for t in (x, w))
+                params = torch.load(spec["params"], weights_only=False)
+                for p in leaves(params):
+                    p.requires_grad_(True)
+                xs = x.requires_grad_(True)
+                reset_collectives()
+                reset_execution_log()
+                with use_rules(rules):
+                    y, aux = moe_apply(moe, params, xs)
+                    fwd = dict(COLLECTIVES)
+                    shares = 1 if dim is None else 2
+                    ((y * w).sum() + aux / shares).backward()
+                bwd = dict(BWD_COLLECTIVES)
+                records = [(r["name"], r["phase"], r.get("wrt"), r["tokens"],
+                            r["mesh"]) for r in execution_log()
+                           if r["name"].startswith("moe.")]
+                shared = torch.load(spec["params"], weights_only=False)["shared"]
+                for p in leaves(shared):
+                    p.requires_grad_(True)
+                reset_collectives()
+                with use_rules(rules):
+                    ys = mlp_apply(moe.shared_spec, shared,
+                                   x.detach().requires_grad_(True))
+                    shared_fwd = dict(COLLECTIVES)
+                    (ys * w).sum().backward()
+                grads = map_tree(lambda p: p.grad, params)
+                dx, y = xs.grad, y.detach()
+                if dim is not None:
+                    for t in leaves(grads):
+                        dist.all_reduce(t, group=group)
+                    parts = [[torch.empty_like(t) for _ in range(2)] for t in (y, dx)]
+                    dist.all_gather(parts[0], y.contiguous(), group=group)
+                    dist.all_gather(parts[1], dx.contiguous(), group=group)
+                    y, dx = (torch.cat(p, dim) for p in parts)
+                out[(route, case)] = {
+                    "y": y, "aux": float(aux), "dx": dx,
+                    "grads": named_leaves(grads), "fwd": fwd, "bwd": bwd,
+                    "shared": {"fwd": shared_fwd, "bwd": dict(BWD_COLLECTIVES)},
+                    "records": records}
+    finally:
+        install_plan(None)
+    return out
+
+
 #: rwkv6-smoke's batch in the rwkv body: 2 sequences of 8 tokens
 RWKV_BATCH = (2, 8)
 
@@ -1083,8 +1190,8 @@ def body_seq_parallel(spec: dict) -> dict:
     (loss, every gradient leaf, the step's collectives), the dense config's
     also under ``remat="full"``; then two lanes served under the rules of
     :data:`SP_DECODE_CELL` (each lane's KV cache a
-    rank's block of the positions; grok without a plan, its experts'
-    calls being data-dependent): the prefill logits, first tokens, one
+    rank's block of the positions; grok without a plan): the prefill
+    logits, first tokens, one
     decode step's logits and collectives, and the rank's cache shapes."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import batch_layout, make_rules
@@ -1504,4 +1611,5 @@ BODIES = {"seq_parallel": body_seq_parallel, "cuda_sps": body_cuda_sps,
           "seq_parallel_states": body_seq_parallel_states, "cuda_sp": body_cuda_sp, "model_axis": body_model_axis, "model_axis_states": body_model_axis_states, "linear": body_linear, "serve": body_serve, "cuda_train": body_cuda_train,
           "train_layers": body_train_layers, "train_model": body_train_model,
           "train_adamw": body_train_adamw, "train_cli": body_train_cli,
-          "lanes": body_lanes, "moe": body_moe, "rwkv": body_rwkv}
+          "lanes": body_lanes, "moe": body_moe, "moe_batched": body_moe_batched,
+          "rwkv": body_rwkv}

@@ -994,7 +994,9 @@ def test_measure_functions_time_by_graph_replay_on_the_card(cuda_device,
     secs.append(measure.measure_per_step(tn, steps, device=cuda_device))
     assert len(graphs) == len(secs)
     assert all(math.isfinite(s) and 0 < s < 0.1 for s in secs), secs
-    assert all(v > 0 for v in launches.snapshot().values()), launches.snapshot()
+    # every unbatched kernel (the tuner measures no experts' batched launch)
+    assert all(v > 0 for k, v in launches.snapshot().items()
+               if not k.endswith("_batched")), launches.snapshot()
 
 
 @pytest.mark.cuda
@@ -1367,6 +1369,184 @@ def test_grad_compress_train_step_cuda_matches_cpu(cuda_device, tmp_path):
     assert sum(got.launches[0][f"tt_gemm_{df}"] for df in ("os", "ws", "is")) > 0
     np.testing.assert_allclose(got.losses + got.grad_norms,
                                want.losses + want.grad_norms, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the experts' batched launch (full-width qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 60
+#: (plan file, layer, slots an expert): the decode step's 4 lanes (4
+#: slots), and the train step's 4 x 512 tokens (4 groups x 43 slots)
+MOE_BATCHED = [("qwen2-moe-a2.7b.pair.decode.json", "moe.ed", 4),
+               ("qwen2-moe-a2.7b.train.json", "moe.eu", 172),
+               ("qwen2-moe-a2.7b.train.json", "moe.ed", 172)]
+
+
+def _moe_layer(plan_file: str, name: str):
+    """(LayerPlan, the projection's network) of a committed qwen2-moe plan."""
+    _, tn = plan_layer(plan_file, name)
+    lp = next(l for l in load_plan(str(PLANS / plan_file)).layers if l.name == name)
+    return lp, tn
+
+
+def _stacked(shapes, seed, device, scale=1.0):
+    return [torch.from_numpy(_np((MOE_EXPERTS,) + tuple(d), seed + i, scale)).to(device)
+            for i, d in enumerate(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_file,name,slots", MOE_BATCHED)
+def test_streaming_tt_batched_cuda_matches_plain_and_unbatched(cuda_device, plan_file,
+                                                               name, slots):
+    """Batched K1 over all 60 experts at the full-width decode and train
+    shapes, forward and (train plan) the dx network along its planned
+    backward path: one launch sequence, one count; within 1e-4 of the
+    output's scale against the batched plain version; every expert bit for
+    bit the unbatched launch on its own rows."""
+    lp, tn = _moe_layer(plan_file, name)
+    calls = [(tn, lp.path_steps, lp.tiling.block_tokens)]
+    calls += [(grad_input_network(tn), op.path_steps, op.tiling.block_tokens)
+              for op in lp.backward if op.wrt == "dx"]
+    for net, steps, block in calls:
+        bt = ops.clamp_block(block, slots)
+        net = streaming_tt._rebatch(net, bt)
+        path = as_candidate_path(net, steps)
+        n_in = int(np.prod(streaming_tt._stream_node(net).dims[1:]))
+        cores = _stacked([n.dims for n in net.nodes if n.kind != "input"], 300,
+                         cuda_device, 0.2)
+        x = _stacked([(slots, n_in)], 310, cuda_device)[0]
+        launches.reset()
+        got = streaming_tt.streaming_tt_linear_batched(x, cores, net, path)
+        assert launches.COUNTS["streaming_tt_batched"] == 1
+        want = streaming_tt.streaming_tt_linear_batched_plain(x, cores, net, path)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+        for e in range(MOE_EXPERTS):
+            one = streaming_tt.streaming_tt_linear(x[e], [c[e] for c in cores], net,
+                                                   path, block_tokens=bt)
+            assert torch.equal(got[e], one), e
+        assert launches.COUNTS["streaming_tt"] == MOE_EXPERTS
+
+
+def moe_grad_gemms():
+    """(M, K, N) and the clamped blocks of every weight-gradient GEMM of the
+    full-width train plan's ``moe.eu`` and ``moe.ed`` at 172 slots."""
+    from repro_torch.core.backward import backward_networks
+
+    out = set()
+    for _, name, slots in MOE_BATCHED[1:]:
+        lp, tn = _moe_layer("qwen2-moe-a2.7b.train.json", name)
+        ops_ = {op.wrt: op for op in lp.backward}
+        for wrt, net in backward_networks(streaming_tt._rebatch(tn, slots)):
+            if wrt == "dx":
+                continue
+            t = ops_[wrt].tiling
+            for g in net.gemm_sequence(ops_[wrt].path_steps):
+                out.add((g.M, g.K, g.N, ops.clamp_block(t.block_m, g.M),
+                         ops.clamp_block(t.block_k, g.K),
+                         ops.clamp_block(t.block_n, g.N)))
+    return sorted(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", moe_grad_gemms())
+def test_tt_gemm_batched_cuda_matches_plain_and_unbatched(cuda_device, case):
+    """Batched K3 (WS) over all 60 experts at every weight-gradient GEMM of
+    the experts' train plan: one launch sequence, one count; within 1e-5 of
+    the output's scale against the batched plain version; every expert bit
+    for bit the unbatched K3 launch."""
+    m, k, n, bm, bk, bn = case
+    a, = _stacked([(m, k)], 320, cuda_device)
+    b, = _stacked([(k, n)], 321, cuda_device)
+    blk = dict(block_m=bm, block_k=bk, block_n=bn)
+    launches.reset()
+    got = tt_gemm.tt_gemm_batched(a, b, dataflow="WS", **blk)
+    assert launches.COUNTS["tt_gemm_ws_batched"] == 1
+    want = tt_gemm.tt_gemm_batched_plain(a, b, dataflow="WS", **blk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * max(1.0, want.abs().max().item()))
+    for e in range(MOE_EXPERTS):
+        assert torch.equal(got[e], tt_gemm.tt_gemm(a[e], b[e], dataflow="WS", **blk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["eu", "ed"])
+def test_planned_batched_projection_cuda_equals_unbatched_calls(cuda_device, name):
+    """The train plan's expert projection at 60 x 172 slots through
+    ``planned_tt_linear_batched`` (batched K1 forward and dx, batched K3
+    for every core gradient): the output and every gradient bit for bit
+    those of 60 unbatched ``planned_tt_linear`` calls; the batched call
+    launches only the batched kernels."""
+    from repro_torch.models import blocks
+    from repro_torch.plan import planned_tt_linear_batched
+
+    spec = {"eu": blocks.moe_spec(get_config("qwen2-moe-a2.7b")).expert_up,
+            "ed": blocks.moe_spec(get_config("qwen2-moe-a2.7b")).expert_down}[name]
+    lp, _ = _moe_layer("qwen2-moe-a2.7b.train.json", f"moe.{name}")
+    geometry = (spec.in_modes, spec.out_modes, spec.tt_ranks)
+    cores = _stacked([n.dims for n in spec.network(172).nodes if n.kind != "input"],
+                     330, cuda_device, 0.2)
+    x, w = _stacked([(172, spec.d_in), (172, spec.d_out)], 340, cuda_device)
+    leaves = [x.clone().requires_grad_(True)] + [c.clone().requires_grad_(True)
+                                                 for c in cores]
+    launches.reset()
+    y = planned_tt_linear_batched(lp, leaves[0], leaves[1:], *geometry)
+    (y * w).sum().backward()
+    torch.cuda.synchronize()
+    counts = dict(launches.COUNTS)
+    assert counts["streaming_tt_batched"] == 2 and counts["tt_gemm_ws_batched"] > 0
+    assert sum(v for k, v in counts.items() if not k.endswith("_batched")) == 0
+    for e in range(MOE_EXPERTS):
+        one = [x[e].clone().requires_grad_(True)] + [c[e].clone().requires_grad_(True)
+                                                     for c in cores]
+        ye = planned_tt_linear(lp, one[0], one[1:], *geometry)
+        (ye * w[e]).sum().backward()
+        assert torch.equal(y[e], ye), e
+        for batched, single in zip(leaves, one):
+            assert torch.equal(batched.grad[e], single.grad), e
+
+
+@pytest.mark.cuda
+def test_moe_layer_makes_no_host_sync_on_the_card(cuda_device):
+    """One full-width qwen2-moe-a2.7b MoE layer (60 experts, bf16 as
+    configured) under the train plan, batch 4 x seq 512: after one warm-up
+    call, a forward and backward under ``torch.cuda.set_sync_debug_mode
+    ("error")`` raise nothing; the experts ran on the batched kernels."""
+    from repro_torch.models import blocks
+    from repro_torch.nn import install_plan, moe
+
+    from repro_torch.tree import leaves
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    spec = blocks.moe_spec(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params = moe.moe_init(spec, torch.Generator().manual_seed(0), dtype, cuda_device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    x = torch.from_numpy(_np((4, 512, cfg.d_model), 360)).to(
+        cuda_device, dtype).requires_grad_(True)
+    install_plan(load_plan(str(PLANS / "qwen2-moe-a2.7b.train.json")))
+    try:
+        y, aux = moe.moe_apply(spec, params, x)
+        (y.float().sum() + aux).backward()
+        torch.cuda.synchronize()
+        launches.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_apply(spec, params, x)
+            (y.float().sum() + aux).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        install_plan(None)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(x.grad.float()).all()
+    assert launches.COUNTS["streaming_tt_batched"] == 6
+    assert launches.COUNTS["tt_gemm_ws_batched"] > 0
 
 
 # ---------------------------------------------------------------------------

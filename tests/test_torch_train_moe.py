@@ -37,10 +37,10 @@ def one_step_of_two_tokens(family):
 def test_an_expert_with_no_kept_token_gets_zero_gradients(family, backend,
                                                            one_step_of_two_tokens):
     """Each layer leaves at least two experts without a token.  On a kernel
-    plan the port calls no kernel for them; their gradient slices are
-    exact zeros (the reference's ``vmap`` computes zeros there), so after
-    one AdamW step their moments are zero and their weights have only
-    decayed, as in the reference."""
+    plan the batched call runs them too, at zero input, as the reference's
+    ``vmap`` does; their gradient slices are exact zeros, so after one
+    AdamW step their moments are zero and their weights have only decayed,
+    as in the reference."""
     batch, rgrads, rparams, ropt = one_step_of_two_tokens
     install_plan(family.plan(backend))
     params = family.params()
